@@ -94,7 +94,10 @@ def params_from_numpy(tree: Dict[str, Any], device='cuda') -> Dict[str, Any]:
 
 
 def load_workspace(src: str, device='cuda'):
-    """Returns (ModelConfig, EngineConfig | None, params)."""
+    """Returns (ModelConfig, EngineConfig | None, params, kv_scales | None);
+    ``kv_scales`` are the workspace's calibrated KV qparams, four lists
+    (k_scale, k_zp, v_scale, v_zp) as ``lite/apis/kv_qparams.py`` writes
+    them."""
     with open(osp.join(src, 'config.json')) as f:
         payload = json.load(f)
     cfg = ModelConfig.from_dict(payload['model'])
@@ -122,7 +125,8 @@ def load_workspace(src: str, device='cuda'):
         else:
             node, leaf = _node(tree, key)
             node[leaf] = t
-    return cfg, ecfg, params_from_numpy(tree, device)
+    return (cfg, ecfg, params_from_numpy(tree, device),
+            payload.get('kv_scales'))
 
 
 def _node(tree: dict, key: str):

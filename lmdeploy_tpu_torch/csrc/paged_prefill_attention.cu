@@ -2,11 +2,15 @@
 // interface.
 //
 // Replaces the TPU kernel lmdeploy_tpu/ops/pallas/prefill_attention.py::
-// paged_prefill_attention_batched (_prefill_kernel).  Causal attention of a
-// chunk q [B, T, H, Dh] at absolute positions start_pos[b] + t over the
-// paged history plus the chunk (already written to the pool), mask
-// kv_pos <= q_pos && kv_pos < context_end[b], fp32 online softmax, scale
-// Dh^-0.5.  Output [B, T, H, Dh] in q's dtype (bf16).
+// paged_prefill_attention_batched (_prefill_kernel) at kv_bits 0 (bf16
+// pool), 8 (int8 pool) and 4 (nibble-packed uint8 pool, last dim Dh/2,
+// half-split: byte j holds feature j low and j + Dh/2 high); the quantised
+// widths are dequantised as (q - zp) * scale with the layer's qparams
+// (k_scale, k_zp, v_scale, v_zp) while the KV tile is loaded.  Causal
+// attention of a chunk q [B, T, H, Dh] at absolute positions
+// start_pos[b] + t over the paged history plus the chunk (already written
+// to the pool), mask kv_pos <= q_pos && kv_pos < context_end[b], fp32
+// online softmax, scale Dh^-0.5.  Output [B, T, H, Dh] in q's dtype (bf16).
 //
 // Grid (B, ceil(T / QB), KH) with QB = 64 / G query tokens per block, so a
 // block holds 64 q rows (QB tokens x the G heads of kv head kh) in shared
@@ -17,9 +21,9 @@
 // come out as zeros; the JAX kernel leaves a different finite value there,
 // and both are discarded upstream.
 //
-// Bound: bytes (the chunk's q/out plus the visible KV) at a 512-token
-// chunk; 4*T*ctx*Dh*H operations (/2 for the causal half).  This first
-// version is SIMT fp32 (register tiles of 4x4 scores and 4x8 outputs per
+// Bound: bytes (the chunk's q/out plus the visible KV at 2, 1 or 0.5
+// bytes per element) at a 512-token chunk; 4*T*ctx*Dh*H operations (/2
+// for the causal half).  This first version is SIMT fp32 (register tiles of 4x4 scores and 4x8 outputs per
 // thread); tensor cores come with a later change.
 //
 // Returns cudaGetLastError() after the launch.
@@ -66,15 +70,46 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// 8 features d..d+7 (d a multiple of 8) of one pool row -> f32.
+template <int BITS>
+__device__ __forceinline__ void load8(const uint8_t* row, int d, float scale,
+                                      float zp, float* f) {
+  if constexpr (BITS == 0) {
+    bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + 2 * d), f);
+  } else if constexpr (BITS == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(row + d);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t w = e < 4 ? raw.x : raw.y;
+      const int v = (int)(int8_t)((w >> (8 * (e & 3))) & 0xFFu);
+      f[e] = ((float)v - zp) * scale;
+    }
+  } else {
+    // features d..d+7 sit in bytes d % 64 .. +7, low nibbles below 64
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(row + (d & (kDh / 2 - 1)));
+    const int shift = d < kDh / 2 ? 0 : 4;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t w = e < 4 ? raw.x : raw.y;
+      const uint32_t n = (w >> (8 * (e & 3) + shift)) & 0xFu;
+      f[e] = ((float)((int)(n ^ 8u) - 8) - zp) * scale;
+    }
+  }
+}
+
+template <int BITS>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ kp,
-              const __nv_bfloat16* __restrict__ vp,
+              const uint8_t* __restrict__ kp,
+              const uint8_t* __restrict__ vp,
               const int* __restrict__ page_tables,
               const int* __restrict__ start_pos,
               const int* __restrict__ context_end,
+              const float* __restrict__ qparams,
               __nv_bfloat16* __restrict__ out, int T, int H, int KH, int G,
               int page_size, int max_pages, float scale) {
+  constexpr int kRow = BITS == 0 ? 2 * kDh : (BITS == 8 ? kDh : kDh / 2);
   extern __shared__ float smem[];
   float* qs = smem;                             // [kRows][kQStride]
   float* ks = qs + kRows * kQStride;            // [kTile][kKStride]
@@ -94,6 +129,13 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
   const int t0 = qb * QB;                       // first chunk token
   const int t_last = min(t0 + QB, T) - 1;
   const int kv_cap = max_pages * page_size;
+  float k_s = 1.f, k_z = 0.f, v_s = 1.f, v_z = 0.f;   // qparams
+  if (BITS != 0) {
+    k_s = qparams[0];
+    k_z = qparams[1];
+    v_s = qparams[2];
+    v_z = qparams[3];
+  }
 
   // q rows: r = t_local * G + g  ->  token t0 + t_local, head kh*G + g
   for (int i = tid; i < kRows * (kDh / 8); i += kThreads) {
@@ -137,9 +179,9 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
       if (pos < ctx_end && pos < kv_cap) {
         const int phys = max(ptb[pos / page_size], 0);
         const size_t off =
-            (((size_t)phys * page_size + pos % page_size) * KH + kh) * kDh + d;
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(kp + off), fk);
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(vp + off), fv);
+            (((size_t)phys * page_size + pos % page_size) * KH + kh) * kRow;
+        load8<BITS>(kp + off, d, k_s, k_z, fk);
+        load8<BITS>(vp + off, d, v_s, v_z, fv);
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -247,40 +289,70 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int BITS>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* page_tables, const void* start_pos,
+                   const void* context_end, const void* qparams, void* out,
+                   int B, int T, int H, int KH, int page_size, int max_pages,
+                   float scale, cudaStream_t st) {
+  static bool smem_set = false;  // once, outside any graph capture
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int G = H / KH;
+  const int QB = kRows / G;
+  const dim3 grid(B, (T + QB - 1) / QB, KH);
+  paged_prefill<BITS><<<grid, kThreads, kSmemBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const uint8_t*>(k_pool), static_cast<const uint8_t*>(v_pool),
+      static_cast<const int*>(page_tables), static_cast<const int*>(start_pos),
+      static_cast<const int*>(context_end),
+      static_cast<const float*>(qparams), static_cast<__nv_bfloat16*>(out), T,
+      H, KH, G, page_size, max_pages, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// k_pool/v_pool point at ONE layer of the pool, [P, page, KH, Dh] bf16;
-// page_tables [B, max_pages], start_pos [B], context_end [B] are int32.
+// k_pool/v_pool point at ONE layer of the pool: [P, page, KH, Dh] bf16
+// (kv_bits 0) or int8 (8), [P, page, KH, Dh/2] uint8 (4); page_tables
+// [B, max_pages], start_pos [B], context_end [B] are int32; qparams f32 [4]
+// (kv_bits 8, 4; may be null for 0).
 int lmd_paged_prefill_attention(const void* q, const void* k_pool,
                                 const void* v_pool, const void* page_tables,
                                 const void* start_pos, const void* context_end,
-                                void* out, int B, int T, int H, int KH, int Dh,
-                                int page_size, int max_pages, float scale,
+                                const void* qparams, void* out, int B, int T,
+                                int H, int KH, int Dh, int page_size,
+                                int max_pages, int kv_bits, float scale,
                                 void* stream) {
   if (Dh != kDh || KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
   const int G = H / KH;
   if (G > kRows || kRows % G != 0) return (int)cudaErrorInvalidValue;
-  const int QB = kRows / G;
-  static bool smem_set = false;  // once, outside any graph capture
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+  if (kv_bits != 0 && qparams == nullptr) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return (int)cudaSuccess;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (kv_bits) {
+    case 0:
+      return (int)launch<0>(q, k_pool, v_pool, page_tables, start_pos,
+                            context_end, qparams, out, B, T, H, KH, page_size,
+                            max_pages, scale, st);
+    case 8:
+      return (int)launch<8>(q, k_pool, v_pool, page_tables, start_pos,
+                            context_end, qparams, out, B, T, H, KH, page_size,
+                            max_pages, scale, st);
+    case 4:
+      return (int)launch<4>(q, k_pool, v_pool, page_tables, start_pos,
+                            context_end, qparams, out, B, T, H, KH, page_size,
+                            max_pages, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(B, (T + QB - 1) / QB, KH);
-  paged_prefill<<<grid, kThreads, kSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<const int*>(page_tables), static_cast<const int*>(start_pos),
-      static_cast<const int*>(context_end), static_cast<__nv_bfloat16*>(out),
-      T, H, KH, G, page_size, max_pages, scale);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

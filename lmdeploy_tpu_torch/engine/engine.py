@@ -8,10 +8,16 @@ batched chunked prefill bounded by a token budget, decode rounds of
 ``step_length`` sub-steps with one [5, k, B] readback, stop criteria,
 retirement and interactive sessions follow the JAX engine.
 
+The KV pool is bf16 (``quant_policy`` 0), int8 (``quant_policy`` 4, with
+the workspace's calibrated per-layer ``kv_scales``, or scale 1 and zero
+point 0 without them, as the JAX engine does) or nibble-packed int4
+(``quant_policy`` 8 with calibrated per-layer ``kv_scales``).
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-item): tp / pp / dp > 1, KV quantisation (quant_policy != 0), speculative
-decoding (speculative_k > 0), cross-session prefix caching, any request
-that is not plain greedy, and the prompt-logits path.
+item): tp / pp / dp > 1, dynamic per-token int4 KV (``quant_policy`` 8
+without ``kv_scales``) and per-head int4 qparams, speculative decoding
+(speculative_k > 0), cross-session prefix caching, any request that is
+not plain greedy, and the prompt-logits path.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 from ..config import EngineConfig, ModelConfig
 from ..kvcache.manager import (GroupedSequenceManager, NoFreePages,
                                PageAllocator, SequenceManager)
-from ..kvcache.paged import init_cache
+from ..kvcache.paged import KV_WIDTHS, init_cache, kv_bits_named
 from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
                         ResponseType)
 from ..ops.sampling import MAX_STOP_BAD_WORDS
@@ -90,16 +96,21 @@ class TorchEngine:
     :meth:`create_instance`."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                 params: Dict[str, Any], device='cuda', start: bool = True):
+                 params: Dict[str, Any], device='cuda', start: bool = True,
+                 kv_scales=None):
         self.device = resolve_device(device)
         if max(engine_cfg.tp, engine_cfg.pp, engine_cfg.dp) > 1:
             raise NotImplementedError(
                 'tp/pp/dp > 1: parallelism is not ported yet '
                 '(ROADMAP.md Queue 1 item 12)')
-        if engine_cfg.quant_policy != 0:
+        kv_bits = kv_bits_named(engine_cfg.kv_dtype)
+        kv_scales = kv_scales if kv_bits else None
+        if kv_bits == 4 and kv_scales is None:
             raise NotImplementedError(
-                'quant_policy != 0: KV quantisation is not ported yet '
-                '(ROADMAP.md Queue 1 item 8)')
+                'quant_policy 8 without kv_scales: dynamic per-token int4 '
+                'KV is not ported yet (ROADMAP.md Queue 1 item 8)')
+        self._kv_width = KV_WIDTHS[kv_bits]
+        self._kv_scales = kv_scales
         if engine_cfg.speculative_k > 0:
             raise NotImplementedError(
                 'speculative_k > 0: speculative decoding is not ported yet '
@@ -148,11 +159,11 @@ class TorchEngine:
 
     # -- construction helpers -------------------------------------------------
     def _alloc_device_state(self):
-        """Fresh bf16 KV pool + decode state on the engine's device."""
+        """Fresh KV pool + decode state on the engine's device."""
         cache = init_cache(self.cfg.num_layer, self.num_pages,
                            self.ecfg.page_size, self.cfg.kv_head_num,
-                           self.cfg.size_per_head, torch.bfloat16,
-                           device=self.device)
+                           self.cfg.size_per_head, self._kv_width.dtype,
+                           device=self.device, kv_scales=self._kv_scales)
         state = S.init_decode_state(self.ecfg.max_batch_size,
                                     self.max_pages_per_seq, self.session_len,
                                     eos_id=self.cfg.end_id,
@@ -174,8 +185,9 @@ class TorchEngine:
         max_batch_size full sessions (CPU)."""
         if self.device.type != 'cuda':
             return self.ecfg.max_batch_size * self.max_pages_per_seq
-        bytes_per_tok = (self.cfg.num_layer * 2 * self.cfg.kv_head_num
-                         * self.cfg.size_per_head * 2)
+        bytes_per_tok = int(self.cfg.num_layer * 2 * self.cfg.kv_head_num
+                            * self.cfg.size_per_head
+                            * self._kv_width.elem_bytes)
         free, _ = torch.cuda.mem_get_info(self.device)
         pages = int(free * self.ecfg.hbm_utilization
                     // (bytes_per_tok * self.ecfg.page_size))

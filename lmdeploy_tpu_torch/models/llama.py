@@ -9,15 +9,26 @@ layer:
   rms_norm -> W4A16 wqkv -> rope -> attention -> W4A16 wo (+ residual)
   -> rms_norm -> W4A16 w1, w3 -> silu * up -> W4A16 w2 (+ residual)
 
-Attention is the hand-written kernels' path: decode (T == 1) runs the
-fused KV-append + paged attention kernel; chunks (T > 1) scatter their
-K/V (:func:`write_kv`) and run the paged prefill kernel.  The pool is
-updated in place.  The lm_head is a plain ``torch.matmul``, as the JAX
-package leaves it to XLA.
+Attention is the hand-written kernels' path, at every KV width of the
+pool (bf16, int8, nibble-packed int4 with static per-layer qparams).
+Decode (T == 1) takes one of three routes, chosen by the JAX package's
+two switches with its defaults:
+
+- ``LMDEPLOY_TPU_FUSED_ATTN`` (default 1): the fused KV-append + paged
+  attention kernel;
+- ``LMDEPLOY_TPU_FUSED_ATTN=0``: :func:`write_kv`, then the attend-only
+  kernel;
+- ``LMDEPLOY_TPU_FUSED_ROPE=1`` (default 0, with fused attention): rope,
+  append and attend in one kernel.
+
+Chunks (T > 1) scatter their K/V (:func:`write_kv`) and run the paged
+prefill kernel.  The pool is updated in place.  The lm_head is a plain
+``torch.matmul``, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -25,13 +36,28 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..kvcache.paged import KVCache, write_kv
-from ..ops.cuda.paged_attention import paged_decode_attention_write
+from ..ops.cuda.paged_attention import (paged_decode_attention,
+                                        paged_decode_attention_rope_write,
+                                        paged_decode_attention_write,
+                                        rope_full_tables)
 from ..ops.cuda.prefill_attention import paged_prefill_attention
 from ..ops.linear import (PackedInt4Weight, QuantizedWeight, linear,
                           pack_quantized, quant_matmul_packed,
                           quantize_weight_int4)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_qk, rope_tables
+
+
+def fused_attn_enabled() -> bool:
+    """Decode through the fused append + attend kernel (the JAX package's
+    ``LMDEPLOY_TPU_FUSED_ATTN``, default on)."""
+    return os.environ.get('LMDEPLOY_TPU_FUSED_ATTN', '1') == '1'
+
+
+def fused_rope_enabled() -> bool:
+    """Rope inside the fused decode kernel (the JAX package's
+    ``LMDEPLOY_TPU_FUSED_ROPE``, default off)."""
+    return os.environ.get('LMDEPLOY_TPU_FUSED_ROPE', '0') == '1'
 
 
 @dataclasses.dataclass
@@ -161,6 +187,7 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
     """The layer loop on an embedded activation [B, T, D]; returns the
     final hidden state.  The pool is updated in place."""
     b, t = batch.ids.shape
+    dh = cfg.size_per_head
     tables = rope_tables(
         batch.positions, batch.context_len,
         rotary_dim=cfg.rotary_embedding, base=cfg.rope_theta,
@@ -172,24 +199,46 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         rope_original_max=cfg.rope_original_max_position,
         rope_low_freq_factor=cfg.rope_low_freq_factor,
         rope_high_freq_factor=cfg.rope_high_freq_factor)
+    # per-layer static qparams, [L, 4] on the device (kernels read a row)
+    qp = cache.qparams if cache.quantized else None
+    fused_attn = fused_attn_enabled()
+    fused_rope = t == 1 and fused_attn and fused_rope_enabled()
+    if fused_rope:
+        cos_f, sin_f = rope_full_tables(tables[0][:, 0], tables[1][:, 0], dh)
+        qscale = (tables[2][:, 0].float() if tables[2] is not None
+                  else torch.ones((b,), dtype=torch.float32, device=h.device))
     lw = params['layers']
     for li in range(cfg.num_layer):
         bqkv = lw['bqkv'][li] if 'bqkv' in lw else None
         x = rms_norm(h, lw['attn_norm'][li], cfg.norm_eps)
         q, k, v = _split_qkv(_layer_linear(x, lw['wqkv'], li, bqkv), cfg)
-        q, k = apply_rope_qk(q, k, tables)
-        if t == 1:
+        qp_l = None if qp is None else qp[li]
+        if fused_rope:
+            # q and k arrive unrotated: rope, append and attend, one kernel
+            o = paged_decode_attention_rope_write(
+                q[:, 0], k[:, 0], v[:, 0], cos_f, sin_f, qscale, cache.k,
+                cache.v, li, batch.page_table, batch.context_len,
+                batch.valid[:, 0], qp_l, half=cfg.rotary_embedding // 2)
+            o = o[:, None]
+        elif t == 1 and fused_attn:
+            q, k = apply_rope_qk(q, k, tables)
             o = paged_decode_attention_write(
                 q[:, 0], k[:, 0].contiguous(), v[:, 0].contiguous(),
                 cache.k, cache.v, li, batch.page_table, batch.context_len,
-                batch.valid[:, 0])[:, None]
+                batch.valid[:, 0], qp_l)[:, None]
         else:
+            q, k = apply_rope_qk(q, k, tables)
             write_kv(cache.k, cache.v, li, k, v, batch.positions,
-                     batch.page_table, batch.valid)
-            o = paged_prefill_attention(q, cache.k, cache.v, li,
-                                        batch.page_table,
-                                        batch.positions[:, 0],
-                                        batch.context_len)
+                     batch.page_table, batch.valid, qp_l)
+            if t == 1:
+                o = paged_decode_attention(
+                    q[:, 0], cache.k, cache.v, li, batch.page_table,
+                    batch.context_len, qp_l)[:, None]
+            else:
+                o = paged_prefill_attention(q, cache.k, cache.v, li,
+                                            batch.page_table,
+                                            batch.positions[:, 0],
+                                            batch.context_len, qp_l)
         o = _layer_linear(o.reshape(b, t, -1), lw['wo'], li)
         if 'bo' in lw:
             o = o + lw['bo'][li]
@@ -252,6 +301,7 @@ def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return logits.masked_fill(pad, -1e30)
 
 
-__all__ = ['StepBatch', 'vocab_padded', 'init_params', 'quantize_params',
+__all__ = ['StepBatch', 'fused_attn_enabled', 'fused_rope_enabled',
+           'vocab_padded', 'init_params', 'quantize_params',
            'packable', 'pack_params', 'embed_tokens', 'forward_layers',
            'lm_head_logits', 'forward', 'mask_vocab_padding']

@@ -39,10 +39,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     'lmd_w4a16_gemm': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    'lmd_paged_decode_attention_write': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                         _I, _I, _I, _I, _I, _I, _F, _P),
-    'lmd_paged_prefill_attention': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _P),
+    'lmd_paged_decode_attention': (_I,) + (_P,) * 13 + (_I,) * 8
+                                  + (_F, _P),
+    'lmd_paged_prefill_attention': (_P,) * 8 + (_I,) * 8 + (_F, _P),
 }
 
 

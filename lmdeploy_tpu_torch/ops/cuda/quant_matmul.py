@@ -25,9 +25,9 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .counts import LAUNCHES, PLAIN_CALLS
 
-LAUNCHES = 0      # kernel launches by :func:`w4a16_gemm`
-PLAIN_CALLS = 0   # calls of :func:`w4a16_gemm_plain`
+NAME = 'w4a16_gemm'
 
 
 def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
@@ -39,8 +39,7 @@ def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
 def w4a16_gemm_plain(x: torch.Tensor, packed: torch.Tensor,
                      scales: torch.Tensor, layer: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same arithmetic, f32."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    PLAIN_CALLS[NAME] += 1
     m, k = x.shape
     n = packed.shape[-1]
     s = scales[layer].reshape(-1, n).float()            # [G, N]
@@ -60,7 +59,6 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """
     if x.device.type == 'cpu':
         return w4a16_gemm_plain(x, packed, scales, layer)
-    global LAUNCHES
     m, k = x.shape
     l_dim, k2, n = packed.shape
     g = scales.shape[1]
@@ -87,7 +85,7 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         y.data_ptr(), m, k, n, group,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, 'w4a16_gemm')
-    LAUNCHES += 1
+    LAUNCHES[NAME] += 1
     return y
 
 

@@ -201,7 +201,7 @@ def test_cancel_ends_the_stream(port_engine):
 
 
 @pytest.mark.parametrize('kw', [dict(tp=2), dict(pp=2), dict(dp=2),
-                                dict(quant_policy=4),
+                                dict(quant_policy=8),
                                 dict(speculative_k=4),
                                 dict(enable_prefix_caching=True)])
 def test_unported_engine_options_raise(kw):
@@ -239,7 +239,9 @@ def test_load_workspace_written_by_jax_converter(tmp_path):
     jcfg = JModelConfig(**CFG)
     save_workspace(str(tmp_path), jcfg, jp,
                    JEngineConfig(**dict(ECFG, enable_prefix_caching=True)))
-    cfg, ecfg, params = load_workspace(str(tmp_path), device='cpu')
+    cfg, ecfg, params, kv_scales = load_workspace(str(tmp_path),
+                                                  device='cpu')
+    assert kv_scales is None
     assert cfg == ModelConfig(**CFG)
     assert ecfg.prefill_buckets == (16, 32) and ecfg.page_size == 16
     assert not ecfg.enable_prefix_caching

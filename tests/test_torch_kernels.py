@@ -151,7 +151,8 @@ def test_cpu_tensors_take_the_plain_versions():
         tq[:, None], torch.from_numpy(kc), torch.from_numpy(vc), 0,
         torch.from_numpy(pt), torch.from_numpy(ctx - 1),
         torch.from_numpy(ctx))
-    assert K.launch_counts() == {'w4a16_gemm': (0, 1),
-                                 'paged_decode_attention_write': (0, 1),
-                                 'paged_prefill_attention': (0, 1)}
+    moved = {n: c for n, c in K.launch_counts().items() if c != (0, 0)}
+    assert moved == {'w4a16_gemm': (0, 1),
+                     'paged_decode_attention_write[bf16]': (0, 1),
+                     'paged_prefill_attention[bf16]': (0, 1)}
     K.reset_launch_counts()
