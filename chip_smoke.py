@@ -208,7 +208,7 @@ def check_gemm(torch, ctx, timer):
     n_layers = 8          # timing cycles layers so weights come from HBM
     rows, worst = [], 0.0
     layer = {m: {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
-                 'bytes': 0.0, 'ops': 0.0} for m in (1, ENGINE_SLOTS)}
+                 'bytes': 0.0, 'ops': 0.0} for m in GEMM_ROWS}
     for name, k, n in LLAMA2_7B_GEMMS:
         g = k // 128
         packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
@@ -245,20 +245,23 @@ def check_gemm(torch, ctx, timer):
                 f'(bf16 dequantized) {lib:.4f} ms, bound {bms:.4f} ms '
                 f'({by}), max abs err {err:.2e} (tol {tol:.2e}, scale '
                 f'{scale:.1f})')
-            if m in layer:
-                for key, val in (('ms', ms), ('plain_ms', plain),
-                                 ('library_ms', lib), ('bytes', nbytes),
-                                 ('ops', ops)):
-                    layer[m][key] += val
+            for key, val in (('ms', ms), ('plain_ms', plain),
+                             ('library_ms', lib), ('bytes', nbytes),
+                             ('ops', ops)):
+                layer[m][key] += val
         del deq, packed, scales
         torch.cuda.empty_cache()
     for m in layer:
         layer[m]['bound_ms'], layer[m]['bound_by'] = bound_ms(
             layer[m].pop('bytes'), layer[m].pop('ops'))
+        log(f'  w4a16_gemm one layer M={m}: kernel {layer[m]["ms"]:.4f} ms, '
+            f'torch.matmul {layer[m]["library_ms"]:.4f} ms, bound '
+            f'{layer[m]["bound_ms"]:.4f} ms ({layer[m]["bound_by"]})')
     ctx['kernels']['w4a16_gemm'] = dict(
         shape=f'one Llama-2-7B layer in decode: wqkv+wo+w1+w3+w2, '
               f'M={ENGINE_SLOTS} (the engine runs all its slots)',
-        **layer[ENGINE_SLOTS], m1=layer[1], max_abs_err=worst,
+        **layer[ENGINE_SLOTS], m1=layer[1], layer_by_m=layer,
+        max_abs_err=worst,
         tolerance='1e-3 * max|plain| + 1e-3 (f32 sums in another order)')
     ctx['gemm_rows'] = rows
 
@@ -1019,6 +1022,7 @@ def main(argv=None) -> int:
             library_ms=k.get('library_ms'), library=k.get('library'),
             shape=k.get('shape'), at_bs1=k.get('m1') or k.get('b1'),
             chunk64_over300=k.get('chunk64_over300'),
+            layer_by_m=k.get('layer_by_m'),
             card=ctx.get('card')))
     log(f'total {time.monotonic() - t_all:.1f} s')
     log(ctx.get('card', '?'))       # nvidia-smi name, power.limit

@@ -4,11 +4,13 @@ plain version and its launch counter.
 Replaces ``lmdeploy_tpu/ops/pallas/prefill_attention.py::
 paged_prefill_attention_batched`` (``_prefill_kernel``) with
 ``lmdeploy_tpu_torch/csrc/paged_prefill_attention.cu`` (CUDA C++ for
-sm_90a, grid (B, ceil(T/QB), KH), QB = 64/G query tokens per block), at
-three KV widths: bf16, int8 and nibble-packed int4, the last two
-dequantised with static per-layer ``qparams4`` as the KV tile is loaded.
-The TPU's 8-sublane verify q block and VMEM limit are not ported; T need
-not be padded to a block.
+sm_90a), at three KV widths: bf16, int8 and nibble-packed int4.  It is
+FlashAttention-2 on tensor cores (mma.sync m16n8k16 bf16 -> f32): 16-row
+warps, 64-token KV tiles through a cp.async ring, Q held in registers,
+P fed from registers to P V.  The quantised pools are staged as their
+integer codes (exact in bf16) and the static per-layer ``qparams4`` are
+applied in f32 to the scores and the output.  The TPU's 8-sublane verify
+q block and VMEM limit are not ported; T need not be padded to a block.
 
 Causal attention of chunk rows at positions ``start_pos[b] + t`` over the
 paged history plus the chunk (whose K/V the caller already wrote), mask
@@ -19,7 +21,12 @@ mean of V over the first mapped page.
 
 Bound on an H100 SXM (3.35 TB/s): the bytes of q, out and the visible KV
 (Llama-2-7B, 512-token chunk from 0, bf16 pool: ~16.8 MB per layer ~ 5
-us; ~2.1 GFLOP).  This first kernel is SIMT fp32.
+us; ~2.1 GFLOP, ~2 us at 989 TF/s).  The one rounding the JAX kernel does
+not make is that of P for the tensor cores: P enters P V as two bf16 terms
+(``bf16(p)`` and ``bf16(p - bf16(p))``), ~2^-17 relative per weight; P in
+one bf16 term (2^-9) moves some bf16 outputs of rows with few keys by one
+ulp, 2^-6 at |x| in [2, 4), past the 1e-2 gate
+(``tests/test_torch_prefill_numerics.py`` emulates the arithmetic).
 
 On a CPU tensor the wrapper runs :func:`paged_prefill_attention_plain`;
 on a CUDA tensor it launches the kernel or raises.

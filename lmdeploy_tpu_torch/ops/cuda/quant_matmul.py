@@ -11,11 +11,15 @@ JAX kernel.
 
 Bound on an H100 SXM (3.35 TB/s, 989 TF/s bf16): at decode (M <= 64) the
 packed weight bytes K*N/2 (Llama-2-7B wqkv 25.2 MB ~ 7.5 us); at a
-512-row prefill chunk the 2*M*K*N operations.  The decode kernel reads
-every packed byte once, coalesced along N, split over K with f32 atomics
-(run to run the sum order of the K-split partials changes: a few f32 ulps
-of the output); the prefill kernel is a 64x64-tile mma.sync kernel with
-in-register nibble dequant (see the source's header).
+512-row prefill chunk the 2*M*K*N operations.  The decode kernel runs the
+products on the tensor cores (mma.sync m16n8k16) with the weight as the A
+operand and x^T as B, so M = 8 fills one n8 tile; it reads every packed
+byte once, 16 bytes per load, turns nibbles into exact bf16 by a mantissa
+trick, and sums its split over K with f32 atomics into a zeroed y (run to
+run the sum order changes: a few f32 ulps of the output).  It takes
+N % 16 == 0, K % 16 == 0 and any group that is a multiple of 16 dividing
+K/2.  The prefill kernel is a 64x64-tile mma.sync kernel with in-register
+nibble dequant and group 128 (see the source's header).
 
 On a CPU tensor the wrapper runs :func:`w4a16_gemm_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -69,7 +73,8 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f'w4a16_gemm: bad operands x{tuple(x.shape)} '
                          f'packed{tuple(packed.shape)}/{packed.dtype} '
                          f'scales{tuple(scales.shape)}/{scales.dtype}')
-    if n % 16 or k % 16 or (m > 64 and group != 128):
+    if (n % 16 or k % 16 or group % 16
+            or (m > 64 and group != 128)):
         raise ValueError(f'w4a16_gemm: unsupported shape M={m} K={k} N={n} '
                          f'group={group}')
     if not (packed.is_contiguous() and scales.is_contiguous()):

@@ -202,3 +202,97 @@ def test_prefill_quantized_matches_plain_on_card(cuda_device, kv_bits):
     for i, n in enumerate(lens):
         assert (got[i, :n].float() - want[i, :n].float()).abs().max() \
             .item() <= 1e-2
+
+
+GEMM_SHAPES = [(k, n, group, m)
+               for k, n, group in ((1024, 512, 128), (2816, 528, 128),
+                                   (1536, 256, 48))
+               for m in (1, 2, 3, 5, 8, 9, 16, 33, 64, 65)
+               if m <= 64 or group == 128]   # M > 64 takes group 128 only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,n,group,m', GEMM_SHAPES)
+def test_w4a16_shapes_match_plain_on_card(cuda_device, k, n, group, m):
+    """The decode regime (M <= 64, tensor-core swap-AB kernel) and the
+    prefill regime (M > 64) at ragged shapes: an odd count of half groups
+    (K = 2816: 11 low and 11 high groups), N not a multiple of the block's
+    128 columns, and a group of 48."""
+    rng = np.random.default_rng(k + n + m)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    packed = rng.integers(0, 256, size=(2, k // 2, n), dtype=np.uint8)
+    scales = rng.uniform(0.01, 0.1, size=(2, k // group, 1, n)).astype(
+        np.float32)
+    args = (torch.from_numpy(x).to(cuda_device),
+            torch.from_numpy(packed).to(cuda_device),
+            torch.from_numpy(scales).to(torch.bfloat16).to(cuda_device), 1)
+    got = w4a16_gemm(*args)
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (got - want).abs().max().item() <= tol
+
+
+def _prefill_batch(rng, kv_bits, kh, page, t, histories, device):
+    """One batch of chunks of length t over the given histories, plus a
+    padding row (context_end == start_pos); pages scattered and disjoint."""
+    b = len(histories) + 1
+    starts = list(histories) + [7]
+    lens = [t] * len(histories) + [0]
+    ends = [s + n for s, n in zip(starts, lens)]
+    maxp = -(-max(max(ends), 1) // page) + 1
+    p = b * maxp + 3
+    kc = _quant_pool(rng, (2, p, page, kh, 128), kv_bits, device)
+    vc = _quant_pool(rng, (2, p, page, kh, 128), kv_bits, device)
+    perm = rng.permutation(p)
+    pt = np.full((b, maxp), -1, np.int32)
+    for i, e in enumerate(ends):
+        need = max(1, -(-e // page))
+        pt[i, :need] = perm[:need]
+        perm = perm[need:]
+    as_t = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
+    return kc, vc, as_t(pt), as_t(starts), as_t(ends), lens
+
+
+def _check_prefill(rng, kv_bits, kh, g, page, t, histories, device):
+    kc, vc, pt, sp, ce, lens = _prefill_batch(rng, kv_bits, kh, page, t,
+                                              histories, device)
+    q = torch.from_numpy(rng.normal(size=(len(lens), t, kh * g, 128))
+                         .astype(np.float32)).to(device, torch.bfloat16)
+    qp = (torch.tensor(QPARAMS[kv_bits], device=device) if kv_bits
+          else None)
+    args = (q, kc, vc, 1, pt, sp, ce, qp)
+    got = paged_prefill_attention(*args)
+    want = paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    for i, n in enumerate(lens):
+        if n:
+            err = (got[i, :n].float() - want[i, :n].float()).abs().max()
+            assert err.item() <= 1e-2, (t, histories[i], err.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('page', [16, 64])
+@pytest.mark.parametrize('g', [1, 2, 4, 8])
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_prefill_chunks_match_plain_on_card(cuda_device, kv_bits, g, page):
+    """Tensor-core prefill at every KV width, GQA group and page size:
+    chunks of T = 5, 63, 64, 65, 100 over 0, 37 and 300 tokens of history
+    and a padding row (finite; not compared).  P enters P V as two bf16
+    terms, so the kernel stays within 1e-2 of the f32 plain version after
+    both round to bf16."""
+    rng = np.random.default_rng(90 + kv_bits + 10 * g + page)
+    for t in (5, 63, 64, 65, 100):
+        _check_prefill(rng, kv_bits, 2, g, page, t, (0, 37, 300),
+                       cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('t,history', [(512, 0), (200, 100), (64, 300)])
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_prefill_block_shapes_on_card(cuda_device, kv_bits, t, history):
+    """Llama-2-7B heads (KH = 32), two slots (one a padding row): a
+    512-token chunk takes 64-row blocks, a 200-token chunk 32-row blocks
+    and a 64-token chunk 16-row blocks whose warps split each KV tile."""
+    rng = np.random.default_rng(120 + kv_bits + t)
+    _check_prefill(rng, kv_bits, 32, 1, 64, t, (history,), cuda_device)
