@@ -60,7 +60,8 @@ LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
 ENGINE_SLOTS = 8     # phase 5's max_batch_size: every decode step runs all
-GEMM_ROWS = (1, ENGINE_SLOTS, 64, 512)   # 64: the smallest prefill bucket
+# 64 and 512: the prefill buckets; each M times both regimes (the crossover)
+GEMM_ROWS = (1, ENGINE_SLOTS, 16, 32, 64, 128, 256, 512)
 REPLACES = {
     'w4a16_gemm': 'lmdeploy_tpu/ops/pallas/quant_matmul.py:177',
     'paged_decode_attention_write':
@@ -202,13 +203,21 @@ def _rand_packed(torch, gen, shape):
 
 
 def check_gemm(torch, ctx, timer):
+    """The W4A16 GEMM at every GEMM_ROWS M over one Llama-2-7B layer's five
+    projections, both regimes (each against the plain version), with the
+    library call (torch.matmul on the dequantised weight) and the bound;
+    the kernel time is that of the regime the wrapper picks."""
+    from lmdeploy_tpu_torch.ops.cuda import build
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
-        unpack_nibbles, w4a16_gemm, w4a16_gemm_plain)
+        DECODE_MAX_M, REGIMES, unpack_nibbles, w4a16_gemm_plain,
+        w4a16_gemm_regime)
     gen = torch.Generator(device='cuda').manual_seed(1)
     n_layers = 8          # timing cycles layers so weights come from HBM
     rows, worst = [], 0.0
-    layer = {m: {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
-                 'bytes': 0.0, 'ops': 0.0} for m in GEMM_ROWS}
+    zero = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    layer = {m: dict(zero) for m in GEMM_ROWS}
+    by_regime = {r: {m: 0.0 for m in GEMM_ROWS} for r in REGIMES}
+    lib = build.load()
     for name, k, n in LLAMA2_7B_GEMMS:
         g = k // 128
         packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
@@ -220,33 +229,42 @@ def check_gemm(torch, ctx, timer):
         for m in GEMM_ROWS:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
-            got = w4a16_gemm(x, packed, scales, 3)
             want = w4a16_gemm_plain(x, packed, scales, 3)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
             scale = want.abs().max().item()
             tol = 1e-3 * scale + 1e-3
-            if not err <= tol:
-                raise AssertionError(f'w4a16_gemm {name} M={m}: max abs err '
-                                     f'{err} > {tol}')
-            worst = max(worst, err)
-            ms = timer.graph(lambda i: w4a16_gemm(x, packed, scales,
-                                                  i % n_layers), 16)
-            lib = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
-                              16)
+            regime = 'decode' if m <= DECODE_MAX_M else 'wgmma'
+            for r in REGIMES:
+                got = w4a16_gemm_regime(x, packed, scales, 3, r)
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                if not e <= tol:
+                    raise AssertionError(f'w4a16_gemm[{r}] {name} M={m}: max '
+                                         f'abs err {e} > {tol}')
+                worst = max(worst, e)
+                if r == regime:
+                    err = e
+                t = timer.graph(lambda i: w4a16_gemm_regime(
+                    x, packed, scales, i % n_layers, r), 16)
+                by_regime[r][m] += t
+                if r == regime:
+                    ms = t
+            lib_ms = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
+                                 16)
             plain = timer.events(lambda i: w4a16_gemm_plain(
                 x, packed, scales, i % n_layers), 3, warmup=1)
             nbytes = m * k * 2 + k * n // 2 + g * n * 2 + m * n * 4
             ops = 2.0 * m * k * n
             bms, by = bound_ms(nbytes, ops)
-            rows.append((name, m, k, n, ms, plain, lib, bms, by, err))
-            log(f'  w4a16_gemm {name:4s} M={m:3d} K={k:5d} N={n:5d}: '
-                f'kernel {ms:.4f} ms, plain {plain:.3f} ms, torch.matmul '
-                f'(bf16 dequantized) {lib:.4f} ms, bound {bms:.4f} ms '
-                f'({by}), max abs err {err:.2e} (tol {tol:.2e}, scale '
-                f'{scale:.1f})')
+            tile = ('' if regime == 'decode' else
+                    f', tile {lib.lmd_w4a16_wgmma_tile(m, n)}')
+            rows.append((name, m, k, n, ms, plain, lib_ms, bms, by, err))
+            log(f'  w4a16_gemm {name:4s} M={m:3d} K={k:5d} N={n:5d} '
+                f'({regime}{tile}): kernel {ms:.4f} ms, plain {plain:.3f} '
+                f'ms, torch.matmul (bf16 dequantized) {lib_ms:.4f} ms, bound '
+                f'{bms:.4f} ms ({by}), max abs err {err:.2e} (tol '
+                f'{tol:.2e}, scale {scale:.1f})')
             for key, val in (('ms', ms), ('plain_ms', plain),
-                             ('library_ms', lib), ('bytes', nbytes),
+                             ('library_ms', lib_ms), ('bytes', nbytes),
                              ('ops', ops)):
                 layer[m][key] += val
         del deq, packed, scales
@@ -257,12 +275,23 @@ def check_gemm(torch, ctx, timer):
         log(f'  w4a16_gemm one layer M={m}: kernel {layer[m]["ms"]:.4f} ms, '
             f'torch.matmul {layer[m]["library_ms"]:.4f} ms, bound '
             f'{layer[m]["bound_ms"]:.4f} ms ({layer[m]["bound_by"]})')
+    log('  crossover, one layer (ms): ' + '; '.join(
+        f'M={m} decode {by_regime["decode"][m]:.4f} wgmma '
+        f'{by_regime["wgmma"][m]:.4f}' for m in GEMM_ROWS))
+    enc = lib.lmd_tmap_encode_ns(10000)
+    log(f'  host: one tensor-map encode {enc} ns (two per wgmma call)')
     ctx['kernels']['w4a16_gemm'] = dict(
         shape=f'one Llama-2-7B layer in decode: wqkv+wo+w1+w3+w2, '
               f'M={ENGINE_SLOTS} (the engine runs all its slots)',
         **layer[ENGINE_SLOTS], m1=layer[1], layer_by_m=layer,
         max_abs_err=worst,
         tolerance='1e-3 * max|plain| + 1e-3 (f32 sums in another order)')
+    ctx['kernels']['w4a16_gemm[wgmma]'] = dict(
+        shape='one Llama-2-7B layer in prefill: wqkv+wo+w1+w3+w2, M=512 '
+              '(the 512-token bucket)',
+        **layer[512], max_abs_err=worst,
+        crossover={r: by_regime[r] for r in REGIMES}, tmap_encode_ns=enc,
+        tolerance='1e-3 * max|plain| + 1e-3')
     ctx['gemm_rows'] = rows
 
 
@@ -286,7 +315,9 @@ def _paged_case(torch, gen, b, ctxs, n_layers, pages, kh, page=64,
     kc = _pool(torch, gen, shape, kv_bits)
     vc = _pool(torch, gen, shape, kv_bits)
     pt = torch.full((b, maxp), -1, dtype=torch.int32)
-    perm = torch.randperm(pages).tolist()     # scattered, disjoint pages
+    # scattered, disjoint pages (drawn from gen, so each case's inputs
+    # depend on its seed only)
+    perm = torch.randperm(pages, generator=gen, device='cuda').tolist()
     for i, c in enumerate(ctxs):
         need = -(-c // page)
         pt[i, :need] = torch.tensor(perm[:need])
@@ -307,8 +338,59 @@ def _dequant_gather(torch, kc, vc, pt, n_tok, qp):
     return out
 
 
+# decode attention cases: (label, per-slot contexts, valid=0 slots); the
+# first is the kernels line's row (the engine's decode shape), the second
+# its bs1 row; the last is the engine's state during a bs1 request after
+# longer ones: one live slot, the others masked with stale contexts
+DECODE_CASES = (
+    ('B=8 ctx~512, slot 3 valid=0', [512 - 7 * i for i in range(8)], (3,)),
+    ('B=1 ctx 512', [512], ()),
+    ('B=8 ctx~512, all valid', [512 - 7 * i for i in range(8)], ()),
+    ('B=1 ctx 80', [80], ()),
+    ('B=1 ctx 2048', [2048], ()),
+    ('B=8, slot 0 ctx 80, slots 1-7 valid=0 at ctx ~500',
+     [80] + [500 + 9 * i for i in range(7)], tuple(range(1, 8))),
+)
+# splits per slot timed against the automatic choice (None)
+SPLIT_SWEEP = (1, 2, 4, 8, 16, None)
+
+
+def _decode_inputs(torch, gen, ctxs, masked, kh, h, dh, n_layers, kv_bits):
+    b = len(ctxs)
+    kc, vc, pt = _paged_case(torch, gen, b, ctxs, n_layers,
+                             pages=sum(-(-c // 64) for c in ctxs) + 8,
+                             kh=kh, kv_bits=kv_bits)
+    cl = torch.tensor(ctxs, dtype=torch.int32, device='cuda')
+    valid = torch.ones(b, dtype=torch.int32, device='cuda')
+    if masked:
+        valid[list(masked)] = 0
+    q, kn, vn = (torch.randn(shape, generator=gen, device='cuda').to(
+        torch.bfloat16) for shape in ((b, h, dh), (b, kh, dh), (b, kh, dh)))
+    pos = (cl - 1).float()
+    inv = 10000.0 ** (-torch.arange(64, device='cuda').float() / 64)
+    from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
+    cos_f, sin_f = PA.rope_full_tables(torch.cos(pos[:, None] * inv),
+                                       torch.sin(pos[:, None] * inv), dh)
+    return dict(kc=kc, vc=vc, pt=pt, cl=cl, valid=valid, q=q, kn=kn, vn=vn,
+                cos_f=cos_f, sin_f=sin_f, qs=torch.ones(b, device='cuda'))
+
+
+def _decode_call(PA, mode, fn_name, d, k, v, layer, qp):
+    fn = getattr(PA, fn_name)
+    if mode == 'paged_decode_attention':
+        return fn(d['q'], k, v, layer, d['pt'], d['cl'], qp)
+    if mode == 'paged_decode_attention_write':
+        return fn(d['q'], d['kn'], d['vn'], k, v, layer, d['pt'], d['cl'],
+                  d['valid'], qp)
+    return fn(d['q'], d['kn'], d['vn'], d['cos_f'], d['sin_f'], d['qs'], k,
+              v, layer, d['pt'], d['cl'], d['valid'], qp, half=64)
+
+
 def check_decode(torch, ctx, timer):
-    """Kernels 2, 4 and 5 at each KV width, B = 1 and 8, ctx ~ 512."""
+    """Kernels 2, 4 and 5 at each KV width over DECODE_CASES, against the
+    plain version (pool bit-identical after the store, valid rows within
+    1e-2), each called twice in a row (the ticket counter resets), with
+    SDPA and the bound; then a sweep of tokens per split."""
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
     gen = torch.Generator(device='cuda').manual_seed(2)
@@ -317,94 +399,124 @@ def check_decode(torch, ctx, timer):
         qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
               if kv_bits else None)
         for mode in DECODE_MODES:
-            worst, by_b = 0.0, {}
-            for b in (1, ENGINE_SLOTS):
-                ctxs = [512 - 7 * i for i in range(b)]
-                kc, vc, pt = _paged_case(torch, gen, b, ctxs, n_layers,
-                                         pages=9 * b + 8, kh=kh,
-                                         kv_bits=kv_bits)
-                cl = torch.tensor(ctxs, dtype=torch.int32, device='cuda')
-                valid = torch.ones(b, dtype=torch.int32, device='cuda')
-                if b > 1:
-                    valid[3] = 0
-                q, kn, vn = (torch.randn(shape, generator=gen,
-                                         device='cuda').to(torch.bfloat16)
-                             for shape in ((b, h, dh), (b, kh, dh),
-                                           (b, kh, dh)))
-                pos = (cl - 1).float()
-                inv = 10000.0 ** (-torch.arange(64, device='cuda').float()
-                                  / 64)
-                cos_f, sin_f = PA.rope_full_tables(
-                    torch.cos(pos[:, None] * inv),
-                    torch.sin(pos[:, None] * inv), dh)
-                qs = torch.ones(b, device='cuda')
-
-                def call(fn_name, k, v, layer):
-                    fn = getattr(PA, fn_name)
-                    if mode == 'paged_decode_attention':
-                        return fn(q, k, v, layer, pt, cl, qp)
-                    if mode == 'paged_decode_attention_write':
-                        return fn(q, kn, vn, k, v, layer, pt, cl, valid, qp)
-                    return fn(q, kn, vn, cos_f, sin_f, qs, k, v, layer, pt,
-                              cl, valid, qp, half=64)
+            worst, rows = 0.0, {}
+            for label, ctxs, masked in DECODE_CASES:
+                b = len(ctxs)
+                d = _decode_inputs(torch, gen, ctxs, masked, kh, h, dh,
+                                   n_layers, kv_bits)
+                kc, vc = d['kc'], d['vc']
                 k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), \
                     vc.clone()
-                got = call(mode, k1, v1, 2)
-                want = call(mode + '_plain', k2, v2, 2)
+                got = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
+                again = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
+                want = _decode_call(PA, mode, mode + '_plain', d, k2, v2, 2,
+                                    qp)
                 torch.cuda.synchronize()
-                label = f'{mode}[{width}] B={b}'
+                name = f'{mode}[{width}] {label}'
                 if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
-                    raise AssertionError(f'{label}: pool differs from the '
+                    raise AssertionError(f'{name}: pool differs from the '
                                          'plain version')
-                if b > 1 and mode != 'paged_decode_attention':
-                    p3 = ctxs[3] - 1
-                    phys = int(pt[3, p3 // page])
-                    if not torch.equal(k1[2, phys, p3 % page],
-                                       kc[2, phys, p3 % page]):
+                if not torch.equal(got, again):
+                    raise AssertionError(f'{name}: a second call differs')
+                for i in (masked if mode != 'paged_decode_attention'
+                          else ()):
+                    pm = ctxs[i] - 1
+                    phys = int(d['pt'][i, pm // page])
+                    if not torch.equal(k1[2, phys, pm % page],
+                                       kc[2, phys, pm % page]):
                         raise AssertionError('valid=0 slot wrote its KV row')
-                ok = (valid.bool() if mode != 'paged_decode_attention'
-                      else torch.ones_like(valid, dtype=torch.bool))
+                ok = (d['valid'].bool() if mode != 'paged_decode_attention'
+                      else torch.ones_like(d['valid'], dtype=torch.bool))
                 err = (got.float() - want.float())[ok].abs().max().item()
                 if not err <= 1e-2:
-                    raise AssertionError(f'{label}: max abs err {err} > '
-                                         '1e-2')
+                    raise AssertionError(f'{name}: max abs err {err} > 1e-2')
                 worst = max(worst, err)
-                ms = timer.graph(lambda i: call(mode, kc, vc, i % n_layers),
-                                 32)
-                plain = timer.events(lambda i: call(
-                    mode + '_plain', k2, v2, i % n_layers), 3, warmup=1)
-                # yardstick: SDPA over K/V already gathered to [B, H, 512,
-                # Dh] and dequantised (no store, no rope, no dequant)
-                kvg = _dequant_gather(torch, kc, vc, pt, 512, qp)
-                q4 = q[:, :, None]
+                ms = timer.graph(lambda i: _decode_call(
+                    PA, mode, mode, d, kc, vc, i % n_layers, qp), 32)
+                plain = timer.events(lambda i: _decode_call(
+                    PA, mode, mode + '_plain', d, k2, v2, i % n_layers, qp),
+                    3, warmup=1)
+                # yardstick: SDPA over the K/V of the slots the kernel
+                # attends (masked slots of the storing modes do no work),
+                # gathered to [B, H, ctx, Dh] and dequantised beforehand (no
+                # store, no rope, no dequant); for unequal contexts over the
+                # longest
+                live = [i for i in range(b)
+                        if mode == 'paged_decode_attention' or i not in masked]
+                att = [ctxs[i] for i in live]
+                n_kv = max(att)
+                kvg = [(kk[live, :, :n_kv], vv[live, :, :n_kv]) for kk, vv in
+                       _dequant_gather(torch, kc, vc, d['pt'],
+                                       -(-n_kv // page) * page, qp)]
+                q4 = d['q'][live][:, :, None]
                 lib = timer.graph(lambda i: torch.nn.functional
                                   .scaled_dot_product_attention(
                                       q4, *kvg[i % n_layers]), 32)
-                tok = sum(ctxs)
+                # bytes this run needs: the attended slots read their
+                # context
+                tok = sum(att)
                 nbytes = 2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
                 if mode != 'paged_decode_attention':
                     nbytes += (2 * b * kh * dh * 2          # k_new, v_new
-                               + 2 * int(valid.sum()) * kh * dh
-                               * elem_bytes)
+                               + 2 * len(att) * kh * dh * elem_bytes)
                 if mode == 'paged_decode_attention_rope_write':
                     nbytes += 2 * b * dh * 4 + b * 4        # tables, qscale
                 ops = 4.0 * tok * h * dh
                 bms, by = bound_ms(nbytes, ops)
-                log(f'  {label} ctx~512: kernel {ms:.4f} ms, plain '
-                    f'{plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms '
-                    f'({by}), max abs err {err:.2e} (tol 1e-2), pool '
-                    f'identical')
-                by_b[b] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=bms, bound_by=by)
-                del kvg, kc, vc, k1, v1, k2, v2
+                want = PA.decode_want(mode, kv_bits, h // kh, b * kh)
+                splits = PA.decode_splits(d['pt'].shape[1], page, want)
+                log(f'  {name}: kernel {ms:.4f} ms (grid of {splits} splits,'
+                    f' up to {want} a slot), plain {plain:.3f} ms, SDPA '
+                    f'{lib:.4f} ms, '
+                    f'bound {bms:.4f} ms ({by}), {bms / ms:.0%} of the bound, '
+                    f'max abs err {err:.2e} (tol 1e-2), pool identical')
+                rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bms, bound_by=by)
+                del kvg, kc, vc, k1, v1, k2, v2, d
+            first, second = DECODE_CASES[0][0], DECODE_CASES[1][0]
             ctx['kernels'][f'{mode}[{width}]'] = dict(
                 shape=f'Llama-2-7B layer, {width} pool, B={ENGINE_SLOTS} '
                       f'(one valid=0 slot), ctx ~512',
-                **by_b[ENGINE_SLOTS], b1=by_b[1], max_abs_err=worst,
+                **rows[first], b1=rows[second],
+                cases={k: v for k, v in rows.items() if k not in (first,
+                                                                   second)},
+                max_abs_err=worst,
                 tolerance='1e-2 abs on bf16 outputs; pool bit-identical',
                 library='SDPA on K/V gathered and dequantised beforehand '
                         '(no store, rope or dequant inside)')
             torch.cuda.empty_cache()
+    sweep_splits(torch, timer, gen, kh, h, dh, n_layers)
+
+
+def sweep_splits(torch, timer, gen, kh, h, dh, n_layers):
+    """Kernel 2 at each width with a fixed number of splits per slot
+    against the automatic choice, at bs1 ctx 80 / 512 / 2048 and B=8 ctx
+    512 / 2048."""
+    from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
+    mode = 'paged_decode_attention_write'
+    for kv_bits in (0, 8, 4):
+        qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
+              if kv_bits else None)
+        for ctxs in ([80], [512], [2048], [512] * 8, [2048] * 8):
+            d = _decode_inputs(torch, gen, ctxs, (), kh, h, dh, n_layers,
+                               kv_bits)
+            times = []
+            for want in SPLIT_SWEEP:
+                PA.SPLITS_WANTED = want
+                try:
+                    times.append(timer.graph(lambda i: _decode_call(
+                        PA, mode, mode, d, d['kc'], d['vc'], i % n_layers,
+                        qp), 32))
+                finally:
+                    PA.SPLITS_WANTED = None
+            auto = PA.decode_want(mode, kv_bits, h // kh, len(ctxs) * kh)
+            width = {0: 'bf16', 8: 'int8', 4: 'int4'}[kv_bits]
+            log(f'  split sweep {mode}[{width}] B={len(ctxs)} ctx '
+                f'{ctxs[0]}: ' + ', '.join(
+                    f'{w or f"auto ({auto})"} a slot {ms:.4f} ms'
+                    for w, ms in zip(SPLIT_SWEEP, times)))
+            del d
+        torch.cuda.empty_cache()
 
 
 def check_prefill(torch, ctx, timer):
@@ -720,13 +832,19 @@ def phase_model(torch, ctx):
     torch.cuda.empty_cache()
 
 
-def profile_bs1(torch, ctx, run_request, width='bf16'):
+def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
     """One bs1 request of 64 new tokens under torch.profiler: device busy
     share (kernel time over the request's wall time) and the kernels that
-    take the device time, on a ``width`` KV pool."""
+    take the device time, on a ``width`` KV pool.  The engine's slots are
+    printed first: the slots the request does not use keep the context of
+    their last request."""
     from torch.profiler import ProfilerActivity, profile
     out = []
     torch.cuda.synchronize()
+    st = eng.state
+    log(f'  before the profiled request: context_len '
+        f'{st.context_len.tolist()}, running '
+        f'{(st.active & ~st.finished).int().tolist()}')
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -777,12 +895,15 @@ def launches_per_pass(marks):
     return per_step, per_pass, windows
 
 
-def check_route(counts, solved, want_step, want_pass, label):
+def check_route(counts, solved, want_step, want_pass, label, skip=()):
     """Every kernel's launches per decode step and per prefill pass, as
     solved by :func:`launches_per_pass`, equal ``want_step`` /
-    ``want_pass`` (absent names: none), and no plain version ran."""
+    ``want_pass`` (absent names: none; names in ``skip`` are not solved),
+    and no plain version ran."""
     per_step, per_pass, windows = solved
     for name in counts:
+        if name in skip:
+            continue
         if (abs(per_step[name] - want_step.get(name, 0)) > 1e-6
                 or abs(per_pass[name] - want_pass.get(name, 0)) > 1e-6):
             raise AssertionError(
@@ -809,6 +930,7 @@ def phase_engine(torch, ctx):
     from lmdeploy_tpu_torch.engine.engine import TorchEngine
     from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
     from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import DECODE_MAX_M, WGMMA
     cfg = llama2_7b()
     nl = cfg.num_layer
     t0 = time.monotonic()
@@ -823,6 +945,7 @@ def phase_engine(torch, ctx):
     prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
                for n in lens]
     bs1_prompt = rng.integers(3, cfg.vocab_size, size=16).tolist()
+    long_prompt = rng.integers(3, cfg.vocab_size, size=300).tolist()
     card = ctx.get('card', '?')
     sid = iter(range(1, 10 ** 6))
 
@@ -850,7 +973,7 @@ def phase_engine(torch, ctx):
 
     def mark(eng):
         """(launch counts, decode steps, prefill passes) so far."""
-        return ({n: c[0] for n, c in K.launch_counts().items()},
+        return ({n: c[0] for n, c in K.launch_counts(True).items()},
                 eng.stats['decode_steps'], eng.stats['prefill_passes'])
 
     def record(name, launches, per_step, per_pass):
@@ -882,15 +1005,18 @@ def phase_engine(torch, ctx):
         run(inst, bs1_prompt, 256, bs1)
         r = bs1[0]
         bs1_tps = (r['n'] - 1) / (r['t_end'] - r['t_first'])
-        counts = K.launch_counts()
+        counts = K.launch_counts(True)
         end = mark(eng)
         wall = time.monotonic() - t_start
         solved = launches_per_pass([start, mid, end])
         per_step, per_pass, windows = solved
         decode, prefill = (f'paged_decode_attention_write[{width}]',
                            f'paged_prefill_attention[{width}]')
+        # the wgmma regime runs the passes of the 512 bucket only, whose
+        # share of the passes the concurrent window does not fix
         check_route(counts, solved, {'w4a16_gemm': 5 * nl, decode: nl},
-                    {'w4a16_gemm': 5 * nl, prefill: nl}, f'{width} engine')
+                    {'w4a16_gemm': 5 * nl, prefill: nl}, f'{width} engine',
+                    skip=(WGMMA,))
         mem = torch.cuda.max_memory_allocated() / 2 ** 30
         ttfts = [round(x['ttft'], 3) for x in results]
         log(f'  engine, {width} KV pool [{card}]: TTFT {ttfts} s (prompts '
@@ -910,26 +1036,31 @@ def phase_engine(torch, ctx):
                     ttft_bs1_s=r['ttft'], tok_s_4_concurrent=conc,
                     tok_s_bs1=bs1_tps, peak_mem_gib=mem)
 
-    def short_bs1(eng, inst, width, env, lens=(32, 8)):
+    def short_bs1(eng, inst, width, env, lens=(32, 8), prompt=None):
         """Two bs1 requests under ``env``, of 32 and 8 new tokens, so that
         their two windows separate decode steps from prefill passes: the
         switches' decode kernel 32 launches per decode step and none per
         pass, prefill attention 32 per pass and none per step, the GEMM
-        160 per each."""
+        160 per each, 160 of them per pass in the wgmma regime when the
+        prompt's bucket has more rows than DECODE_MAX_M."""
+        prompt = prompt or bs1_prompt
         decode = f'{decode_kernel_of(env)}[{width}]'
         prefill = f'paged_prefill_attention[{width}]'
+        rows = min(b for b in ecfg.prefill_buckets if b >= len(prompt))
         K.reset_launch_counts()
         marks, out = [mark(eng)], []
         with env_vars(env):
             for n_new in lens:
-                run(inst, bs1_prompt, n_new, out)
+                run(inst, prompt, n_new, out)
                 marks.append(mark(eng))
-        counts = K.launch_counts()
+        counts = K.launch_counts(True)
         solved = launches_per_pass(marks)
         per_step, per_pass, windows = solved
-        label = f'{width} bs1 {env or "defaults"}'
+        label = (f'{width} bs1 {env or "defaults"}, {len(prompt)}-token '
+                 f'prompt')
         check_route(counts, solved, {'w4a16_gemm': 5 * nl, decode: nl},
-                    {'w4a16_gemm': 5 * nl, prefill: nl}, label)
+                    {'w4a16_gemm': 5 * nl, prefill: nl,
+                     WGMMA: 5 * nl if rows > DECODE_MAX_M else 0}, label)
         tps = (out[0]['n'] - 1) / (out[0]['t_end'] - out[0]['t_first'])
         log(f'  {label}, requests of {lens} new tokens: {decode} '
             f'{counts[decode][0]} launches, {per_step[decode]} per decode '
@@ -938,6 +1069,12 @@ def phase_engine(torch, ctx):
             f'{per_pass[prefill]} per pass; (decode steps, prefill passes) '
             f'of the windows {windows}; {tps:.1f} tok/s and TTFT '
             f'{out[0]["ttft"]:.3f} s at {lens[0]} tokens')
+        log(f'    {WGMMA}: {counts[WGMMA][0]} launches, {per_step[WGMMA]} '
+            f'per decode step, {per_pass[WGMMA]} per prefill pass of the '
+            f'{rows}-row bucket')
+        if prompt is long_prompt:
+            record(WGMMA, counts[WGMMA][0], per_step[WGMMA], per_pass[WGMMA])
+            return
         record(decode, counts[decode][0], per_step[decode], per_pass[decode])
         if width == 'int4' and not env:
             record(prefill, counts[prefill][0], per_step[prefill],
@@ -952,11 +1089,12 @@ def phase_engine(torch, ctx):
         ctx['engine'] = main_traffic(eng, inst, 'bf16')
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, bs1_prompt, 64,
-                                                    out))
+                                                    out), eng)
         scales = {b: kv_scales_from_pool(torch, eng.cache, b) for b in (8, 4)}
         log(f'  int8 qparams from the bf16 run\'s K/V: k_scale '
             f'{[round(float(x), 5) for x in scales[8][0][:4]]}..., k_zp '
             f'{[round(float(x), 2) for x in scales[8][1][:4]]}...')
+        short_bs1(eng, inst, 'bf16', {}, prompt=long_prompt)
         for env in switches:
             short_bs1(eng, inst, 'bf16', env)
         eng.shutdown()
@@ -965,7 +1103,7 @@ def phase_engine(torch, ctx):
         ctx['engine_int8'] = main_traffic(eng, inst, 'int8')
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, bs1_prompt, 64,
-                                                    out), 'int8')
+                                                    out), eng, 'int8')
         for env in switches:
             short_bs1(eng, inst, 'int8', env)
         eng.shutdown()
@@ -1022,7 +1160,8 @@ def main(argv=None) -> int:
             library_ms=k.get('library_ms'), library=k.get('library'),
             shape=k.get('shape'), at_bs1=k.get('m1') or k.get('b1'),
             chunk64_over300=k.get('chunk64_over300'),
-            layer_by_m=k.get('layer_by_m'),
+            layer_by_m=k.get('layer_by_m'), crossover=k.get('crossover'),
+            cases=k.get('cases'),
             card=ctx.get('card')))
     log(f'total {time.monotonic() - t_all:.1f} s')
     log(ctx.get('card', '?'))       # nvidia-smi name, power.limit

@@ -18,6 +18,7 @@ width.
 from ...kvcache.paged import KV_WIDTHS
 from . import paged_attention, prefill_attention, quant_matmul
 from .counts import LAUNCHES, PLAIN_CALLS, variant
+from .quant_matmul import WGMMA
 
 ATTENTION_KERNELS = ('paged_decode_attention_write', 'paged_decode_attention',
                      'paged_decode_attention_rope_write',
@@ -27,11 +28,16 @@ KERNEL_NAMES = ('w4a16_gemm',) + tuple(
     for kv_bits in KV_WIDTHS)
 
 
-def launch_counts() -> dict:
+# Launches of one regime of a kernel, also counted under the kernel's name.
+REGIME_NAMES = (WGMMA,)
+
+
+def launch_counts(regimes: bool = False) -> dict:
     """{kernel name: (kernel launches, plain-version calls)} for every
-    kernel and, for the attention kernels, every KV width."""
-    return {name: (LAUNCHES[name], PLAIN_CALLS[name])
-            for name in KERNEL_NAMES}
+    kernel and, for the attention kernels, every KV width; with
+    ``regimes``, also the launches of the W4A16 GEMM's wgmma regime."""
+    names = KERNEL_NAMES + (REGIME_NAMES if regimes else ())
+    return {name: (LAUNCHES[name], PLAIN_CALLS[name]) for name in names}
 
 
 def reset_launch_counts() -> None:
@@ -39,6 +45,6 @@ def reset_launch_counts() -> None:
     PLAIN_CALLS.clear()
 
 
-__all__ = ['ATTENTION_KERNELS', 'KERNEL_NAMES', 'launch_counts',
-           'reset_launch_counts', 'paged_attention', 'prefill_attention',
-           'quant_matmul']
+__all__ = ['ATTENTION_KERNELS', 'KERNEL_NAMES', 'REGIME_NAMES',
+           'launch_counts', 'reset_launch_counts', 'paged_attention',
+           'prefill_attention', 'quant_matmul']

@@ -38,9 +38,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    'lmd_w4a16_gemm': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    'lmd_paged_decode_attention': (_I,) + (_P,) * 13 + (_I,) * 8
+    'lmd_w4a16_gemm': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    'lmd_w4a16_wgmma_tile': (_I, _I),
+    'lmd_tmap_encode_ns': (_I,),
+    'lmd_paged_decode_attention': (_I,) + (_P,) * 15 + (_I,) * 10
                                   + (_F, _P),
+    'lmd_paged_decode_want': (_I, _I, _I, _I),
     'lmd_paged_prefill_attention': (_P,) * 8 + (_I,) * 8 + (_F, _P),
 }
 

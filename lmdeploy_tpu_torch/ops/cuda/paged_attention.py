@@ -14,20 +14,27 @@ Replaces, from ``lmdeploy_tpu/ops/pallas/paged_attention.py``:
   attend;
 
 with ``lmdeploy_tpu_torch/csrc/paged_decode_attention.cu`` (CUDA C++ for
-sm_90a, one kernel template over mode and KV width, grid (B, KH)).  Each
-runs at three KV widths: a bf16 pool, an int8 pool and a nibble-packed
-int4 pool ([..., Dh/2] uint8, half-split), the last two with static
-per-layer ``qparams4`` = (k_scale, k_zp, v_scale, v_zp).
+sm_90a, one kernel template over mode and KV width).  Each runs at three
+KV widths: a bf16 pool, an int8 pool and a nibble-packed int4 pool
+([..., Dh/2] uint8, half-split), the last two with static per-layer
+``qparams4`` = (k_scale, k_zp, v_scale, v_zp).
 
 The pool is updated IN PLACE (the JAX kernels alias it functionally).
-Page-table entries are clamped at 0, as in the JAX kernels; masked slots
-(valid == 0) never write and their output is garbage, discarded
-upstream.  The current token is attended in its stored (quantised) form.
+Page-table entries are clamped at 0, as in the JAX kernels.  Masked slots
+(valid == 0) never write; the kernel returns zeros for them in the
+storing modes and the plain versions attend them: either way the output
+is discarded upstream.  The current token is attended in its stored
+(quantised) form.
 
 Bound on an H100 SXM (3.35 TB/s): the context's KV bytes, 2*ctx*KH*Dh
-per slot times 2 (bf16), 1 (int8) or 0.5 (int4) bytes.  Eight warps
-split the context, one coalesced K and V row per token per warp, four
-tokens in flight per warp.
+per slot times 2 (bf16), 1 (int8) or 0.5 (int4) bytes.  The kernel splits
+the context over a grid (KH, B, S) whose S comes from the page table's
+width and the card's resident blocks (:func:`decode_want`,
+:func:`decode_splits`; each slot cuts its own context on the device),
+walks 64-token tiles in shared memory with one max and rescale per tile,
+and merges the splits in the same launch: the last split of a (slot, kv
+head) to finish takes the merge, through an int32 ticket counter that
+this module keeps per device and leaves at zero after every launch.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  The plain versions quantise new rows with
@@ -165,6 +172,50 @@ def paged_decode_attention_rope_write_plain(
                          context_len, qp, scale=1.0).to(q.dtype)
 
 
+# Splits per slot: None takes the most that keep every block resident
+# (decode_want); an int fixes them, for measurements.
+SPLITS_WANTED = None
+_TILE = 64
+_counters: dict = {}
+_wants: dict = {}
+
+
+def decode_want(name: str, kv_bits: int, g: int, pairs: int) -> int:
+    """The most splits per slot for which all ``pairs`` (B * KH) x splits
+    blocks of this kernel variant fit on the card at once: SMs x resident
+    blocks per SM (the CUDA occupancy calculator, registers and shared
+    memory) over ``pairs``, at least 1.  Cached per variant."""
+    key = (name, kv_bits, g, pairs, torch.cuda.current_device())
+    want = _wants.get(key)
+    if want is None:
+        want = build.load().lmd_paged_decode_want(_MODES[name], kv_bits, g,
+                                                   pairs)
+        build.check(min(want, 0), f'{name}: occupancy')
+        _wants[key] = want
+    return want
+
+
+def decode_splits(max_pages: int, page_size: int, want: int) -> int:
+    """Splits of the decode kernel's grid (KH, B, splits) for a page table
+    of ``max_pages`` pages: ``want`` (each slot cuts its own context into
+    at most that many splits of whole 64-token tiles, on the device), at
+    most one per tile of the table, and enough that no split spans more
+    than 126 pages.  Host values only: the contexts are not read."""
+    width = max(max_pages * page_size, 1)
+    cap = max(_TILE, (126 * page_size) // _TILE * _TILE)
+    return max(-(-width // cap), min(want, -(-width // _TILE)))
+
+
+def _counter(device, n: int) -> torch.Tensor:
+    """The ticket counters of ``device`` (int32, at least ``n``), zeroed
+    once when allocated; every launch leaves them at zero."""
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
+
+
 def _launch(name: str, q, k_new, v_new, cos_f, sin_f, qscale, k_cache,
             v_cache, layer: int, page_table, context_len, valid, qparams4,
             half: int = 0) -> torch.Tensor:
@@ -209,6 +260,14 @@ def _launch(name: str, q, k_new, v_new, cos_f, sin_f, qscale, k_cache,
     ops = dict(page_table=i32(page_table), ctx=i32(context_len),
                valid=i32(valid), cos_f=f32(cos_f), sin_f=f32(sin_f),
                qscale=f32(qscale))
+    max_pages = page_table.shape[1]
+    want = SPLITS_WANTED or decode_want(name, kv_bits, h // kh, b * kh)
+    splits = decode_splits(max_pages, page_size, want)
+    part = counter = None
+    if splits > 1:
+        part = torch.empty(b * kh * splits * h // kh * (dh + 2),
+                           dtype=torch.float32, device=q.device)
+        counter = _counter(q.device, b * kh)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
@@ -217,9 +276,9 @@ def _launch(name: str, q, k_new, v_new, cos_f, sin_f, qscale, k_cache,
         _MODES[name], ptr(q), ptr(k_new), ptr(v_new), ptr(ops['cos_f']),
         ptr(ops['sin_f']), ptr(ops['qscale']), k_cache[layer].data_ptr(),
         v_cache[layer].data_ptr(), ptr(ops['page_table']), ptr(ops['ctx']),
-        ptr(ops['valid']), ptr(qp), out.data_ptr(), b, h, kh, dh, page_size,
-        page_table.shape[1], kv_bits, half, dh ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ptr(ops['valid']), ptr(qp), out.data_ptr(), ptr(part), ptr(counter),
+        b, h, kh, dh, page_size, max_pages, kv_bits, half, want, splits,
+        dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, name)
     LAUNCHES[variant(name, kv_bits)] += 1
     return out
@@ -282,4 +341,5 @@ __all__ = ['paged_decode_attention', 'paged_decode_attention_plain',
            'paged_decode_attention_write_plain',
            'paged_decode_attention_rope_write',
            'paged_decode_attention_rope_write_plain', 'rope_full_tables',
-           'rope_full', 'as_qparams4', 'gather_plain']
+           'rope_full', 'as_qparams4', 'gather_plain', 'decode_splits',
+           'decode_want']

@@ -9,17 +9,23 @@ nibble-packed weight; the caller subtracts ``rowsum_g(x) @ (s*z)``
 (``ops/linear.py``).  x is rounded to bf16 before the product, as in the
 JAX kernel.
 
-Bound on an H100 SXM (3.35 TB/s, 989 TF/s bf16): at decode (M <= 64) the
-packed weight bytes K*N/2 (Llama-2-7B wqkv 25.2 MB ~ 7.5 us); at a
-512-row prefill chunk the 2*M*K*N operations.  The decode kernel runs the
-products on the tensor cores (mma.sync m16n8k16) with the weight as the A
-operand and x^T as B, so M = 8 fills one n8 tile; it reads every packed
-byte once, 16 bytes per load, turns nibbles into exact bf16 by a mantissa
-trick, and sums its split over K with f32 atomics into a zeroed y (run to
-run the sum order changes: a few f32 ulps of the output).  It takes
-N % 16 == 0, K % 16 == 0 and any group that is a multiple of 16 dividing
-K/2.  The prefill kernel is a 64x64-tile mma.sync kernel with in-register
-nibble dequant and group 128 (see the source's header).
+Bound on an H100 SXM (3.35 TB/s, 989 TF/s bf16): at decode the packed
+weight bytes K*N/2 (Llama-2-7B wqkv 25.2 MB ~ 7.5 us); at a 512-row
+prefill chunk the 2*M*K*N operations.  Two kernels, chosen by M at
+:data:`DECODE_MAX_M` (the crossover measured on the H100):
+
+- decode (M <= DECODE_MAX_M): tensor cores (mma.sync m16n8k16) with the
+  weight as the A operand and x^T as B, so M = 8 fills one n8 tile; it
+  reads every packed byte once, 16 bytes per load, turns nibbles into
+  exact bf16 by a mantissa trick, and sums its split over K with f32
+  atomics into a zeroed y (run to run the sum order changes: a few f32
+  ulps of the output).  It takes N % 16 == 0, K % 16 == 0 and any group
+  that is a multiple of 16 dividing K/2.
+- prefill (M > DECODE_MAX_M): wgmma with the weight as the register
+  operand (nibbles to bf16 in registers) and x tiles brought by TMA into
+  a ring of shared-memory stages, one f32 partial per group folded with
+  its scales (group 128, deterministic; see the source's header).  Its
+  launches also count under ``w4a16_gemm[wgmma]``.
 
 On a CPU tensor the wrapper runs :func:`w4a16_gemm_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -32,6 +38,12 @@ from . import build
 from .counts import LAUNCHES, PLAIN_CALLS
 
 NAME = 'w4a16_gemm'
+WGMMA = 'w4a16_gemm[wgmma]'      # the prefill regime's own launch count
+# The largest M that takes the decode kernel; above it the wgmma kernel
+# (one Llama-2-7B layer on an H100 80GB HBM3 at 700 W: decode 0.103 ms at
+# M = 8 and 0.157 at M = 16, wgmma 0.143 and 0.140; chip_smoke.py phase 3).
+DECODE_MAX_M = 8
+REGIMES = ('decode', 'wgmma')
 
 
 def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
@@ -64,34 +76,55 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if x.device.type == 'cpu':
         return w4a16_gemm_plain(x, packed, scales, layer)
     m, k = x.shape
+    # the wgmma kernel takes group 128 only; another group keeps the decode
+    # kernel up to M = 64 and raises above it
+    wgmma = m > DECODE_MAX_M and (k == 128 * scales.shape[1] or m > 64)
+    return w4a16_gemm_regime(x, packed, scales, layer,
+                             'wgmma' if wgmma else 'decode')
+
+
+def w4a16_gemm_regime(x: torch.Tensor, packed: torch.Tensor,
+                      scales: torch.Tensor, layer: int,
+                      regime: str) -> torch.Tensor:
+    """Launch one regime's kernel ('decode' or 'wgmma') on CUDA tensors,
+    whatever M is: :func:`w4a16_gemm` picks by M, a measurement of the
+    crossover calls both."""
+    m, k = x.shape
     l_dim, k2, n = packed.shape
     g = scales.shape[1]
     group = k // g
     if (k != 2 * k2 or m == 0 or packed.dtype != torch.uint8
             or scales.dtype != torch.bfloat16 or k2 % group
-            or scales.numel() != l_dim * g * n):
+            or scales.numel() != l_dim * g * n or regime not in REGIMES):
         raise ValueError(f'w4a16_gemm: bad operands x{tuple(x.shape)} '
                          f'packed{tuple(packed.shape)}/{packed.dtype} '
-                         f'scales{tuple(scales.shape)}/{scales.dtype}')
-    if (n % 16 or k % 16 or group % 16
-            or (m > 64 and group != 128)):
+                         f'scales{tuple(scales.shape)}/{scales.dtype} '
+                         f'regime {regime!r}')
+    if n % 16 or k % 16 or group % 16 or (regime == 'wgmma'
+                                          and group != 128):
         raise ValueError(f'w4a16_gemm: unsupported shape M={m} K={k} N={n} '
-                         f'group={group}')
+                         f'group={group} ({regime})')
     if not (packed.is_contiguous() and scales.is_contiguous()):
         raise ValueError('w4a16_gemm: packed/scales must be contiguous')
     if not 0 <= layer < l_dim:
         raise IndexError(f'w4a16_gemm: layer {layer} of {l_dim}')
     xb = x.to(torch.bfloat16).contiguous()
-    y = (torch.zeros if m <= 64 else torch.empty)(
+    if xb.data_ptr() % 16:                 # TMA takes 16-byte aligned rows
+        xb = xb.clone()
+    wgmma = regime == 'wgmma'
+    y = (torch.empty if wgmma else torch.zeros)(
         (m, n), dtype=torch.float32, device=x.device)
     lib = build.load()
     rc = lib.lmd_w4a16_gemm(
         xb.data_ptr(), packed[layer].data_ptr(), scales[layer].data_ptr(),
-        y.data_ptr(), m, k, n, group,
+        y.data_ptr(), m, k, n, group, int(wgmma),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, 'w4a16_gemm')
     LAUNCHES[NAME] += 1
+    if wgmma:
+        LAUNCHES[WGMMA] += 1
     return y
 
 
-__all__ = ['w4a16_gemm', 'w4a16_gemm_plain', 'unpack_nibbles']
+__all__ = ['w4a16_gemm', 'w4a16_gemm_plain', 'w4a16_gemm_regime',
+           'unpack_nibbles', 'DECODE_MAX_M', 'WGMMA']

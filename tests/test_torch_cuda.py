@@ -16,7 +16,8 @@ from lmdeploy_tpu_torch.ops.cuda.paged_attention import (
 from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
     paged_prefill_attention, paged_prefill_attention_plain)
 from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (w4a16_gemm,
-                                                      w4a16_gemm_plain)
+                                                      w4a16_gemm_plain,
+                                                      w4a16_gemm_regime)
 
 
 def _gemm_case(rng, m, k, n, layers=2):
@@ -296,3 +297,117 @@ def test_prefill_block_shapes_on_card(cuda_device, kv_bits, t, history):
     and a 64-token chunk 16-row blocks whose warps split each KV tile."""
     rng = np.random.default_rng(120 + kv_bits + t)
     _check_prefill(rng, kv_bits, 32, 1, 64, t, (history,), cuda_device)
+
+
+def _gemm_args(rng, m, k, n, device):
+    x, packed, scales = _gemm_case(rng, m, k, n)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(packed).to(device),
+            torch.from_numpy(scales).to(torch.bfloat16).to(device), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [11008, 1152, 176])
+@pytest.mark.parametrize('m', [65, 96, 128, 200, 256, 512, 1000])
+def test_w4a16_wgmma_matches_plain_on_card(cuda_device, m, n):
+    """The prefill regime (wgmma, weight as the register operand) at ragged
+    M, with every tile the kernel picks: N = 11008 takes 128 x 128 or
+    128 x 64 tiles, N = 1152 (9 column tiles) 128 x 64 or 64 x 64, N = 176
+    (a ragged 64-column tile) 64 x 64; K = 2816 gives 11 low and 11 high
+    groups, so the stage ring wraps around."""
+    rng = np.random.default_rng(m + n)
+    args = _gemm_args(rng, m, 2816, n, cuda_device)
+    got = w4a16_gemm(*args)
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('regime', ['decode', 'wgmma'])
+@pytest.mark.parametrize('m', [1, 16, 64, 128])
+def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, regime):
+    """Both kernels at the M where the crossover is measured, whichever the
+    wrapper would pick, and the wgmma kernel twice (deterministic)."""
+    rng = np.random.default_rng(300 + m)
+    args = _gemm_args(rng, m, 4096, 1024, cuda_device)
+    got = w4a16_gemm_regime(*args, regime)
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (got - want).abs().max().item() <= tol
+    if regime == 'wgmma':
+        assert torch.equal(got, w4a16_gemm_regime(*args, regime))
+
+
+def _split_case(rng, ctxs, kv_bits, kh, page, device):
+    """A pool, page table and decode inputs for the given contexts, with a
+    table 2048 tokens wide (so the kernel splits the context)."""
+    b = len(ctxs)
+    maxp = 2048 // page
+    p = b * maxp + 4
+    kc = _quant_pool(rng, (2, p, page, kh, 128), kv_bits, device)
+    vc = _quant_pool(rng, (2, p, page, kh, 128), kv_bits, device)
+    pt = np.full((b, maxp), -1, np.int32)
+    free = list(rng.permutation(p))
+    for i, c in enumerate(ctxs):
+        pt[i, :-(-c // page)] = [free.pop() for _ in range(-(-c // page))]
+    return kc, vc, torch.from_numpy(pt).to(device), torch.tensor(
+        ctxs, dtype=torch.int32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('g', [1, 4])
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+@pytest.mark.parametrize('mode', ['attend', 'write', 'rope_write'])
+def test_decode_splits_match_plain_on_card(cuda_device, mode, kv_bits, g):
+    """Decode attention split over the context at ctx 1, 64, 65 and 2047
+    (one tile, a tile edge, many splits), B = 1 and B = 8 with a valid=0
+    slot, each called twice in a row: the same output twice shows that the
+    ticket counter is back at zero; the pool is bit-identical to the plain
+    version's and the masked slot's row untouched."""
+    rng = np.random.default_rng(400 + kv_bits + 10 * g)
+    kh, page, bf = 2, 16, torch.bfloat16
+    qp = (torch.tensor(QPARAMS[kv_bits], device=cuda_device)
+          if kv_bits else None)
+    batches = [[c] for c in (1, 64, 65, 2047)] + [[1, 64, 65, 2047] * 2]
+    for ctxs in batches:
+        b = len(ctxs)
+        kc, vc, pt, cl = _split_case(rng, ctxs, kv_bits, kh, page,
+                                     cuda_device)
+        valid = torch.ones(b, dtype=torch.int32, device=cuda_device)
+        if b > 1:
+            valid[2] = 0
+        q, kn, vn = (torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32) * 2).to(cuda_device, bf)
+            for shape in ((b, kh * g, 128), (b, kh, 128), (b, kh, 128)))
+        pos = cl.float() - 1
+        inv = 10000.0 ** (-torch.arange(64, device=cuda_device).float() / 64)
+        cos_f, sin_f = PA.rope_full_tables(torch.cos(pos[:, None] * inv),
+                                           torch.sin(pos[:, None] * inv),
+                                           128)
+        qs = torch.linspace(0.9, 1.2, b, device=cuda_device)
+
+        def call(fn, k, v):
+            if mode == 'attend':
+                return getattr(PA, fn)(q, k, v, 1, pt, cl, qp)
+            fn = fn.replace('attention', f'attention_{mode}')
+            if mode == 'write':
+                return getattr(PA, fn)(q, kn, vn, k, v, 1, pt, cl, valid, qp)
+            return getattr(PA, fn)(q, kn, vn, cos_f, sin_f, qs, k, v, 1, pt,
+                                   cl, valid, qp, half=64)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = call('paged_decode_attention', k1, v1)
+        again = call('paged_decode_attention', k1, v1)
+        want = call('paged_decode_attention_plain', k2, v2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), ctxs
+        assert torch.equal(k1, k2) and torch.equal(v1, v2), ctxs
+        ok = valid.bool() if mode != 'attend' else torch.ones_like(
+            valid, dtype=torch.bool)
+        err = (got.float() - want.float())[ok].abs().max().item()
+        assert err <= 1e-2, (ctxs, err)
+        if b > 1 and mode != 'attend':
+            p2 = ctxs[2] - 1
+            phys = int(pt[2, p2 // page])
+            assert torch.equal(k1[1, phys, p2 % page], kc[1, phys, p2 % page])
+            assert (got[2] == 0).all()
