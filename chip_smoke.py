@@ -13,9 +13,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                card at Llama-2-7B main-path shapes, with its time, the plain
                version's time, one PyTorch library call's time and the bound;
                the kernels line reports the shapes the engine launches in
-               decode (all 8 batch slots: GEMM M=8, attention B=8)
+               decode (all 8 batch slots: GEMM M=8, attention B=8); the GEMM
+               also at the verify's M=40, prefill attention also at the
+               verify's T=5 (B=8 all live, one live slot with 7 padding
+               rows, B=1 at ctx 80 / 512 / 2048)
   4. model   — a 2-layer full-width W4A16 model: one 64-token prefill chunk
-               + 4 decode steps through the kernels on the card against the
+               + 4 decode steps + one T=5 speculative verify forward (every
+               row's logits) through the kernels on the card against the
                same model on the CPU, where every wrapper runs its plain
                version; with a bf16 pool, an int8 and an int4 pool (qparams
                from the bf16 run's K/V), and an int8 pool under
@@ -35,8 +39,25 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                defaults, LMDEPLOY_TPU_FUSED_ATTN=0 and
                LMDEPLOY_TPU_FUSED_ROPE=1 must solve to 32 / 0 launches per
                decode step / prefill pass of the selected decode kernel and
-               0 / 32 of prefill attention.  Counters are set to 0 before
-               each run and read after it.
+               0 / 32 of prefill attention.  Then speculative decoding
+               (k=4, n-gram 3 down to 2) on the bf16 engine: greedy bs1 of
+               256 tokens from prompt [1] (bench.py's headline path) and
+               one of 32, whose windows solve 160 / 160 / 32 / 0 launches
+               per verify round (GEMM / its wgmma regime / prefill / decode
+               attention); the same 256-token request on plain rounds; the
+               spec tokens against one teacher-forced forward (each within
+               1% of max|logit| of its argmax; the two streams agree up to
+               the first near-tie); seeded sampled requests (top-k/top-p,
+               temperature, repetition penalty, min_new_tokens, a bad word,
+               top_logprobs 5) on plain rounds and twice on speculative
+               rounds (identical), a top_k=0 request ('full'); 4
+               concurrent speculative requests; then, on the stopped
+               engine, kernel launches by part of a verify round and one
+               greedy and one sampled speculative dispatch under
+               torch.cuda.set_sync_debug_mode('error') (no host sync
+               before the readback); and an int8 speculative pair with the
+               same launch check.  Counters are set to 0 before each run
+               and read after it.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -60,8 +81,11 @@ LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
 ENGINE_SLOTS = 8     # phase 5's max_batch_size: every decode step runs all
-# 64 and 512: the prefill buckets; each M times both regimes (the crossover)
-GEMM_ROWS = (1, ENGINE_SLOTS, 16, 32, 64, 128, 256, 512)
+# 64 and 512: the prefill buckets; 40: the speculative verify of all 8 slots
+# (K+1 = 5 rows each); each M times both regimes (the crossover)
+SPEC_K = 4           # phase 5's speculative_k, as bench.py's headline run
+GEMM_ROWS = (1, ENGINE_SLOTS, 16, 32, ENGINE_SLOTS * (SPEC_K + 1), 64, 128,
+             256, 512)
 REPLACES = {
     'w4a16_gemm': 'lmdeploy_tpu/ops/pallas/quant_matmul.py:177',
     'paged_decode_attention_write':
@@ -290,6 +314,7 @@ def check_gemm(torch, ctx, timer):
         shape='one Llama-2-7B layer in prefill: wqkv+wo+w1+w3+w2, M=512 '
               '(the 512-token bucket)',
         **layer[512], max_abs_err=worst,
+        verify_m40=layer[ENGINE_SLOTS * (SPEC_K + 1)],
         crossover={r: by_regime[r] for r in REGIMES}, tmap_encode_ns=enc,
         tolerance='1e-3 * max|plain| + 1e-3')
     ctx['gemm_rows'] = rows
@@ -600,11 +625,99 @@ def check_prefill(torch, ctx, timer):
         torch.cuda.empty_cache()
 
 
+# kernel 3 at the speculative verify's shape, T = K+1 rows a slot: (label,
+# live slots' context ends, padding rows' stale contexts); the first is
+# the engine's verify with every slot running, the second a bs1 request's
+# verify after longer requests (the idle slots are padding rows)
+VERIFY_CASES = (
+    ('B=8 T=5 ctx~512', [512 - 7 * i for i in range(8)], []),
+    ('B=8 T=5, slot 0 ctx 80, 7 padding rows', [80],
+     [500 + 9 * i for i in range(7)]),
+    ('B=1 T=5 ctx 80', [80], []),
+    ('B=1 T=5 ctx 512', [512], []),
+    ('B=1 T=5 ctx 2048', [2048], []),
+)
+
+
+def check_verify(torch, ctx, timer):
+    """Kernel 3 at each KV width over VERIFY_CASES against its plain
+    version (live rows within 1e-2, padding rows finite), with causal SDPA
+    over the live slots and the bound."""
+    from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
+    from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    kh, h, dh, n_layers, t, page = 32, 32, 128, 4, SPEC_K + 1, 64
+    for kv_bits, (width, _, elem_bytes) in KV_WIDTHS.items():
+        qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
+              if kv_bits else None)
+        name = f'paged_prefill_attention[{width}]'
+        rows, worst = {}, 0.0
+        for label, live_ends, pads in VERIFY_CASES:
+            nl = len(live_ends)
+            ends = live_ends + pads
+            starts = [e - t for e in live_ends] + pads
+            b = len(ends)
+            kc, vc, pt = _paged_case(
+                torch, gen, b, ends, n_layers,
+                pages=sum(-(-e // page) for e in ends) + 8, kh=kh,
+                kv_bits=kv_bits)
+            q = torch.randn((b, t, h, dh), generator=gen, device='cuda').to(
+                torch.bfloat16)
+            sp = torch.tensor(starts, dtype=torch.int32, device='cuda')
+            ce = torch.tensor(ends, dtype=torch.int32, device='cuda')
+            got = paged_prefill_attention(q, kc, vc, 1, pt, sp, ce, qp)
+            want = paged_prefill_attention_plain(q, kc, vc, 1, pt, sp, ce,
+                                                 qp)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f'{name} ({label}): not finite')
+            err = (got[:nl].float() - want[:nl].float()).abs().max().item()
+            if not err <= 1e-2:
+                raise AssertionError(f'{name} ({label}): max abs err {err} '
+                                     '> 1e-2')
+            worst = max(worst, err)
+            ms = timer.graph(lambda i: paged_prefill_attention(
+                q, kc, vc, i % n_layers, pt, sp, ce, qp), 32)
+            plain = timer.events(lambda i: paged_prefill_attention_plain(
+                q, kc, vc, i % n_layers, pt, sp, ce, qp), 3, warmup=1)
+            # SDPA over the live slots, kv_pos <= start + t per row
+            n_kv = max(live_ends)
+            kvg = [(kk[:, :, :n_kv], vv[:, :, :n_kv]) for kk, vv in
+                   _dequant_gather(torch, kc, vc, pt[:nl],
+                                   -(-n_kv // page) * page, qp)]
+            qt = q[:nl].transpose(1, 2)
+            mask = (torch.arange(n_kv, device='cuda')[None, None, None]
+                    <= sp[:nl, None, None, None]
+                    + torch.arange(t, device='cuda')[None, None, :, None])
+            lib = timer.graph(lambda i: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qt, *kvg[i % n_layers], attn_mask=mask),
+                              32)
+            nbytes = (2 * nl * t * h * dh * 2
+                      + 2 * sum(live_ends) * kh * dh * elem_bytes)
+            ops = sum(4.0 * dh * h * (t * s + t * (t + 1) / 2)
+                      for s in starts[:nl])
+            bms, by = bound_ms(nbytes, ops)
+            log(f'  {name} verify {label}: kernel {ms:.4f} ms, plain '
+                f'{plain:.3f} ms, SDPA (masked) {lib:.4f} ms, bound '
+                f'{bms:.4f} ms ({by}), {bms / ms:.0%} of the bound, max abs '
+                f'err {err:.2e} (tol 1e-2)')
+            rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bms, bound_by=by, max_abs_err=err)
+            del kvg, kc, vc
+        entry = ctx['kernels'][name]
+        entry['verify'] = rows
+        entry['max_abs_err'] = max(entry['max_abs_err'], worst)
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, ctx):
     timer = Timer(torch)
     check_gemm(torch, ctx, timer)
     check_decode(torch, ctx, timer)
     check_prefill(torch, ctx, timer)
+    check_verify(torch, ctx, timer)
 
 
 def llama2_7b(num_layer: int = 32):
@@ -750,7 +863,7 @@ def phase_model(torch, ctx):
                                   kv_scales=scales.get(kv_bits))
                   for dev in ('cuda', 'cpu')}
 
-        def step(dev, ids, start):
+        def step(dev, ids, start, verify=False):
             t = len(ids)
             batch = StepBatch(
                 ids=torch.tensor([ids], dtype=torch.int32, device=dev),
@@ -760,19 +873,27 @@ def phase_model(torch, ctx):
                 context_len=torch.tensor([start + t], dtype=torch.int32,
                                          device=dev),
                 page_table=pt.to(dev))
-            logits, _ = forward(ps[dev], caches[dev], batch, cfg)
-            return logits[0, :cfg.vocab_size].float().cpu()
+            logits, _ = forward(ps[dev], caches[dev], batch, cfg,
+                                return_all_logits=verify,
+                                logits_count=t if verify else None)
+            return logits[0, ..., :cfg.vocab_size].float().cpu().flatten()
 
         log(f'  model run: {label} pool')
         feed, start, worst_rel, min_cos = prompt, 0, 0.0, 1.0
         K.reset_launch_counts()
         with env_vars(env):
-            for s in range(5):           # the prefill chunk, then 4 decodes
+            # the prefill chunk, 4 decodes, then one speculative verify
+            # (the current token and K drafts, every row's logits)
+            for s in range(6):
+                verify = s == 5
+                if verify:
+                    feed = feed + rng.integers(
+                        3, cfg.vocab_size, size=SPEC_K).tolist()
                 t0 = time.monotonic()
-                got = step('cuda', feed, start)
+                got = step('cuda', feed, start, verify)
                 torch.cuda.synchronize()
                 t1 = time.monotonic()
-                want = step('cpu', feed, start)
+                want = step('cpu', feed, start, verify)
                 t2 = time.monotonic()
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
@@ -787,9 +908,10 @@ def phase_model(torch, ctx):
                 start += len(feed)
                 feed = [int(got.argmax())]
         launched = {n: c[0] for n, c in K.launch_counts().items() if c[0]}
-        want_launch = {'w4a16_gemm': 5 * 5 * cfg.num_layer,
+        want_launch = {'w4a16_gemm': 6 * 5 * cfg.num_layer,
                        f'{decode_kernel_of(env)}[{width}]': 4 * cfg.num_layer,
-                       f'paged_prefill_attention[{width}]': cfg.num_layer}
+                       f'paged_prefill_attention[{width}]':
+                           2 * cfg.num_layer}
         if launched != want_launch:
             failures.append(f'{label}: launches {launched}, want '
                             f'{want_launch}')
@@ -834,10 +956,11 @@ def phase_model(torch, ctx):
 
 def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
     """One bs1 request of 64 new tokens under torch.profiler: device busy
-    share (kernel time over the request's wall time) and the kernels that
-    take the device time, on a ``width`` KV pool.  The engine's slots are
-    printed first: the slots the request does not use keep the context of
-    their last request."""
+    share (kernel time over the request's wall time), the kernels that
+    take the device time and the kernel launches per forward pass (decode
+    step or verify round), on a ``width`` KV pool (``width`` may name the
+    speculative run).  The engine's slots are printed first: the slots the
+    request does not use keep the context of their last request."""
     from torch.profiler import ProfilerActivity, profile
     out = []
     torch.cuda.synchronize()
@@ -845,12 +968,17 @@ def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
     log(f'  before the profiled request: context_len '
         f'{st.context_len.tolist()}, running '
         f'{(st.active & ~st.finished).int().tolist()}')
+    before = dict(eng.stats)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run_request(out)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    passes = sum(eng.stats[k] - before[k] for k in PASS_KINDS)
+    rounds = eng.stats['spec_rounds'] - before['spec_rounds']
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith('cudaLaunchKernel'))
     rows = []
     for e in prof.key_averages():
         dev = getattr(e, 'self_device_time_total', None)
@@ -865,7 +993,10 @@ def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
         f'{ctx.get("card", "?")}): wall '
         f'{wall * 1e3:.1f} ms, device kernel time {busy:.1f} ms, busy share '
         f'{busy / (wall * 1e3):.3f}; per token: wall '
-        f'{wall * 1e3 / steps:.2f} ms, device {busy / steps:.2f} ms')
+        f'{wall * 1e3 / steps:.2f} ms, device {busy / steps:.2f} ms; '
+        f'{passes} forward passes ({rounds} verify rounds), per pass: wall '
+        f'{wall * 1e3 / passes:.2f} ms, device {busy / passes:.2f} ms, '
+        f'{launches / passes:.0f} kernel launches')
     for ms, n, name in rows[:12]:
         log(f'    {ms:9.2f} ms  {n:7d}x  {name[:90]}')
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
@@ -874,43 +1005,98 @@ def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
         f'{name[:40]} {ms:.1f} ms / {n}x' for ms, n, name in host))
     ctx[f'profile_bs1_{width}'] = dict(
         wall_ms=wall * 1e3, device_ms=busy, busy_share=busy / (wall * 1e3),
+        passes=passes, verify_rounds=rounds, launches=launches,
         top=[(name[:90], ms, n) for ms, n, name in rows[:12]],
         host_top=[(name[:90], ms, n) for ms, n, name in host])
 
 
-def launches_per_pass(marks):
-    """Kernel launches per decode step and per prefill pass, solved from
-    two windows between three marks (launch counts, decode steps, prefill
-    passes): in each window launches = a * steps + b * passes."""
-    windows = [(b[1] - a[1], b[2] - a[2]) for a, b in zip(marks, marks[1:])]
-    m = np.array(windows, dtype=np.float64)
-    if abs(np.linalg.det(m)) < 0.5:
-        raise AssertionError(f'windows {windows} do not separate decode '
-                             'steps from prefill passes')
-    per_step, per_pass = {}, {}
+# forward passes by kind, as the engine counts them
+PASS_KINDS = ('decode_steps', 'spec_rounds', 'prefill_passes')
+
+
+def launches_per_kind(marks, skip=()):
+    """Kernel launches per forward pass of each kind that ran (decode step,
+    verify round, prefill pass), solved from the windows between marks
+    (launch counts, {kind: passes so far}): in each window launches =
+    sum over kinds of per-pass launches * passes.  The windows must fix
+    every kind that ran, and every kernel's launches (but those in
+    ``skip``) must fit exactly."""
+    kinds = [k for k in PASS_KINDS
+             if any(b[1][k] != a[1][k] for a, b in zip(marks, marks[1:]))]
+    m = np.array([[b[1][k] - a[1][k] for k in kinds]
+                  for a, b in zip(marks, marks[1:])], dtype=np.float64)
+    if not kinds or np.linalg.matrix_rank(m) < len(kinds):
+        raise AssertionError(f'windows {m.tolist()} of {kinds} do not fix '
+                             'launches per pass')
+    per = {k: {} for k in kinds}
     for name in marks[0][0]:
-        y = [b[0][name] - a[0][name] for a, b in zip(marks, marks[1:])]
-        per_step[name], per_pass[name] = (
-            round(float(v), 6) + 0.0 for v in np.linalg.solve(m, y))
-    return per_step, per_pass, windows
-
-
-def check_route(counts, solved, want_step, want_pass, label, skip=()):
-    """Every kernel's launches per decode step and per prefill pass, as
-    solved by :func:`launches_per_pass`, equal ``want_step`` /
-    ``want_pass`` (absent names: none; names in ``skip`` are not solved),
-    and no plain version ran."""
-    per_step, per_pass, windows = solved
-    for name in counts:
         if name in skip:
             continue
-        if (abs(per_step[name] - want_step.get(name, 0)) > 1e-6
-                or abs(per_pass[name] - want_pass.get(name, 0)) > 1e-6):
-            raise AssertionError(
-                f'{label}: {name} {per_step[name]} launches per decode '
-                f'step, {per_pass[name]} per prefill pass (want '
-                f'{want_step.get(name, 0)}, {want_pass.get(name, 0)}); '
-                f'(decode steps, prefill passes) of the windows {windows}')
+        y = np.array([b[0][name] - a[0][name]
+                      for a, b in zip(marks, marks[1:])], dtype=np.float64)
+        sol = np.linalg.lstsq(m, y, rcond=None)[0]
+        if np.abs(m @ sol - y).max() > 1e-6:
+            raise AssertionError(f'{name}: launches {y.tolist()} fit no '
+                                 f'fixed count per pass of {kinds} '
+                                 f'{m.tolist()}')
+        for k, v in zip(kinds, sol):
+            per[k][name] = round(float(v), 6) + 0.0
+    return per, kinds, m.tolist()
+
+
+def teacher_forced_logits(torch, params, cfg, prompt, tokens):
+    """f32 logits [len(tokens), V] of one forward over the prompt and the
+    stream (each row predicts the stream's next token), through the
+    kernels, in a pool of its own."""
+    from lmdeploy_tpu_torch.kvcache.paged import init_cache
+    from lmdeploy_tpu_torch.models.llama import StepBatch, forward
+    ids = list(prompt) + list(tokens[:-1])
+    t, page = len(ids), 64
+    pages = -(-t // page)
+    cache = init_cache(cfg.num_layer, pages, page, cfg.kv_head_num,
+                       cfg.size_per_head, torch.bfloat16, 'cuda')
+    dev = 'cuda'
+    batch = StepBatch(
+        ids=torch.tensor([ids], dtype=torch.int32, device=dev),
+        positions=torch.arange(t, dtype=torch.int32, device=dev)[None],
+        valid=torch.ones((1, t), dtype=torch.bool, device=dev),
+        context_len=torch.tensor([t], dtype=torch.int32, device=dev),
+        page_table=torch.arange(pages, dtype=torch.int32, device=dev)[None])
+    logits, _ = forward(params, cache, batch, cfg, return_all_logits=True)
+    return logits[0, len(prompt) - 1:, :cfg.vocab_size].float()
+
+
+def count_kernels(torch, fn):
+    """Kernels one call of ``fn`` launches (torch.profiler, CUDA)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = 0
+    for e in prof.key_averages():
+        dev = getattr(e, 'self_device_time_total', None)
+        if dev is None:
+            dev = getattr(e, 'self_cuda_time_total', 0)
+        n += e.count if dev > 0 else 0
+    return n
+
+
+def check_route(counts, solved, want, label, need=()):
+    """Every kernel's launches per pass of each kind, as solved by
+    :func:`launches_per_kind`, equal ``want`` ({kind: {name: launches}};
+    absent names: none), the kinds in ``need`` ran, and no plain version
+    ran."""
+    per, kinds, windows = solved
+    if not set(need) <= set(kinds):
+        raise AssertionError(f'{label}: passes of {kinds} ran, want {need}')
+    for kind in kinds:
+        for name, got in per[kind].items():
+            if abs(got - want.get(kind, {}).get(name, 0)) > 1e-6:
+                raise AssertionError(
+                    f'{label}: {name} {got} launches per {kind} (want '
+                    f'{want.get(kind, {}).get(name, 0)}); windows {windows} '
+                    f'of {kinds}')
     plain = {n: c[1] for n, c in counts.items() if c[1]}
     if plain:
         raise AssertionError(f'{label}: plain-version calls {plain} on the '
@@ -923,8 +1109,10 @@ def phase_engine(torch, ctx):
     each serve 4 concurrent greedy requests and then one bs1 request of
     256 new tokens; then short bs1 requests run each pool width (int4:
     quant_policy 8 with static qparams) under LMDEPLOY_TPU_FUSED_ATTN=0 and
-    LMDEPLOY_TPU_FUSED_ROPE=1.  Every run starts from counters at 0 and
-    must launch exactly the kernels of its route."""
+    LMDEPLOY_TPU_FUSED_ROPE=1.  The bf16 and int8 engines then serve
+    speculative rounds (speculative_k toggled on the running engine, as
+    bench.py does): spec_main and no_host_sync below.  Every run starts
+    from counters at 0 and must launch exactly the kernels of its route."""
     import dataclasses
     from lmdeploy_tpu_torch.config import EngineConfig
     from lmdeploy_tpu_torch.engine.engine import TorchEngine
@@ -956,25 +1144,32 @@ def phase_engine(torch, ctx):
             ecfg, quant_policy=quant_policy), params, kv_scales=kv_scales)
         return eng, eng.create_instance()
 
-    def run(inst, prompt, n_new, out):
+    def run(inst, prompt, n_new, out, gen=None):
+        """One request (greedy unless ``gen``) of exactly ``n_new`` tokens
+        (up to ``n_new`` with ``gen``, which may stop at EOS)."""
         t_sub = time.monotonic()
-        first, n, status = None, 0, None
-        for o in inst.stream_infer(next(sid), prompt, GenerationConfig(
-                max_new_tokens=n_new, top_k=1, ignore_eos=True),
-                sequence_end=True):
-            if o.num_generated and first is None:
+        first, last = None, None
+        for last in inst.stream_infer(next(sid), prompt, gen or
+                                      GenerationConfig(
+                                          max_new_tokens=n_new, top_k=1,
+                                          ignore_eos=True),
+                                      sequence_end=True):
+            if last.num_generated and first is None:
                 first = time.monotonic()
-            n, status = o.num_generated, o.status
-        if n != n_new or status != ResponseType.FINISH:
+        n, status = last.num_generated, last.status
+        if not (n == n_new or gen and 0 < n < n_new) \
+                or status != ResponseType.FINISH:
             raise AssertionError(f'request of {len(prompt)} prompt tokens: '
                                  f'{n} tokens, {status}')
         out.append(dict(ttft=(first or time.monotonic()) - t_sub,
-                        t_first=first, t_end=time.monotonic(), n=n))
+                        t_first=first, t_end=time.monotonic(), n=n,
+                        tokens=list(last.token_ids), logprobs=last.logprobs,
+                        top_logprobs=last.top_logprobs))
 
     def mark(eng):
-        """(launch counts, decode steps, prefill passes) so far."""
+        """(launch counts, forward passes by kind) so far."""
         return ({n: c[0] for n, c in K.launch_counts(True).items()},
-                eng.stats['decode_steps'], eng.stats['prefill_passes'])
+                {k: eng.stats[k] for k in PASS_KINDS})
 
     def record(name, launches, per_step, per_pass):
         ctx['kernels'].setdefault(name, {}).update(
@@ -1008,15 +1203,18 @@ def phase_engine(torch, ctx):
         counts = K.launch_counts(True)
         end = mark(eng)
         wall = time.monotonic() - t_start
-        solved = launches_per_pass([start, mid, end])
-        per_step, per_pass, windows = solved
-        decode, prefill = (f'paged_decode_attention_write[{width}]',
-                           f'paged_prefill_attention[{width}]')
         # the wgmma regime runs the passes of the 512 bucket only, whose
         # share of the passes the concurrent window does not fix
-        check_route(counts, solved, {'w4a16_gemm': 5 * nl, decode: nl},
-                    {'w4a16_gemm': 5 * nl, prefill: nl}, f'{width} engine',
-                    skip=(WGMMA,))
+        solved = launches_per_kind([start, mid, end], skip=(WGMMA,))
+        per, _, windows = solved
+        decode, prefill = (f'paged_decode_attention_write[{width}]',
+                           f'paged_prefill_attention[{width}]')
+        check_route(counts, solved,
+                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                     'prefill_passes': {'w4a16_gemm': 5 * nl, prefill: nl}},
+                    f'{width} engine', need=('decode_steps',
+                                              'prefill_passes'))
+        per_step, per_pass = per['decode_steps'], per['prefill_passes']
         mem = torch.cuda.max_memory_allocated() / 2 ** 30
         ttfts = [round(x['ttft'], 3) for x in results]
         log(f'  engine, {width} KV pool [{card}]: TTFT {ttfts} s (prompts '
@@ -1054,13 +1252,17 @@ def phase_engine(torch, ctx):
                 run(inst, prompt, n_new, out)
                 marks.append(mark(eng))
         counts = K.launch_counts(True)
-        solved = launches_per_pass(marks)
-        per_step, per_pass, windows = solved
+        solved = launches_per_kind(marks)
+        per, _, windows = solved
         label = (f'{width} bs1 {env or "defaults"}, {len(prompt)}-token '
                  f'prompt')
-        check_route(counts, solved, {'w4a16_gemm': 5 * nl, decode: nl},
-                    {'w4a16_gemm': 5 * nl, prefill: nl,
-                     WGMMA: 5 * nl if rows > DECODE_MAX_M else 0}, label)
+        check_route(counts, solved,
+                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                     'prefill_passes': {
+                         'w4a16_gemm': 5 * nl, prefill: nl,
+                         WGMMA: 5 * nl if rows > DECODE_MAX_M else 0}},
+                    label, need=('decode_steps', 'prefill_passes'))
+        per_step, per_pass = per['decode_steps'], per['prefill_passes']
         tps = (out[0]['n'] - 1) / (out[0]['t_end'] - out[0]['t_first'])
         log(f'  {label}, requests of {lens} new tokens: {decode} '
             f'{counts[decode][0]} launches, {per_step[decode]} per decode '
@@ -1080,6 +1282,247 @@ def phase_engine(torch, ctx):
             record(prefill, counts[prefill][0], per_step[prefill],
                    per_pass[prefill])
 
+    def spec_requests(eng, inst, width, lens):
+        """Speculative greedy bs1 requests (prompt [1], as bench.py) of
+        ``lens`` new tokens, counters from 0, whose windows solve launches
+        per pass: a verify round 160 GEMMs, all of them wgmma (M = 40), 32
+        prefill attention and no decode attention; a decode step the gate
+        hands back 160 / 32 as plain decode; no plain-version call."""
+        eng.ecfg.speculative_k = SPEC_K
+        eng._spec_cooloff, eng._spec_accept_ema = 0, None   # gate open
+        decode = f'paged_decode_attention_write[{width}]'
+        prefill = f'paged_prefill_attention[{width}]'
+        want = {'spec_rounds': {'w4a16_gemm': 5 * nl, WGMMA: 5 * nl,
+                                prefill: nl},
+                'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl}}
+        K.reset_launch_counts()
+        marks, out, stats = [mark(eng)], [], []
+        for n_new in lens:
+            before = dict(eng.stats)
+            run(inst, [1], n_new, out)
+            marks.append(mark(eng))
+            stats.append({k: eng.stats[k] - before[k] for k in (
+                'spec_rounds', 'spec_emitted', 'spec_fallbacks',
+                'decode_steps')})
+        counts = K.launch_counts(True)
+        solved = launches_per_kind(marks)
+        per, kinds, windows = solved
+        check_route(counts, solved, want, f'{width} spec',
+                    need=('spec_rounds',))
+        log(f'  {width} spec bs1 requests of {lens} new tokens: per verify '
+            f'round {({n: v for n, v in per["spec_rounds"].items() if v})}'
+            f'; windows {windows} of {kinds}; per request {stats}')
+        for name in (('w4a16_gemm', WGMMA) if width == 'bf16' else ()) \
+                + (prefill,):
+            ctx['kernels'].setdefault(name, {}).update(
+                spec_launches=counts[name][0],
+                launches_per_verify_round=per['spec_rounds'][name])
+        return out, stats
+
+    def spec_main(eng, inst):
+        """The JAX bench's headline path: greedy bs1, k = 4, 256 new
+        tokens from prompt [1], then the same request on plain rounds; the
+        spec stream against one teacher-forced forward; sampled and
+        top_k = 0 requests; 4 concurrent speculative requests."""
+        out, stats = spec_requests(eng, inst, 'bf16', (256, 32))
+        spec = out[0]
+        eng.ecfg.speculative_k = 0
+        plain = []
+        run(inst, [1], 256, plain)
+        plain = plain[0]
+        eng.ecfg.speculative_k = SPEC_K
+        tps = {k: (r['n'] - 1) / (r['t_end'] - r['t_first'])
+               for k, r in (('spec', spec), ('plain', plain))}
+        per_round = stats[0]['spec_emitted'] / max(stats[0]['spec_rounds'], 1)
+        lg = teacher_forced_logits(torch, params, cfg, [1], spec['tokens'])
+        top = lg.max(dim=-1).values
+        tol = 0.01 * lg.abs().max(dim=-1).values
+        idx = torch.arange(len(spec['tokens']), device='cuda')
+        chosen = lg[idx, torch.tensor(spec['tokens'], device='cuda')]
+        off = (chosen < top - tol).nonzero().flatten().tolist()
+        if off:
+            raise AssertionError(f'spec tokens at steps {off[:8]} are not '
+                                 'within 1% of max|logit| of the teacher-'
+                                 'forced argmax')
+        top2 = lg.topk(2, dim=-1).values
+        near = ((top2[:, 0] - top2[:, 1]) < tol).nonzero().flatten()
+        upto = int(near[0]) if len(near) else len(spec['tokens'])
+        same = next((i for i, (a, b) in enumerate(zip(spec['tokens'],
+                                                      plain['tokens']))
+                     if a != b), len(spec['tokens']))
+        if same < upto:
+            raise AssertionError(f'spec and plain streams part at step '
+                                 f'{same}, before the first near-tie {upto}')
+        log(f'  engine, bf16 KV pool, greedy bs1 [{card}]: speculative '
+            f'(k={SPEC_K}) {tps["spec"]:.1f} tok/s, TTFT {spec["ttft"]:.3f} '
+            f's, {per_round:.2f} tokens per verify round '
+            f'({stats[0]["spec_rounds"]} rounds, {stats[0]["spec_fallbacks"]}'
+            f' fallbacks, {stats[0]["decode_steps"]} decode steps); plain '
+            f'rounds {tps["plain"]:.1f} tok/s, TTFT {plain["ttft"]:.3f} s; '
+            f'speedup {tps["spec"] / tps["plain"]:.2f}x; every spec token '
+            f'within 1% of max|logit| of the teacher-forced argmax; streams '
+            f'agree for {same} steps (first near-tie at {upto})')
+        result = dict(tok_s_spec=tps['spec'], tok_s_plain=tps['plain'],
+                      ttft_spec_s=spec['ttft'], ttft_plain_s=plain['ttft'],
+                      tokens_per_round=per_round,
+                      spec_fallbacks=stats[0]['spec_fallbacks'],
+                      agree_steps=same, first_near_tie=upto)
+        # sampled: plain rounds once, speculative 'candidates' twice
+        banned = max(set(spec['tokens']), key=spec['tokens'].count)
+        sgen = GenerationConfig(
+            max_new_tokens=64, top_k=40, top_p=0.9, temperature=0.8,
+            repetition_penalty=1.1, min_new_tokens=8, bad_words=[banned],
+            random_seed=1234, top_logprobs=5)
+        # plain rounds twice, then speculative rounds twice with the gate
+        # held open (sampled text is rarely drafted right, and a closed
+        # gate hands rounds to plain decode)
+        samp = []
+        for k in (0, 0, SPEC_K, SPEC_K):
+            eng.ecfg.speculative_k = k
+            eng._spec_cooloff, eng._spec_accept_ema = 0, None
+            eng.SPEC_MIN_ACCEPT = 0.0
+            before = dict(eng.stats)
+            try:
+                run(inst, [1], 64, samp, gen=sgen)
+            finally:
+                eng.SPEC_MIN_ACCEPT = 1.15
+            rounds = eng.stats['spec_rounds'] - before['spec_rounds']
+            steps = eng.stats['decode_steps'] - before['decode_steps']
+            if (rounds > 0) != bool(k) or (k and steps):
+                raise AssertionError(f'sampled request, speculative_k={k}: '
+                                     f'{rounds} verify rounds, {steps} '
+                                     'decode steps')
+        if samp[2]['tokens'] != samp[3]['tokens']:
+            raise AssertionError('two seeded speculative sampled runs differ')
+        # the decode GEMM (M <= 8) sums its split over K with f32 atomics,
+        # so plain rounds may part run to run; verify rounds (M = 40, the
+        # wgmma kernel) do not
+        plain_same = samp[0]['tokens'] == samp[1]['tokens']
+        samp = samp[1:]
+        in_tops = 0
+        for r in samp:
+            toks = r['tokens']
+            if banned in toks:
+                raise AssertionError(f'banned id {banned} emitted')
+            if cfg.end_id in toks[:8]:
+                raise AssertionError('EOS before min_new_tokens')
+            if len(r['top_logprobs']) != len(toks) or any(
+                    len(t) != 5 for t in r['top_logprobs']):
+                raise AssertionError('top_logprobs: not 5 per token')
+            for tok, lp, tops in zip(toks, r['logprobs'],
+                                     r['top_logprobs']):
+                if tok in tops:
+                    in_tops += 1
+                    if abs(lp - tops[tok]) > 1e-4:
+                        raise AssertionError(f'logprob {lp} of {tok} is not '
+                                             f'its own entry {tops[tok]}')
+        n_all = sum(len(r['tokens']) for r in samp)
+        full = []
+        eng._spec_cooloff, eng._spec_accept_ema = 0, None
+        before = eng.stats['spec_rounds']
+        run(inst, [1], 16, full, gen=GenerationConfig(
+            max_new_tokens=16, top_k=0, temperature=1.0, random_seed=7,
+            ignore_eos=True))
+        if eng.stats['spec_rounds'] == before:
+            raise AssertionError("top_k=0 request: no 'full' verify round")
+        log(f'  sampled (top_k 40, top_p 0.9, T 0.8, repetition 1.1, '
+            f'min_new 8, bad word {banned}, top_logprobs 5): plain '
+            f'{len(samp[0]["tokens"])} tokens (a second plain run '
+            f'{"identical" if plain_same else "differs"}), spec twice '
+            f'{len(samp[1]["tokens"])} tokens, identical; no banned id, no '
+            f'early EOS; {in_tops} of {n_all} chosen tokens among their 5 '
+            'alternatives, each with its own logprob; a top_k=0 request '
+            'rode full-vocabulary verify rounds')
+        result['sampled_plain_runs_identical'] = plain_same
+        # 4 concurrent greedy speculative requests
+        before = dict(eng.stats)
+        results = [[] for _ in prompts]
+        threads = [threading.Thread(target=run, args=(inst, p, 64, r))
+                   for p, r in zip(prompts, results)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if not all(len(r) == 1 for r in results):
+            raise AssertionError('concurrent spec requests failed')
+        results = [r[0] for r in results]
+        conc = (sum(r['n'] - 1 for r in results)
+                / (max(r['t_end'] for r in results)
+                   - min(r['t_first'] for r in results)))
+        d = {k: eng.stats[k] - before[k]
+             for k in ('spec_rounds', 'spec_emitted', 'decode_steps')}
+        log(f'  4 concurrent speculative requests (prompts {lens}, 64 new '
+            f'each): {conc:.1f} tok/s aggregate, TTFT '
+            f'{[round(r["ttft"], 3) for r in results]} s, {d}')
+        result.update(tok_s_4_concurrent_spec=conc, concurrent_stats=d)
+        return result
+
+    def no_host_sync(eng):
+        """On a stopped engine with one slot installed: kernel launches of
+        a verify round's parts, then one greedy and one sampled speculative
+        dispatch under torch.cuda.set_sync_debug_mode('error') (any host
+        sync raises), each followed by its single readback."""
+        import queue as queue_mod
+        from lmdeploy_tpu_torch.engine import step as S
+        from lmdeploy_tpu_torch.messages import EngineRequest
+        from lmdeploy_tpu_torch.models.llama import StepBatch, forward
+        from lmdeploy_tpu_torch.ops import prng
+        from lmdeploy_tpu_torch.ops.speculative import ngram_propose
+        req = EngineRequest(session_id=next(sid), input_ids=bs1_prompt,
+                            gen_config=GenerationConfig(
+                                max_new_tokens=64, top_k=1, ignore_eos=True))
+        eng._handle_batch([(req, queue_mod.Queue(), time.monotonic())])
+        eng._flush_prefills()
+        rounds, kp1 = 4, SPEC_K + 1
+        eng._grow_pages(3 * rounds * kp1)
+        st = eng.state
+        run_ = st.active & ~st.finished
+        pos = st.context_len[:, None] + torch.arange(
+            kp1, dtype=torch.int32, device='cuda')[None]
+        batch = StepBatch(
+            ids=torch.zeros((ENGINE_SLOTS, kp1), dtype=torch.int32,
+                            device='cuda'),
+            positions=pos, valid=torch.zeros_like(pos, dtype=torch.bool),
+            context_len=st.context_len, page_table=st.page_table)
+        parts = {
+            'verify forward': lambda: forward(
+                params, eng.cache, batch, cfg, return_all_logits=True,
+                logits_count=kp1),
+            'greedy round': lambda: S.spec_decode_rounds(
+                params, eng.cache, st, cfg, num_rounds=1, k_draft=SPEC_K,
+                ngram=3, ngram_min=2, sampling='greedy'),
+            'sampled round (candidates, both passes, top-5)':
+                lambda: S.spec_decode_rounds(
+                    params, eng.cache, st, cfg, num_rounds=1,
+                    k_draft=SPEC_K, ngram=3, ngram_min=2,
+                    sampling='candidates', topn=5, passes=(True, True)),
+            'ngram_propose': lambda: ngram_propose(
+                st.history, st.history_len, SPEC_K, 3, 2),
+            'threefry split': lambda: prng.split(st.sampling.rng_key),
+        }
+        launches = {k: count_kernels(torch, fn) for k, fn in parts.items()}
+        log(f'  kernel launches per part (running {run_.int().tolist()}): '
+            f'{launches}')
+        for sampling, topn, passes in (('greedy', 0, (False, False)),
+                                       ('candidates', 5, (True, True))):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                eng.state, packed = S.spec_decode_rounds(
+                    params, eng.cache, eng.state, cfg, num_rounds=rounds,
+                    k_draft=SPEC_K, ngram=3, ngram_min=2, sampling=sampling,
+                    topn=topn, passes=passes)
+            except RuntimeError as e:
+                raise AssertionError(f'{sampling} spec dispatch synced with '
+                                     f'the host: {e}') from e
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            arr = packed.cpu().numpy()      # the dispatch's one readback
+            log(f'  host syncs inside a {sampling} speculative dispatch of '
+                f'{rounds} rounds: none (sync debug mode "error"); emitted '
+                f'{arr[:, 2 * kp1].sum(axis=0).tolist()}')
+        return launches
+
     switches = ({'LMDEPLOY_TPU_FUSED_ATTN': '0'},
                 {'LMDEPLOY_TPU_FUSED_ROPE': '1'})
     eng = None
@@ -1097,7 +1540,12 @@ def phase_engine(torch, ctx):
         short_bs1(eng, inst, 'bf16', {}, prompt=long_prompt)
         for env in switches:
             short_bs1(eng, inst, 'bf16', env)
+        ctx['engine_spec'] = spec_main(eng, inst)
+        if ctx.get('profile'):
+            profile_bs1(torch, ctx, lambda out: run(inst, [1], 64, out), eng,
+                        'bf16_spec')
         eng.shutdown()
+        ctx['engine_spec']['launches_by_part'] = no_host_sync(eng)
         del eng, inst
         eng, inst = engine(4, scales[8])
         ctx['engine_int8'] = main_traffic(eng, inst, 'int8')
@@ -1106,6 +1554,8 @@ def phase_engine(torch, ctx):
                                                     out), eng, 'int8')
         for env in switches:
             short_bs1(eng, inst, 'int8', env)
+        spec_requests(eng, inst, 'int8', (32, 8))
+        eng.ecfg.speculative_k = 0
         eng.shutdown()
         del eng, inst
         eng, inst = engine(8, scales[4])
@@ -1154,6 +1604,8 @@ def main(argv=None) -> int:
             replaces=REPLACES[base], launches=k.get('launches'),
             launches_per_decode_step=k.get('launches_per_decode_step'),
             launches_per_prefill_pass=k.get('launches_per_prefill_pass'),
+            spec_launches=k.get('spec_launches'),
+            launches_per_verify_round=k.get('launches_per_verify_round'),
             max_abs_err=k.get('max_abs_err'), tolerance=k.get('tolerance'),
             ms=k.get('ms'), kernel_ms=k.get('ms'), plain_ms=k.get('plain_ms'),
             bound_ms=k.get('bound_ms'), bound_by=k.get('bound_by'),
@@ -1161,7 +1613,8 @@ def main(argv=None) -> int:
             shape=k.get('shape'), at_bs1=k.get('m1') or k.get('b1'),
             chunk64_over300=k.get('chunk64_over300'),
             layer_by_m=k.get('layer_by_m'), crossover=k.get('crossover'),
-            cases=k.get('cases'),
+            cases=k.get('cases'), verify=k.get('verify'),
+            verify_m40=k.get('verify_m40'),
             card=ctx.get('card')))
     log(f'total {time.monotonic() - t_all:.1f} s')
     log(ctx.get('card', '?'))       # nvidia-smi name, power.limit

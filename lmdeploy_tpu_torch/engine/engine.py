@@ -1,12 +1,14 @@
 """TorchEngine — the persistent-batch inference engine on one device.
 
-Single-device port of ``lmdeploy_tpu/engine/engine.py::TPUEngine`` for
-plain greedy rounds: one engine thread owns the device state; frontends
-enqueue EngineRequests and read streamed EngineOutputs
-(:meth:`EngineInstance.stream_infer`).  Admission sorted by input length,
-batched chunked prefill bounded by a token budget, decode rounds of
-``step_length`` sub-steps with one [5, k, B] readback, stop criteria,
-retirement and interactive sessions follow the JAX engine.
+Single-device port of ``lmdeploy_tpu/engine/engine.py::TPUEngine``: one
+engine thread owns the device state; frontends enqueue EngineRequests and
+read streamed EngineOutputs (:meth:`EngineInstance.stream_infer`).
+Admission sorted by input length, batched chunked prefill bounded by a
+token budget, decode rounds of ``step_length`` sub-steps with one packed
+readback, every sampling mode (greedy, top-k / top-p / min-p, penalties,
+bad words, min length, top-N logprobs), prompt-lookup speculative rounds
+with their adaptive gate, stop criteria, retirement, per-slot keys saved
+at the exact sub-step and interactive sessions follow the JAX engine.
 
 The KV pool is bf16 (``quant_policy`` 0), int8 (``quant_policy`` 4, with
 the workspace's calibrated per-layer ``kv_scales``, or scale 1 and zero
@@ -15,9 +17,11 @@ point 0 without them, as the JAX engine does) or nibble-packed int4
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
 item): tp / pp / dp > 1, dynamic per-token int4 KV (``quant_policy`` 8
-without ``kv_scales``) and per-head int4 qparams, speculative decoding
-(speculative_k > 0), cross-session prefix caching, any request that is
-not plain greedy, and the prompt-logits path.
+without ``kv_scales``) and per-head int4 qparams, cross-session prefix
+caching and the prompt-logits path.  The JAX engine's fallback that turns
+speculation off after a failed speculative dispatch (a TPU runtime
+workaround) is not ported: such a failure takes the error path of any
+failed round.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from ..kvcache.manager import (GroupedSequenceManager, NoFreePages,
 from ..kvcache.paged import KV_WIDTHS, init_cache, kv_bits_named
 from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
                         ResponseType)
+from ..ops import prng
 from ..ops.sampling import MAX_STOP_BAD_WORDS
 from ..utils.logger import get_logger
 from . import step as S
@@ -52,7 +57,8 @@ def _bucket_for(length: int, buckets) -> int:
 
 def _all_plain_greedy(cfgs) -> bool:
     """Every config is plain greedy: raw argmax == the full sampling stack
-    (no penalties / banned words / min-length EOS masking)."""
+    (no penalties / banned words / min-length EOS masking), so the greedy
+    fast paths (greedy decode, greedy speculative verify) stay exact."""
     return all((g.top_k or 0) == 1 and g.repetition_penalty == 1.0
                and g.presence_penalty == 0.0
                and g.frequency_penalty == 0.0 and not g.bad_words
@@ -86,6 +92,8 @@ class _Slot:
     prefilling: bool = False    # admitted, prompt not fully in KV yet
     tail: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
+    # per generated token: {token_id: logprob} of the top-N alternatives
+    top_lps: List[dict] = dataclasses.field(default_factory=list)
     done: bool = False
     saw_round: bool = False     # this slot appeared in >= 1 decode round
     max_new: int = 0
@@ -111,10 +119,6 @@ class TorchEngine:
                 'KV is not ported yet (ROADMAP.md Queue 1 item 8)')
         self._kv_width = KV_WIDTHS[kv_bits]
         self._kv_scales = kv_scales
-        if engine_cfg.speculative_k > 0:
-            raise NotImplementedError(
-                'speculative_k > 0: speculative decoding is not ported yet '
-                '(ROADMAP.md Queue 1 item 6)')
         if engine_cfg.enable_prefix_caching:
             raise NotImplementedError(
                 'enable_prefix_caching: cross-session prefix caching is not '
@@ -140,12 +144,27 @@ class TorchEngine:
         self.slots: List[Optional[_Slot]] = \
             [None] * engine_cfg.max_batch_size
         self._prefill_jobs: List = []  # (slot_idx, ids, start_pos)
-        # decode_steps / prefill_passes: forward passes of each kind, so
-        # kernel launch counts can be read per step
+        # decode_steps / spec_rounds / prefill_passes: forward passes of
+        # each kind, so kernel launch counts can be read per pass
         self.stats = {'requests': 0, 'finished': 0, 'canceled': 0,
                       'errors': 0, 'rejected': 0, 'timeout': 0,
                       'generated_tokens': 0, 'interleaved_rounds': 0,
-                      'decode_steps': 0, 'prefill_passes': 0}
+                      'decode_steps': 0, 'prefill_passes': 0,
+                      'spec_rounds': 0, 'spec_emitted': 0,
+                      'spec_fallbacks': 0}
+        # adaptive speculative gating: an EMA of accepted tokens per round;
+        # below break-even the engine runs plain rounds and re-probes after
+        # a cooloff (the JAX engine's constants)
+        self._spec_accept_ema: Optional[float] = None
+        self._spec_cooloff = 0
+        self.SPEC_MIN_ACCEPT = 1.15
+        self.SPEC_COOLOFF_DISPATCHES = 4
+        # occupancy gate: speculation while running * (K+1) <= this many
+        # verify rows
+        self.SPEC_MAX_VERIFY_ROWS = 32
+        # top-N planes are quantised to {0, MAX_TOP_LOGPROBS}; _emit slices
+        # each slot's own N
+        self.MAX_TOP_LOGPROBS = 5
         self._fresh_admission = False
         self._ramp = 1
         self._rng_now: Optional[np.ndarray] = None
@@ -205,11 +224,6 @@ class TorchEngine:
             raise NotImplementedError(
                 'prompt logits are not ported yet (ROADMAP.md Queue 1 '
                 'item 10)')
-        if not request.stop and not _all_plain_greedy([request.gen_config]):
-            raise NotImplementedError(
-                'only plain greedy requests (top_k=1, no penalties, bad '
-                'words or min_new_tokens) are ported; sampling is ROADMAP.md '
-                'Queue 1 item 7')
         out_q: queue.Queue = queue.Queue()
         if not self.alive():
             out_q.put(EngineOutput(ResponseType.INTERNAL_ERROR, [], 0,
@@ -448,17 +462,22 @@ class TorchEngine:
                 for w in (gen.stop_words or [])]
 
     def _sampling_row(self, gen: GenerationConfig, seq, max_new) -> dict:
+        cap = MAX_STOP_BAD_WORDS
         stop_flat = [w[0] for w in self._stop_sequences(gen) if len(w) == 1]
-        stop = np.full((MAX_STOP_BAD_WORDS,), -1, np.int32)
-        stop[:min(MAX_STOP_BAD_WORDS, len(stop_flat))] = \
-            stop_flat[:MAX_STOP_BAD_WORDS]
+        stop = np.full((cap,), -1, np.int32)
+        stop[:min(cap, len(stop_flat))] = stop_flat[:cap]
+        bad = np.full((cap,), -1, np.int32)
+        bw = [int(x) for x in (gen.bad_words or [])]
+        if len(bw) > cap:
+            log.warning('truncating %d bad words to capacity %d', len(bw),
+                        cap)
+        bad[:min(cap, len(bw))] = bw[:cap]
         if seq.rng_key is not None and gen.random_seed is None:
             key = np.asarray(seq.rng_key, np.uint32)
         else:
-            seed = int(gen.random_seed if gen.random_seed is not None
-                       else np.random.randint(0, 2 ** 31 - 1))
-            key = np.array([seed >> 32 & 0xFFFFFFFF, seed & 0xFFFFFFFF],
-                           np.uint32)
+            key = prng.key_from_seed(
+                gen.random_seed if gen.random_seed is not None
+                else np.random.randint(0, 2 ** 31 - 1))
         return dict(
             top_k=gen.top_k or 0, top_p=gen.top_p, min_p=gen.min_p,
             temperature=gen.temperature,
@@ -466,7 +485,7 @@ class TorchEngine:
             presence_penalty=gen.presence_penalty,
             frequency_penalty=gen.frequency_penalty,
             rng_key=torch.from_numpy(key.view(np.int32).copy()),
-            stop_words=torch.from_numpy(stop),
+            bad_words=torch.from_numpy(bad), stop_words=torch.from_numpy(stop),
             eos_id=self.cfg.end_id, ignore_eos=bool(gen.ignore_eos),
             min_new_tokens=gen.min_new_tokens, max_new_tokens=max_new)
 
@@ -582,11 +601,17 @@ class TorchEngine:
                 S.set_page_row(self.state, i, self._page_row(slot.seq))
 
     def _decode_round(self, steps: int):
-        """One round of ``steps`` decode steps with a single [5, k, B]
-        readback; right after an admission the round is one step long so
-        the first token streams at once."""
-        if not any(s is not None and not s.done and not s.prefilling
-                   for s in self.slots):
+        """One dispatch of ``steps`` decode steps (or speculative rounds)
+        with a single packed readback; right after an admission it is one
+        step long so the first token streams at once.  The host picks the
+        static mode from the running slots' configs: plain rounds take
+        'greedy' (every slot plain greedy), 'candidates' or 'full' (a slot
+        with top_k <= 0); speculative rounds, while running * (K+1) <=
+        SPEC_MAX_VERIFY_ROWS and the acceptance gate is open, take 'greedy'
+        or, with ``speculative_sampled``, 'candidates' / 'full'."""
+        cfgs = [s.request.gen_config for s in self.slots
+                if s is not None and not s.done and not s.prefilling]
+        if not cfgs:
             return
         if self._fresh_admission:
             self._ramp = 1
@@ -594,33 +619,127 @@ class TorchEngine:
         k = max(1, min(steps, self._ramp))
         self._ramp = max(1, steps)
         self._grow_pages(k)
+        topn = self.MAX_TOP_LOGPROBS if any(
+            (g.top_logprobs or 0) > 0 for g in cfgs) else 0
+        # the full-vocabulary passes run only when a running slot needs them
+        passes = (any(bool(g.bad_words) for g in cfgs),
+                  any(g.repetition_penalty != 1.0 or g.presence_penalty != 0.0
+                      or g.frequency_penalty != 0.0 for g in cfgs))
+        greedy = _all_plain_greedy(cfgs)
+        sampled = 'full' if any((g.top_k or 0) <= 0 for g in cfgs) \
+            else 'candidates'
+        kd = self.ecfg.speculative_k
+        if kd > 0 and len(cfgs) * (kd + 1) <= self.SPEC_MAX_VERIFY_ROWS \
+                and (greedy or self.ecfg.speculative_sampled):
+            if self._spec_cooloff <= 0:
+                self._spec_round(k, 'greedy' if greedy else sampled, topn,
+                                 passes)
+                return
+            # low recent acceptance: plain rounds, re-probe later
+            self._spec_cooloff -= 1
+            self.stats['spec_fallbacks'] += 1
+            if self._spec_cooloff == 0:
+                self._spec_accept_ema = None
         # Deliberate difference: the JAX engine sends plain greedy rounds
-        # through its 'candidates' mode with top_k 1 (engine.py:1128),
-        # whose token is the same argmax; the port calls 'greedy'.
+        # through its 'candidates' mode with top_k 1 (a TPU schedule
+        # choice), whose token is the same argmax; the port calls
+        # 'greedy'.  Keys split alike in both.
         self.state, packed, _ = S.decode_steps(
             self.params, self.cache, self.state, self.cfg, num_steps=k,
-            sampling_mode='greedy')
+            sampling_mode='greedy' if greedy else sampled, topn=topn,
+            passes=passes)
         self.stats['decode_steps'] += k
-        arr = packed.cpu().numpy()
+        arr = packed.cpu().numpy()        # [5 + 2*topn, k, B]
         logprobs = np.ascontiguousarray(arr[2]).view(np.float32)
         for t in range(k):
+            # the key as of sub-step t: a slot retired at t saves it
             self._rng_now = np.ascontiguousarray(arr[3:5, t].T).view(
                 np.uint32)
-            self._emit(arr[0, t], arr[1, t], logprobs[t])
+            tops = None
+            if topn:
+                tops = (arr[5:5 + topn, t].T, np.ascontiguousarray(
+                    arr[5 + topn:5 + 2 * topn, t].T).view(np.float32))
+            self._emit(arr[0, t], arr[1, t], logprobs[t], tops=tops)
             if not any(s is not None and not s.done for s in self.slots):
                 return
 
+    def _spec_round(self, rounds: int, sampling: str, topn: int,
+                    passes):
+        """One dispatch of ``rounds`` draft-verify-accept rounds; each
+        emits 1 to K+1 tokens per running slot.  An EMA of accepted tokens
+        per round over the dispatch gates speculation: below
+        SPEC_MIN_ACCEPT the engine cools off to plain rounds.  Dispatches
+        of fewer than 8 live rounds (the one-round burst after an
+        admission, when the history is too short to match) are not
+        evidence."""
+        kp1 = self.ecfg.speculative_k + 1
+        self._grow_pages(rounds * kp1)
+        self.state, packed = S.spec_decode_rounds(
+            self.params, self.cache, self.state, self.cfg,
+            num_rounds=rounds, k_draft=kp1 - 1,
+            ngram=self.ecfg.speculative_ngram,
+            ngram_min=self.ecfg.speculative_ngram_min, sampling=sampling,
+            topn=topn, passes=passes)
+        arr = packed.cpu().numpy()   # [R, 3*kp1 + 3 + 2*kp1*topn, B]
+        emitted = arr[:, 2 * kp1]                           # [R, B]
+        if int((emitted.sum(axis=1) > 0).sum()) >= 8:
+            acc = float(emitted.sum() / max((emitted > 0).sum(), 1))
+            ema = self._spec_accept_ema
+            self._spec_accept_ema = acc if ema is None \
+                else 0.7 * ema + 0.3 * acc
+            if self._spec_accept_ema < self.SPEC_MIN_ACCEPT:
+                self._spec_cooloff = self.SPEC_COOLOFF_DISPATCHES
+        # every round of the dispatch ran on the device, also those after
+        # the last slot finished
+        self.stats['spec_rounds'] += rounds
+        base = 3 * kp1 + 3
+        for r in range(arr.shape[0]):
+            g, fin, n = arr[r, :kp1], arr[r, kp1:2 * kp1], arr[r, 2 * kp1]
+            logp = np.ascontiguousarray(
+                arr[r, 2 * kp1 + 1:3 * kp1 + 1]).view(np.float32)
+            # keys advance once per round: a slot retired in round r saves
+            # the key as of round r
+            self._rng_now = np.ascontiguousarray(
+                arr[r, 3 * kp1 + 1:3 * kp1 + 3].T).view(np.uint32)
+            self.stats['spec_emitted'] += int(n.sum())
+            for t in range(kp1):
+                mask = t < n
+                if not mask.any():
+                    break
+                tops = None
+                if topn:
+                    at = base + t * topn
+                    tops = (arr[r, at:at + topn].T, np.ascontiguousarray(
+                        arr[r, at + kp1 * topn:at + kp1 * topn + topn].T)
+                        .view(np.float32))
+                self._emit(g[t], fin[t], logp[t], mask=mask, tops=tops)
+                if not any(s is not None and not s.done
+                           for s in self.slots):
+                    return
+
     def _emit(self, toks_np: np.ndarray, fin_np: np.ndarray,
-              logprobs_np: np.ndarray):
+              logprobs_np: np.ndarray, mask: Optional[np.ndarray] = None,
+              tops: Optional[tuple] = None):
+        """Stream one token to every running slot (those of ``mask``
+        only): stop sequences and the holdback of a possible stop prefix
+        on the host, logprobs and the top-N dicts where requested."""
         for i, slot in enumerate(self.slots):
             if slot is None or slot.done or slot.prefilling:
+                continue
+            if mask is not None and not mask[i]:
                 continue
             slot.saw_round = True
             self.stats['generated_tokens'] += 1
             tok = int(toks_np[i])
             gcfg = slot.request.gen_config
-            if gcfg.output_logprobs:
+            want_lp = gcfg.output_logprobs or gcfg.top_logprobs
+            if want_lp:
                 slot.logprobs.append(float(logprobs_np[i]))
+            if tops is not None and gcfg.top_logprobs:
+                n = min(gcfg.top_logprobs, tops[0].shape[1])
+                slot.top_lps.append({
+                    int(tid): float(tlp)
+                    for tid, tlp in zip(tops[0][i, :n], tops[1][i, :n])})
             slot.generated += 1
             slot.context_len += 1
             slot.seq.token_ids.append(tok)
@@ -655,7 +774,9 @@ class TorchEngine:
                 ResponseType.FINISH if finished else ResponseType.SUCCESS,
                 list(visible), len(visible), finished=finished,
                 logprobs=list(slot.logprobs[:len(visible)])
-                if gcfg.output_logprobs else None))
+                if want_lp else None,
+                top_logprobs=list(slot.top_lps[:len(visible)])
+                if gcfg.top_logprobs else None))
             if finished:
                 slot.done = True
                 self._retire(i, ResponseType.FINISH)

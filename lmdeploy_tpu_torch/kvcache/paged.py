@@ -180,21 +180,38 @@ def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, layer: int,
     page are dropped, as the JAX scatter's ``mode='drop'`` does.
     ``qparams`` = this layer's (k_scale, k_zp, v_scale, v_zp), four
     scalars or an f32 [4] row of ``KVCache.qparams``, quantises the rows
-    for an int8 / int4 pool."""
+    for an int8 / int4 pool.
+
+    No row is selected by a boolean mask (that would wait for the device
+    to count the rows): every row is written, a dropped row with the same
+    bytes as a kept one, at the same place, so the duplicate writes
+    agree; with no row kept, each row writes back what its place holds."""
     page_size = cache_k.shape[2]
     maxp = page_table.shape[1]
     pos = positions.long()
     page_of = torch.clamp(pos // page_size, max=maxp - 1)
-    phys = torch.gather(page_table.long(), 1, page_of)
-    keep = valid.bool() & (phys >= 0) & (pos // page_size < maxp)
+    phys = torch.gather(page_table.long(), 1, page_of).reshape(-1)
+    keep = (valid.bool() & (pos // page_size < maxp)).reshape(-1) \
+        & (phys >= 0)
+    pos = pos.reshape(-1)
     bits = kv_bits_of(cache_k)
     if bits and qparams is None:
         raise ValueError('write_kv: a quantised pool needs qparams')
     ks, kz, vs, vz = qparams if bits else (None,) * 4
-    cache_k[layer, phys[keep], pos[keep] % page_size] = quantize_pack(
-        k_new[keep], ks, kz, bits, cache_k.dtype)
-    cache_v[layer, phys[keep], pos[keep] % page_size] = quantize_pack(
-        v_new[keep], vs, vz, bits, cache_v.dtype)
+    # the first kept row, as a 1-element index (a 0-d one reads the host)
+    first = torch.argmax(keep.to(torch.int8)).reshape(1)
+    any_keep = keep[first]
+    redirect = ~keep & any_keep
+    page = torch.where(redirect, phys[first], torch.clamp(phys, min=0))
+    slot = torch.where(redirect, pos[first], pos) % page_size
+    for pool, new, scale, zp in ((cache_k, k_new, ks, kz),
+                                 (cache_v, v_new, vs, vz)):
+        rows = quantize_pack(new.reshape((-1,) + new.shape[2:]), scale, zp,
+                             bits, pool.dtype)
+        rows = torch.where(keep[:, None, None], rows,
+                           torch.where(any_keep, rows[first],
+                                       pool[layer, page, slot]))
+        pool[layer, page, slot] = rows
 
 
 def gather_kv_layer(cache_k_l: torch.Tensor, cache_v_l: torch.Tensor,

@@ -233,12 +233,14 @@ def test_w4a16_shapes_match_plain_on_card(cuda_device, k, n, group, m):
     assert (got - want).abs().max().item() <= tol
 
 
-def _prefill_batch(rng, kv_bits, kh, page, t, histories, device):
-    """One batch of chunks of length t over the given histories, plus a
-    padding row (context_end == start_pos); pages scattered and disjoint."""
-    b = len(histories) + 1
-    starts = list(histories) + [7]
-    lens = [t] * len(histories) + [0]
+def _prefill_batch(rng, kv_bits, kh, page, t, histories, device,
+                   pad_starts=(7,)):
+    """One batch of chunks of length t over the given histories, plus
+    padding rows (context_end == start_pos) at ``pad_starts``; pages
+    scattered and disjoint."""
+    b = len(histories) + len(pad_starts)
+    starts = list(histories) + list(pad_starts)
+    lens = [t] * len(histories) + [0] * len(pad_starts)
     ends = [s + n for s, n in zip(starts, lens)]
     maxp = -(-max(max(ends), 1) // page) + 1
     p = b * maxp + 3
@@ -254,9 +256,10 @@ def _prefill_batch(rng, kv_bits, kh, page, t, histories, device):
     return kc, vc, as_t(pt), as_t(starts), as_t(ends), lens
 
 
-def _check_prefill(rng, kv_bits, kh, g, page, t, histories, device):
+def _check_prefill(rng, kv_bits, kh, g, page, t, histories, device,
+                   pad_starts=(7,)):
     kc, vc, pt, sp, ce, lens = _prefill_batch(rng, kv_bits, kh, page, t,
-                                              histories, device)
+                                              histories, device, pad_starts)
     q = torch.from_numpy(rng.normal(size=(len(lens), t, kh * g, 128))
                          .astype(np.float32)).to(device, torch.bfloat16)
     qp = (torch.tensor(QPARAMS[kv_bits], device=device) if kv_bits
@@ -299,6 +302,30 @@ def test_prefill_block_shapes_on_card(cuda_device, kv_bits, t, history):
     _check_prefill(rng, kv_bits, 32, 1, 64, t, (history,), cuda_device)
 
 
+# the speculative verify's shapes (T = K+1 = 5 rows a slot at Llama-2-7B
+# heads): (histories of the live slots, padding rows' stale contexts)
+VERIFY_SHAPES = {
+    'B=8 ctx~512': (tuple(507 - 7 * i for i in range(8)), ()),
+    'B=8 one live ctx 80, 7 padding rows': (
+        (75,), tuple(500 + 9 * i for i in range(7))),
+    'B=1 ctx 80': ((75,), ()),
+    'B=1 ctx 512': ((507,), ()),
+    'B=1 ctx 2048': ((2043,), ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', list(VERIFY_SHAPES))
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_prefill_verify_shapes_on_card(cuda_device, kv_bits, shape):
+    """Kernel 3 at the verify forward's T = 5: every live row within 1e-2
+    of the plain version, padding rows finite."""
+    histories, pads = VERIFY_SHAPES[shape]
+    rng = np.random.default_rng(130 + kv_bits + len(histories))
+    _check_prefill(rng, kv_bits, 32, 1, 64, 5, histories, cuda_device,
+                   pad_starts=pads)
+
+
 def _gemm_args(rng, m, k, n, device):
     x, packed, scales = _gemm_case(rng, m, k, n)
     return (torch.from_numpy(x).to(device),
@@ -325,7 +352,7 @@ def test_w4a16_wgmma_matches_plain_on_card(cuda_device, m, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('regime', ['decode', 'wgmma'])
-@pytest.mark.parametrize('m', [1, 16, 64, 128])
+@pytest.mark.parametrize('m', [1, 16, 40, 64, 128])
 def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, regime):
     """Both kernels at the M where the crossover is measured, whichever the
     wrapper would pick, and the wgmma kernel twice (deterministic)."""

@@ -4,6 +4,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -202,7 +203,6 @@ def test_cancel_ends_the_stream(port_engine):
 
 @pytest.mark.parametrize('kw', [dict(tp=2), dict(pp=2), dict(dp=2),
                                 dict(quant_policy=8),
-                                dict(speculative_k=4),
                                 dict(enable_prefix_caching=True)])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -210,14 +210,283 @@ def test_unported_engine_options_raise(kw):
                     {}, device='cpu', start=False)
 
 
-@pytest.mark.parametrize('gen', [dict(top_k=40), dict(top_k=1,
-                                                      repetition_penalty=1.1),
-                                 dict(top_k=1, bad_words=[5]),
-                                 dict(top_k=1, min_new_tokens=2)])
-def test_non_greedy_requests_raise(port_engine, gen):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port_engine.create_instance().infer(
-            350, [1, 2, 3], gen_config=GenerationConfig(**gen))
+REPEAT = [3, 4, 5, 3, 4, 5, 3, 4, 5, 3, 4]
+SPEC = dict(speculative_k=4, speculative_ngram=3, speculative_ngram_min=2)
+
+
+@pytest.fixture(scope='module')
+def spec_engine():
+    eng = TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(ECFG, **SPEC)),
+                      params_from_numpy(to_numpy(jax_int4_params()), 'cpu'),
+                      device='cpu')
+    yield eng
+    eng.shutdown()
+
+
+def sampled(n=12, **kw):
+    kw.setdefault('ignore_eos', True)
+    return GenerationConfig(max_new_tokens=n, top_k=20, top_p=0.9,
+                            temperature=0.9, **kw)
+
+
+def agree_up_to_near_tie(prompts, streams_a, streams_b, jp, jcfg):
+    """Compare two greedy streams per prompt up to the first step whose
+    top-2 logit gap, in the JAX forward teacher-forced over the prompt and
+    stream a, is within 2% of that step's largest |logit| (the rule of
+    test_greedy_streams_match_jax_engine).  Returns the steps compared."""
+    compared = 0
+    for prompt, a_toks, b_toks in zip(prompts, streams_a, streams_b):
+        ids = np.asarray(prompt + a_toks[:-1], np.int32)[None]
+        t = ids.shape[1]
+        batch = jllama.StepBatch(
+            ids=jnp.asarray(ids),
+            positions=jnp.arange(t, dtype=jnp.int32)[None],
+            valid=jnp.ones((1, t), bool),
+            context_len=jnp.asarray([t], jnp.int32),
+            page_table=jnp.arange(8, dtype=jnp.int32)[None])
+        logits, _ = jllama.forward(jp, jinit_cache(2, 9, 16, 1, 128), batch,
+                                   jcfg, return_all_logits=True)
+        logits = np.asarray(logits)[0, len(prompt) - 1:]
+        for step, (a, b) in enumerate(zip(a_toks, b_toks)):
+            top2 = np.sort(logits[step])[-2:]
+            if top2[1] - top2[0] < 0.02 * np.abs(logits[step]).max():
+                break
+            assert a == b, (prompt, step, a_toks, b_toks)
+            compared += 1
+    return compared
+
+
+def test_spec_streams_match_plain_and_jax_spec_engine(port_engine,
+                                                      spec_engine):
+    """Greedy speculative streams equal the port's plain greedy streams
+    and the JAX engine's
+    speculative streams up to near-ties: a verify row and a decode step sum
+    in other orders, so a step whose top-2 gap is within the W4A16
+    rounding may go either way (agree_up_to_near_tie)."""
+    prompts = [REPEAT] + PROMPTS[:2]
+    plain = [run(port_engine.create_instance(), 400 + i, p, greedy(16),
+                 sequence_end=True).token_ids for i, p in enumerate(prompts)]
+    before = dict(spec_engine.stats)
+    got = [run(spec_engine.create_instance(), 410 + i, p, greedy(16),
+               sequence_end=True).token_ids for i, p in enumerate(prompts)]
+    assert spec_engine.stats['spec_rounds'] > before['spec_rounds']
+    jp = jax_int4_params()
+    jcfg = JModelConfig(**CFG)
+    jeng = TPUEngine(jcfg, JEngineConfig(**dict(ECFG, **SPEC)), jp)
+    try:
+        jinst = jeng.create_instance()
+        jouts = [jinst.infer(420 + i, p, gen_config=JGen(
+            max_new_tokens=16, top_k=1, ignore_eos=True),
+            sequence_end=True).token_ids for i, p in enumerate(prompts)]
+        assert jeng.stats['spec_rounds'] > 0
+    finally:
+        jeng.shutdown()
+    assert agree_up_to_near_tie(prompts, plain, got, jp, jcfg) >= 16
+    assert agree_up_to_near_tie(prompts, jouts, got, jp, jcfg) >= 16
+
+
+CYCLE = [17, 40, 99, 5, 60]
+
+
+def cycling_params():
+    """Dense f32 weights whose greedy next token is CYCLE's successor of
+    the current one (identity elsewhere), by a wide margin: the lm_head's
+    column j is the embedding of j's predecessor and the layers are small
+    perturbations of the residual stream."""
+    rng = np.random.default_rng(8)
+    d, nl, v = 256, 2, 256
+
+    def w(*shape, s=0.02):
+        return (rng.normal(size=shape) * s).astype(np.float32)
+    emb = w(v, d, s=1.0)
+    pred = np.arange(v)
+    pred[CYCLE] = np.roll(CYCLE, 1)
+    return {'tok_embedding': emb, 'norm': np.ones(d, np.float32),
+            'lm_head': np.ascontiguousarray(emb[pred].T),
+            'layers': {'attn_norm': np.ones((nl, d), np.float32),
+                       'ffn_norm': np.ones((nl, d), np.float32),
+                       'wqkv': w(nl, d, 512), 'wo': w(nl, d, d),
+                       'w1': w(nl, d, 256), 'w3': w(nl, d, 256),
+                       'w2': w(nl, 256, d)}}
+
+
+def test_spec_accepts_drafts_and_equals_plain_on_a_cycling_model():
+    """On a model that continues CYCLE, prompt lookup's drafts are
+    accepted (more than 3 tokens per round), and greedy and seeded
+    sampled streams on speculative rounds equal the plain rounds'
+    token for token (the model leaves no near-tie)."""
+    cfg = ModelConfig(**dict(CFG, weight_type='fp32'))
+    params = params_from_numpy(cycling_params(), 'cpu')
+    prompt = CYCLE * 2 + [17, 40]
+    outs, stats = [], []
+    for extra in ({}, SPEC):
+        eng = TorchEngine(cfg, EngineConfig(**dict(ECFG, **extra)), params,
+                          device='cpu')
+        try:
+            inst = eng.create_instance()
+            outs.append([run(inst, 500 + i, prompt, gen,
+                             sequence_end=True).token_ids
+                         for i, gen in enumerate((
+                             greedy(30), sampled(30, random_seed=1),
+                             greedy(30, top_logprobs=2)))])
+            stats.append(dict(eng.stats))
+        finally:
+            eng.shutdown()
+    assert outs[0] == outs[1]
+    assert outs[0][0][:5] == [99, 5, 60, 17, 40]
+    assert stats[1]['spec_emitted'] > 3 * stats[1]['spec_rounds'] > 0
+    assert stats[1]['decode_steps'] == 0 and stats[0]['spec_rounds'] == 0
+
+
+@pytest.mark.parametrize('eng', ['port_engine', 'spec_engine'])
+def test_sampled_requests_reproducible_from_seed(request, eng):
+    """A sampled request with a fixed seed streams the same tokens twice
+    (plain rounds and speculative 'candidates' rounds); another seed
+    streams other tokens; a top_k = 0 request takes the 'full' mode."""
+    inst = request.getfixturevalue(eng).create_instance()
+    a, b, c = (run(inst, 430 + i, REPEAT, sampled(random_seed=seed),
+                   sequence_end=True).token_ids
+               for i, seed in enumerate((7, 7, 8)))
+    assert a == b and a != c and len(a) == 12
+    full = [run(inst, 433 + i, PROMPTS[1], GenerationConfig(
+        max_new_tokens=8, top_k=0, temperature=1.0, random_seed=3,
+        ignore_eos=True), sequence_end=True).token_ids for i in range(2)]
+    assert full[0] == full[1] and len(full[0]) == 8
+
+
+def test_saved_key_after_greedy_then_sampled_turn_matches_jax(port_engine):
+    """A session's key advances on every greedy step too: after a greedy
+    turn (seeded) and a sampled turn (the session's own key), the key the
+    session keeps equals the JAX engine's."""
+    jeng = TPUEngine(JModelConfig(**CFG), JEngineConfig(**ECFG),
+                     jax_int4_params())
+    keys = []
+    try:
+        for eng, jax_side in ((jeng, True), (port_engine, False)):
+            inst = eng.create_instance()
+            gen1 = (JGen if jax_side else GenerationConfig)(
+                max_new_tokens=5, top_k=1, ignore_eos=True, random_seed=11)
+            gen2 = (JGen if jax_side else GenerationConfig)(
+                max_new_tokens=6, top_k=20, top_p=0.9, temperature=0.9,
+                ignore_eos=True)
+            assert len(inst.infer(440, PROMPTS[0], gen_config=gen1)
+                       .token_ids) == 5
+            assert len(inst.infer(440, [9, 8], gen_config=gen2,
+                                  sequence_start=False).token_ids) == 6
+            # the FINISH frame is queued before the engine thread retires
+            # the slot and stores the key: wait for the slot's release
+            deadline = time.monotonic() + 60
+            while any(s is not None and s.request.session_id == 440
+                      for s in eng.slots):
+                assert time.monotonic() < deadline, 'slot never retired'
+                time.sleep(0.01)
+            keys.append(np.asarray(eng.seqs.get(440).rng_key, np.uint32))
+            inst.end(440)
+    finally:
+        jeng.shutdown()
+    np.testing.assert_array_equal(keys[1], keys[0])
+
+
+@pytest.mark.parametrize('eng', ['port_engine', 'spec_engine'])
+def test_bad_words_are_never_emitted(request, eng):
+    """Banning the tokens a greedy stream emits changes the stream and
+    none of them comes out, in greedy and in sampled requests."""
+    inst = request.getfixturevalue(eng).create_instance()
+    base = run(inst, 450, REPEAT, greedy(10), sequence_end=True).token_ids
+    banned = sorted(set(base))[:4]
+    for gen in (greedy(10, bad_words=banned),
+                sampled(10, bad_words=banned, random_seed=2)):
+        out = run(inst, 451, REPEAT, gen, sequence_end=True).token_ids
+        assert len(out) == 10 and not set(out) & set(banned)
+
+
+def test_min_new_tokens_holds_back_eos(port_engine):
+    """With EOS as the greedy first token a request stops at once; with
+    min_new_tokens = 4 (greedy, and on speculative rounds) it emits at
+    least 4 tokens, the first of them not EOS."""
+    first = run(port_engine.create_instance(), 460, PROMPTS[0], greedy(1),
+                sequence_end=True).token_ids[0]
+    params = params_from_numpy(to_numpy(jax_int4_params()), 'cpu')
+    for extra in ({}, SPEC):
+        eng = TorchEngine(ModelConfig(**dict(CFG, end_id=first)),
+                          EngineConfig(**dict(ECFG, **extra)), params,
+                          device='cpu')
+        try:
+            inst = eng.create_instance()
+            out = run(inst, 461, PROMPTS[0], GenerationConfig(
+                max_new_tokens=8, top_k=1), sequence_end=True)
+            assert out.token_ids == [first]
+            out = run(inst, 462, PROMPTS[0], GenerationConfig(
+                max_new_tokens=8, top_k=1, min_new_tokens=4),
+                sequence_end=True)
+            assert len(out.token_ids) >= 4 and out.token_ids[0] != first
+        finally:
+            eng.shutdown()
+
+
+@pytest.mark.parametrize('eng', ['port_engine', 'spec_engine'])
+def test_top_logprobs(request, eng):
+    """top_logprobs = 3: three alternatives per token; the chosen token's
+    logprob equals its own entry; a greedy token is the top one."""
+    inst = request.getfixturevalue(eng).create_instance()
+    for gen in (greedy(8, top_logprobs=3),
+                sampled(8, top_logprobs=3, random_seed=4)):
+        out = run(inst, 470, REPEAT, gen, sequence_end=True)
+        assert len(out.token_ids) == len(out.logprobs) == 8
+        assert len(out.top_logprobs) == 8
+        for tok, lp, tops in zip(out.token_ids, out.logprobs,
+                                 out.top_logprobs):
+            assert len(tops) == 3 and lp <= 0.0
+            if tok in tops:
+                assert lp == pytest.approx(tops[tok], abs=1e-5)
+            if gen.top_k == 1:
+                assert tok == max(tops, key=tops.get)
+
+
+def test_spec_adaptive_fallback_on_low_acceptance():
+    """Acceptance below the gate's break-even hands rounds back to plain
+    decode (spec_fallbacks > 0), and the stream still equals the plain
+    engine's (the cycling model leaves no near-tie)."""
+    cfg = ModelConfig(**dict(CFG, weight_type='fp32'))
+    params = params_from_numpy(cycling_params(), 'cpu')
+    streams, stats = [], None
+    for extra in ({}, SPEC):
+        eng = TorchEngine(cfg, EngineConfig(**dict(ECFG, step_length=16,
+                                                   **extra)),
+                          params, device='cpu')
+        eng.SPEC_MIN_ACCEPT = 10.0      # unreachable: every probe cools off
+        try:
+            streams.append(run(eng.create_instance(), 481, REPEAT,
+                               greedy(60), sequence_end=True).token_ids)
+            stats = dict(eng.stats)
+        finally:
+            eng.shutdown()
+    assert streams[0] == streams[1]
+    assert stats['spec_fallbacks'] > 0 and stats['decode_steps'] > 0
+    assert 0 < stats['spec_emitted'] < 60
+
+
+def test_spec_max_new_tokens_and_continuation():
+    """Speculative rounds stop at max_new_tokens exactly, and a two-turn
+    session on the speculative engine equals the plain engine's (the
+    cycling model)."""
+    cfg = ModelConfig(**dict(CFG, weight_type='fp32'))
+    params = params_from_numpy(cycling_params(), 'cpu')
+    turns = []
+    for extra in ({}, SPEC):
+        eng = TorchEngine(cfg, EngineConfig(**dict(ECFG, **extra)), params,
+                          device='cpu')
+        try:
+            inst = eng.create_instance()
+            o1 = run(inst, 490, CYCLE * 2, greedy(7)).token_ids
+            o2 = run(inst, 490, [5, 60], greedy(9),
+                     sequence_start=False).token_ids
+            assert len(o1) == 7 and len(o2) == 9
+            assert eng.stats['spec_rounds'] > 0 or not extra
+            turns.append((o1, o2))
+        finally:
+            eng.shutdown()
+    assert turns[0] == turns[1]
 
 
 def test_default_device_needs_cuda():

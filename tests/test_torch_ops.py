@@ -213,18 +213,25 @@ def test_greedy_sample_and_check_stop():
     js = jsamp.SamplingState.init(4)
     js = js.__class__(**{**js.__dict__,
                          'top_k': jnp.ones((4,), jnp.int32)})
-    jtok, _, jlp = jsamp.sample_step(jnp.asarray(logits), js,
-                                     jnp.zeros((4, 8), jnp.int32),
-                                     jnp.zeros((4,), jnp.int32),
-                                     jnp.zeros((4,), jnp.int32),
-                                     mode='greedy')
+    jtok, jkeys, jlp = jsamp.sample_step(jnp.asarray(logits), js,
+                                         jnp.zeros((4, 8), jnp.int32),
+                                         jnp.zeros((4,), jnp.int32),
+                                         jnp.zeros((4,), jnp.int32),
+                                         mode='greedy')
     ts = tsamp.SamplingState.init(4, device='cpu')
-    ttok, keys, tlp = tsamp.sample_step(T(logits), ts)
+    zeros = torch.zeros(4, dtype=torch.int32)
+    ttok, keys, tlp = tsamp.sample_step(
+        T(logits), ts, torch.zeros((4, 8), dtype=torch.int32), zeros, zeros,
+        mode='greedy')
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
     assert int(ttok[2]) == 7
     np.testing.assert_array_equal(tlp.numpy(), np.asarray(jlp))
-    with pytest.raises(NotImplementedError):
-        tsamp.sample_step(T(logits), ts, mode='candidates')
+    # greedy draws nothing, yet splits the keys as the JAX package does
+    np.testing.assert_array_equal(keys.numpy(),
+                                  np.asarray(jkeys).view(np.int32))
+    with pytest.raises(ValueError):
+        tsamp.sample_step(T(logits), ts, torch.zeros((4, 8)), zeros, zeros,
+                          mode='beam')
 
     toks = np.array([2, 5, 9, 4], np.int32)
     gen = np.array([1, 3, 2, 8], np.int32)
