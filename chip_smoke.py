@@ -50,13 +50,23 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                the first near-tie); seeded sampled requests (top-k/top-p,
                temperature, repetition penalty, min_new_tokens, a bad word,
                top_logprobs 5) on plain rounds and twice on speculative
-               rounds (identical), a top_k=0 request ('full'); 4
-               concurrent speculative requests; then, on the stopped
-               engine, kernel launches by part of a verify round and one
-               greedy and one sampled speculative dispatch under
+               rounds, each pair identical in tokens, logprobs and top-5
+               planes), a top_k=0 request ('full'); 4 concurrent
+               speculative requests; then, on the stopped engine, kernel
+               launches by part of a verify round and one greedy and one
+               sampled speculative dispatch under
                torch.cuda.set_sync_debug_mode('error') (no host sync
                before the readback); and an int8 speculative pair with the
-               same launch check.  Counters are set to 0 before each run
+               same launch check.  Prefix caching on a bf16 and an int8
+               engine: a follower of a 300-token prompt hits 256 tokens and
+               prefills 43 in one pass of the 64 bucket, solved from its
+               window's launches, with the stream of caching off up to
+               near-ties; EngineInstance.decode of that prompt against a
+               teacher-forced forward, with a request running alongside
+               undisturbed; and the front door: save_workspace of a
+               full-width 2-layer workspace, AsyncEngine serving 3
+               concurrent streams, a second turn and a request ended by the
+               template's stop word.  Counters are set to 0 before each run
                and read after it.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
@@ -729,45 +739,6 @@ def llama2_7b(num_layer: int = 32):
                        weight_type='int4', group_size=128)
 
 
-def random_int4_params(torch, cfg, seed: int, device='cuda'):
-    """Random W4A16 parameters drawn directly as nibble-packed bytes from
-    a seeded generator on ``device`` (group 128, constant scale 0.002 and
-    zero point 8, as bench.py does for the JAX package)."""
-    from lmdeploy_tpu_torch.models.llama import vocab_padded
-    from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
-    gen = torch.Generator(device=device).manual_seed(seed)
-    d, dh, g = cfg.hidden_size, cfg.size_per_head, cfg.group_size or 128
-    h, kh, inter, nl = (cfg.head_num, cfg.kv_head_num, cfg.inter_size,
-                        cfg.num_layer)
-    bf = torch.bfloat16
-
-    def qw(k, n):
-        return PackedInt4Weight(
-            packed=torch.randint(0, 256, (nl, k // 2, n), generator=gen,
-                                 dtype=torch.uint8, device=device),
-            scales=torch.full((nl, k // g, 1, n), 0.002, dtype=bf,
-                              device=device),
-            sz=torch.full((nl, k // g, n), 0.002 * 8.0, dtype=bf,
-                          device=device))
-
-    def normal(*shape):
-        return (torch.randn(shape, generator=gen, device=device) * 0.02
-                ).to(bf)
-
-    vp = vocab_padded(cfg)
-    return {
-        'tok_embedding': normal(vp, d),
-        'norm': torch.ones((d,), dtype=bf, device=device),
-        'lm_head': normal(d, vp),
-        'layers': {
-            'attn_norm': torch.ones((nl, d), dtype=bf, device=device),
-            'ffn_norm': torch.ones((nl, d), dtype=bf, device=device),
-            'wqkv': qw(d, (h + 2 * kh) * dh), 'wo': qw(h * dh, d),
-            'w1': qw(d, inter), 'w3': qw(d, inter), 'w2': qw(inter, d),
-        },
-    }
-
-
 def _to(tree, device):
     import dataclasses
     if isinstance(tree, dict):
@@ -844,10 +815,11 @@ def phase_model(torch, ctx):
     with a bf16, an int8 and an int4 pool and under both decode switches.
     The quantised pools' qparams come from the K/V of the bf16 run."""
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS, init_cache
-    from lmdeploy_tpu_torch.models.llama import StepBatch, forward
+    from lmdeploy_tpu_torch.models.llama import (StepBatch, forward,
+                                                 random_packed_params)
     from lmdeploy_tpu_torch.ops import cuda as K
     cfg = llama2_7b(num_layer=2)
-    params = random_int4_params(torch, cfg, seed=4)
+    params = random_packed_params(cfg, 4, 'cuda')
     host = _to(params, 'cpu')
     torch.set_num_threads(8)
     page = 64
@@ -954,7 +926,7 @@ def phase_model(torch, ctx):
     torch.cuda.empty_cache()
 
 
-def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
+def profile_bs1(torch, ctx, run_request, eng, passes_of, width='bf16'):
     """One bs1 request of 64 new tokens under torch.profiler: device busy
     share (kernel time over the request's wall time), the kernels that
     take the device time and the kernel launches per forward pass (decode
@@ -968,15 +940,16 @@ def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
     log(f'  before the profiled request: context_len '
         f'{st.context_len.tolist()}, running '
         f'{(st.active & ~st.finished).int().tolist()}')
-    before = dict(eng.stats)
+    before = passes_of(eng)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run_request(out)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    passes = sum(eng.stats[k] - before[k] for k in PASS_KINDS)
-    rounds = eng.stats['spec_rounds'] - before['spec_rounds']
+    after = passes_of(eng)
+    passes = sum(after[k] - before[k] for k in PASS_KINDS)
+    rounds = after['spec_rounds'] - before['spec_rounds']
     launches = sum(e.count for e in prof.key_averages()
                    if e.key.startswith('cudaLaunchKernel'))
     rows = []
@@ -1010,8 +983,33 @@ def profile_bs1(torch, ctx, run_request, eng, width='bf16'):
         host_top=[(name[:90], ms, n) for ms, n, name in host])
 
 
-# forward passes by kind, as the engine counts them
+# forward passes by kind: the engine's decode steps and prefill passes,
+# and the verify rounds its speculative dispatches run on the device
+# (``stats['spec_rounds']`` counts, as the JAX engine does, only rounds up
+# to the one in which the last running slot finished)
 PASS_KINDS = ('decode_steps', 'spec_rounds', 'prefill_passes')
+
+
+class DevicePasses:
+    """Forward passes by kind so far: wraps ``step.spec_decode_rounds`` to
+    count the rounds each dispatch runs (restored by :meth:`close`)."""
+
+    def __init__(self):
+        from lmdeploy_tpu_torch.engine import step as S
+        self.step, self.real, self.rounds = S, S.spec_decode_rounds, 0
+
+        def counting(*a, **kw):
+            self.rounds += kw['num_rounds']
+            return self.real(*a, **kw)
+        S.spec_decode_rounds = counting
+
+    def __call__(self, eng) -> dict:
+        return {'decode_steps': eng.stats['decode_steps'],
+                'spec_rounds': self.rounds,
+                'prefill_passes': eng.stats['prefill_passes']}
+
+    def close(self):
+        self.step.spec_decode_rounds = self.real
 
 
 def launches_per_kind(marks, skip=()):
@@ -1117,12 +1115,13 @@ def phase_engine(torch, ctx):
     from lmdeploy_tpu_torch.config import EngineConfig
     from lmdeploy_tpu_torch.engine.engine import TorchEngine
     from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
     from lmdeploy_tpu_torch.ops import cuda as K
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import DECODE_MAX_M, WGMMA
     cfg = llama2_7b()
     nl = cfg.num_layer
     t0 = time.monotonic()
-    params = random_int4_params(torch, cfg, seed=5)
+    params = random_packed_params(cfg, 5, 'cuda')
     torch.cuda.synchronize()
     ecfg = EngineConfig(max_batch_size=8, session_len=2048, page_size=64,
                         num_pages=88, max_context_token_num=512,
@@ -1137,11 +1136,12 @@ def phase_engine(torch, ctx):
     card = ctx.get('card', '?')
     sid = iter(range(1, 10 ** 6))
 
-    def engine(quant_policy=0, kv_scales=None):
+    def engine(quant_policy=0, kv_scales=None, prefix=False):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         eng = TorchEngine(cfg, dataclasses.replace(
-            ecfg, quant_policy=quant_policy), params, kv_scales=kv_scales)
+            ecfg, quant_policy=quant_policy, enable_prefix_caching=prefix),
+            params, kv_scales=kv_scales)
         return eng, eng.create_instance()
 
     def run(inst, prompt, n_new, out, gen=None):
@@ -1166,10 +1166,12 @@ def phase_engine(torch, ctx):
                         tokens=list(last.token_ids), logprobs=last.logprobs,
                         top_logprobs=last.top_logprobs))
 
+    passes_of = DevicePasses()
+
     def mark(eng):
         """(launch counts, forward passes by kind) so far."""
         return ({n: c[0] for n, c in K.launch_counts(True).items()},
-                {k: eng.stats[k] for k in PASS_KINDS})
+                passes_of(eng))
 
     def record(name, launches, per_step, per_pass):
         ctx['kernels'].setdefault(name, {}).update(
@@ -1276,11 +1278,12 @@ def phase_engine(torch, ctx):
             f'{rows}-row bucket')
         if prompt is long_prompt:
             record(WGMMA, counts[WGMMA][0], per_step[WGMMA], per_pass[WGMMA])
-            return
+            return out
         record(decode, counts[decode][0], per_step[decode], per_pass[decode])
         if width == 'int4' and not env:
             record(prefill, counts[prefill][0], per_step[prefill],
                    per_pass[prefill])
+        return out
 
     def spec_requests(eng, inst, width, lens):
         """Speculative greedy bs1 requests (prompt [1], as bench.py) of
@@ -1392,12 +1395,14 @@ def phase_engine(torch, ctx):
                 raise AssertionError(f'sampled request, speculative_k={k}: '
                                      f'{rounds} verify rounds, {steps} '
                                      'decode steps')
-        if samp[2]['tokens'] != samp[3]['tokens']:
-            raise AssertionError('two seeded speculative sampled runs differ')
-        # the decode GEMM (M <= 8) sums its split over K with f32 atomics,
-        # so plain rounds may part run to run; verify rounds (M = 40, the
-        # wgmma kernel) do not
-        plain_same = samp[0]['tokens'] == samp[1]['tokens']
+        # a seed gives one stream on plain rounds (the decode GEMM sums its
+        # split of K in a fixed order) and on verify rounds: tokens,
+        # logprobs and top-5 planes
+        for a, b, kind in ((0, 1, 'plain'), (2, 3, 'speculative')):
+            for key in ('tokens', 'logprobs', 'top_logprobs'):
+                if samp[a][key] != samp[b][key]:
+                    raise AssertionError(f'two seeded {kind}-round sampled '
+                                         f'runs differ in {key}')
         samp = samp[1:]
         in_tops = 0
         for r in samp:
@@ -1426,14 +1431,14 @@ def phase_engine(torch, ctx):
         if eng.stats['spec_rounds'] == before:
             raise AssertionError("top_k=0 request: no 'full' verify round")
         log(f'  sampled (top_k 40, top_p 0.9, T 0.8, repetition 1.1, '
-            f'min_new 8, bad word {banned}, top_logprobs 5): plain '
-            f'{len(samp[0]["tokens"])} tokens (a second plain run '
-            f'{"identical" if plain_same else "differs"}), spec twice '
-            f'{len(samp[1]["tokens"])} tokens, identical; no banned id, no '
+            f'min_new 8, bad word {banned}, top_logprobs 5): plain rounds '
+            f'twice {len(samp[0]["tokens"])} tokens, spec twice '
+            f'{len(samp[1]["tokens"])} tokens, each pair identical in '
+            'tokens, logprobs and top-5 planes; no banned id, no '
             f'early EOS; {in_tops} of {n_all} chosen tokens among their 5 '
             'alternatives, each with its own logprob; a top_k=0 request '
             'rode full-vocabulary verify rounds')
-        result['sampled_plain_runs_identical'] = plain_same
+        result['sampled_plain_runs_identical'] = True
         # 4 concurrent greedy speculative requests
         before = dict(eng.stats)
         results = [[] for _ in prompts]
@@ -1456,6 +1461,218 @@ def phase_engine(torch, ctx):
             f'{[round(r["ttft"], 3) for r in results]} s, {d}')
         result.update(tok_s_4_concurrent_spec=conc, concurrent_stats=d)
         return result
+
+    def agree_up_to_near_tie(prompt, ref, got, label):
+        """``got`` equals ``ref`` (a greedy stream of ``prompt``), or parts
+        from it first at a step whose top-2 logit gap in the teacher-forced
+        forward of ``ref`` is below 1% of that step's max|logit| (the
+        criterion of test_greedy_streams_match_jax_engine); after such a
+        part the streams may differ.  Returns the steps that agree."""
+        same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                    None)
+        if same is None:
+            return min(len(ref), len(got))
+        lg = teacher_forced_logits(torch, params, cfg, prompt, ref)[same]
+        top2 = lg.topk(2).values
+        if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
+            raise AssertionError(f'{label}: streams part at step {same} '
+                                 'with no near-tie there')
+        return same
+
+    def prefix_hit(width, quant_policy, kv_scales, ref):
+        """Cross-session prefix caching at full depth: a bs1 greedy leader
+        of long_prompt (300 tokens, 32 new) and then a follower sharing it
+        (8 new) on an engine with caching on.  The follower hits 256
+        tokens (4 pages) and prefills 43 (300 - 256 - the last token,
+        which is decoded) in one pass of the 64 bucket: its windows solve
+        to one pass (160 GEMM, all wgmma, and 32 prefill attention), and
+        the pass's shape comes from the prefill calls.  Both streams equal
+        ``ref`` (the same request with caching off) up to near-ties."""
+        from lmdeploy_tpu_torch.engine import step as S
+        eng, inst = engine(quant_policy, kv_scales, prefix=True)
+        real, shapes = S.prefill_chunks, []
+
+        def recording(*a):
+            shapes.append((tuple(a[4].shape), a[6].tolist()))
+            return real(*a)
+        S.prefill_chunks = recording
+        try:
+            K.reset_launch_counts()
+            marks, out, hits, passes = [mark(eng)], [], [], []
+            for n_new in (32, 8):
+                before, n_shapes = eng.stats['prefix_hit_tokens'], len(shapes)
+                run(inst, long_prompt, n_new, out)
+                marks.append(mark(eng))
+                hits.append(eng.stats['prefix_hit_tokens'] - before)
+                passes.append(shapes[n_shapes:])
+            counts = K.launch_counts(True)
+            solved = launches_per_kind(marks)
+        finally:
+            S.prefill_chunks = real
+        decode = f'paged_decode_attention_write[{width}]'
+        prefill = f'paged_prefill_attention[{width}]'
+        check_route(counts, solved,
+                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                     'prefill_passes': {'w4a16_gemm': 5 * nl, WGMMA: 5 * nl,
+                                        prefill: nl}},
+                    f'{width} prefix hit', need=('decode_steps',
+                                                 'prefill_passes'))
+        if hits != [0, 256] or passes != [[((1, 512), [299])],
+                                          [((1, 64), [43])]]:
+            raise AssertionError(f'{width} prefix hit: hits {hits}, prefill '
+                                 f'passes (ids shape, lengths) {passes}')
+        agree = [agree_up_to_near_tie(long_prompt, ref[:len(r['tokens'])],
+                                      r['tokens'], f'{width} prefix hit')
+                 for r in out]
+        log(f'  {width} prefix caching, 300-token prompt [{card}]: leader '
+            f'(32 new) hit {hits[0]} tokens, prefill {passes[0]}, TTFT '
+            f'{out[0]["ttft"]:.3f} s; follower (8 new) hit {hits[1]} '
+            f'tokens, prefill {passes[1]} (ids shape, lengths), TTFT '
+            f'{out[1]["ttft"]:.3f} s; per prefill pass '
+            f'{({n: v for n, v in solved[0]["prefill_passes"].items() if v})}'
+            f'; streams agree with caching off for {agree} steps')
+        return eng, inst, dict(hit_tokens=hits, prefill_passes=passes,
+                               ttft_leader_s=out[0]['ttft'],
+                               ttft_follower_s=out[1]['ttft'],
+                               agree_steps=agree)
+
+    def prompt_logits(eng, inst):
+        """EngineInstance.decode of long_prompt: one pass of the 512
+        bucket through the kernels (160 GEMM, all wgmma, 32 prefill
+        attention), [300, 32000] within 5% of max|logit| and cosine >=
+        0.999 of a teacher-forced forward; a request running alongside
+        finishes with its stream alone."""
+        prefill = 'paged_prefill_attention[bf16]'
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        lg = inst.decode(long_prompt)
+        dt = time.monotonic() - t0
+        counts = K.launch_counts(True)
+        launched = {n: c[0] for n, c in counts.items() if c[0]}
+        want = {'w4a16_gemm': 5 * nl, WGMMA: 5 * nl, prefill: nl}
+        if launched != want or any(c[1] for c in counts.values()):
+            raise AssertionError(f'decode(): launches {launched}, want '
+                                 f'{want}; plain calls {counts}')
+        ref = teacher_forced_logits(torch, params, cfg, long_prompt[:1],
+                                    long_prompt[1:] + [0])
+        got = torch.from_numpy(lg).cuda()
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(got, ref,
+                                                          dim=-1).min())
+        if lg.shape != (300, cfg.vocab_size) or not (rel <= 0.05
+                                                     and cos >= 0.999):
+            raise AssertionError(f'decode(): shape {lg.shape}, max err / '
+                                 f'max|logit| {rel:.3e} (tol 0.05), min '
+                                 f'cosine {cos:.6f} (tol 0.999)')
+        alone, along = [], []
+        run(inst, bs1_prompt, 64, alone)
+        th = threading.Thread(target=run, args=(inst, bs1_prompt, 64,
+                                                along))
+        th.start()
+        t_end = time.monotonic() + 60
+        while not any(x is not None and x.generated > 0
+                      for x in eng.slots) and time.monotonic() < t_end:
+            time.sleep(0.002)
+        inst.decode(long_prompt)
+        mid = th.is_alive()
+        th.join(timeout=600)
+        if not (mid and along and along[0]['tokens'] == alone[0]['tokens']):
+            raise AssertionError('a request running alongside decode() '
+                                 'changed its stream or was not running')
+        log(f'  prompt logits (EngineInstance.decode, 300 tokens) [{card}]: '
+            f'shape {tuple(lg.shape)}, {dt:.3f} s, launches {launched}, max '
+            f'err / max|logit| {rel:.3e}, min cosine {cos:.6f} against a '
+            'teacher-forced forward; a 64-token request running alongside '
+            'kept its stream')
+        return dict(seconds=dt, max_rel_err=rel, min_cosine=cos)
+
+    def front_door():
+        """save_workspace writes a full-width 2-layer W4A16 workspace of
+        InternLM-chat-7B's shape (the internlm-7b preset: vocabulary
+        103168, attention biases, here zero) and AsyncEngine serves it on
+        the card: 3 concurrent generate streams, an interactive second
+        turn, and a request that the template's default stop word (<eoa>,
+        id 103028) ends, made the greedy choice at one step by swapping
+        its lm_head column with that of the token the stream first chose
+        there."""
+        import asyncio
+        import tempfile
+        from lmdeploy_tpu_torch.convert.workspace import save_workspace
+        from lmdeploy_tpu_torch.serve.async_engine import AsyncEngine
+        fcfg = dataclasses.replace(
+            llama2_7b(num_layer=2), vocab_size=103168, attn_bias=True,
+            max_position_embeddings=2048, model_name='internlm-chat-7b')
+        stop = 103028
+        fparams = random_packed_params(fcfg, 6, 'cuda')
+        qkv = (fcfg.head_num + 2 * fcfg.kv_head_num) * fcfg.size_per_head
+        fparams['layers'].update(
+            bqkv=torch.zeros((2, qkv), dtype=torch.bfloat16, device='cuda'),
+            bo=torch.zeros((2, fcfg.hidden_size), dtype=torch.bfloat16,
+                           device='cuda'))
+        with tempfile.TemporaryDirectory() as ws:
+            t0 = time.monotonic()
+            save_workspace(ws, fcfg, fparams, dataclasses.replace(
+                ecfg, enable_prefix_caching=True))
+            t_save = time.monotonic() - t0
+            del fparams
+            t0 = time.monotonic()
+            ae = AsyncEngine(ws, device='cuda')
+            t_load = time.monotonic() - t0
+        try:
+            eng = ae.engine
+            if (eng.template_name, eng.default_stop_words) != (
+                    'internlm-chat-7b', [stop]):
+                raise AssertionError(f'template {eng.template_name}, stop '
+                                     f'words {eng.default_stop_words}')
+
+            async def gen(sid, msg, n, start=True, end=False):
+                return [o async for o in ae.generate(
+                    msg, sid, sequence_start=start, sequence_end=end,
+                    request_output_len=n, top_k=1, ignore_eos=True)]
+
+            async def traffic():
+                three = await asyncio.gather(*[gen(i + 1, f'hello {i}', 32)
+                                               for i in range(3)])
+                return three, await gen(1, 'and more', 16, start=False)
+            t0 = time.monotonic()
+            three, second = asyncio.run(traffic())
+            t_traffic = time.monotonic() - t0
+            got = [(o[-1].finish_reason, o[-1].generate_token_len)
+                   for o in three + [second]]
+            hist = len(eng.seqs.get(1).token_ids)
+            if got != [('length', 32)] * 3 + [('length', 16)] \
+                    or hist != ae.steps['1']:
+                raise AssertionError(f'front door: {got}, session 1 holds '
+                                     f'{hist} tokens, steps {ae.steps}')
+            probe = sum((o.token_ids for o in asyncio.run(
+                gen(20, 'stop here', 16, end=True))), [])
+            # the last step that first chose its token (a random-weight
+            # stream may repeat one token from step 0 on)
+            k = max(i for i in range(len(probe))
+                    if probe[i] not in probe[:i])
+            if stop in probe:
+                raise AssertionError(f'the stop word in the probe {probe}')
+            head = eng.params['lm_head']
+            col = head[:, probe[k]].clone()
+            head[:, probe[k]] = head[:, stop]
+            head[:, stop] = col
+            outs = asyncio.run(gen(21, 'stop here', 16, end=True))
+            ids = sum((o.token_ids for o in outs), [])
+            if (ids, outs[-1].finish_reason, outs[-1].generate_token_len) \
+                    != (probe[:k], 'stop', k):
+                raise AssertionError(f'stop word: {ids} '
+                                     f'{outs[-1].finish_reason} against '
+                                     f'{probe[:k]}')
+        finally:
+            ae.shutdown()
+        log(f'  front door [{card}]: save_workspace {t_save:.1f} s, '
+            f'AsyncEngine load {t_load:.1f} s, template '
+            f'{eng.template_name} (stop {eng.default_stop_words}); 3 '
+            f'concurrent streams and a second turn {got} in '
+            f'{t_traffic:.2f} s (session 1 holds {hist} tokens); the stop '
+            f'word ended a request after {k} tokens (finish "stop")')
+        return dict(save_s=t_save, load_s=t_load, traffic_s=t_traffic,
+                    stop_after=k)
 
     def no_host_sync(eng):
         """On a stopped engine with one slot installed: kernel launches of
@@ -1532,36 +1749,51 @@ def phase_engine(torch, ctx):
         ctx['engine'] = main_traffic(eng, inst, 'bf16')
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, bs1_prompt, 64,
-                                                    out), eng)
+                                                    out), eng, passes_of)
         scales = {b: kv_scales_from_pool(torch, eng.cache, b) for b in (8, 4)}
         log(f'  int8 qparams from the bf16 run\'s K/V: k_scale '
             f'{[round(float(x), 5) for x in scales[8][0][:4]]}..., k_zp '
             f'{[round(float(x), 2) for x in scales[8][1][:4]]}...')
-        short_bs1(eng, inst, 'bf16', {}, prompt=long_prompt)
+        ref_bf16 = short_bs1(eng, inst, 'bf16', {}, prompt=long_prompt)[0]
         for env in switches:
             short_bs1(eng, inst, 'bf16', env)
         ctx['engine_spec'] = spec_main(eng, inst)
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, [1], 64, out), eng,
-                        'bf16_spec')
+                        passes_of, 'bf16_spec')
         eng.shutdown()
         ctx['engine_spec']['launches_by_part'] = no_host_sync(eng)
+        del eng, inst
+        eng, inst, hit = prefix_hit('bf16', 0, None, ref_bf16['tokens'])
+        ctx['engine_prefix'] = {'bf16': hit}
+        ctx['prompt_logits'] = prompt_logits(eng, inst)
+        eng.shutdown()
         del eng, inst
         eng, inst = engine(4, scales[8])
         ctx['engine_int8'] = main_traffic(eng, inst, 'int8')
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, bs1_prompt, 64,
-                                                    out), eng, 'int8')
+                                                    out), eng, passes_of,
+                        'int8')
         for env in switches:
             short_bs1(eng, inst, 'int8', env)
         spec_requests(eng, inst, 'int8', (32, 8))
         eng.ecfg.speculative_k = 0
+        ref_int8 = []
+        run(inst, long_prompt, 32, ref_int8)
+        eng.shutdown()
+        del eng, inst
+        eng, inst, ctx['engine_prefix']['int8'] = prefix_hit(
+            'int8', 4, scales[8], ref_int8[0]['tokens'])
         eng.shutdown()
         del eng, inst
         eng, inst = engine(8, scales[4])
         for env in ({},) + switches:
             short_bs1(eng, inst, 'int4', env)
+        eng.shutdown()
+        ctx['front_door'] = front_door()
     finally:
+        passes_of.close()
         if eng is not None:
             eng.shutdown()
     del params

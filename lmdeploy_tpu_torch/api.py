@@ -1,28 +1,52 @@
 """Top-level facade: build an engine from a converted workspace.
 
-Port of ``lmdeploy_tpu/api.py::build_engine`` for workspaces (HF
-directories, chat templates and tokenizers are later slices).
+Port of ``lmdeploy_tpu/api.py::build_engine`` for workspaces (an HF
+directory needs the converter, ROADMAP.md Queue 1 item 4): loads the
+workspace onto the device, applies the caller's overrides, resolves the
+chat template and its stop words, and starts the engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import os.path as osp
 from typing import Optional
 
 from .config import EngineConfig
 from .convert.workspace import is_workspace, load_workspace
 from .engine.engine import TorchEngine, resolve_device
+from .model import MODELS, best_match_model
+from .tokenizer import DummyTokenizer, Tokenizer
+
+
+def _resolve_tokenizer(model_path: str, vocab_size: int):
+    """The workspace's tokenizer files through ``transformers`` or
+    ``tiktoken``; :class:`DummyTokenizer` when there are none or they do
+    not load (a machine without those packages)."""
+    for probe in ('tokenizer.json', 'tokenizer.model',
+                  'tokenizer_config.json'):
+        if osp.exists(osp.join(model_path, probe)):
+            try:
+                return Tokenizer(model_path)
+            except Exception:
+                break
+    return DummyTokenizer(vocab_size=vocab_size)
 
 
 def build_engine(model_path: str,
                  engine_config: Optional[EngineConfig] = None,
-                 device='cuda', quant_policy: Optional[int] = None,
+                 model_name: str = '', tp: int = 1, pp: int = 1,
+                 dp: int = 1, quant_policy: Optional[int] = None,
+                 speculative_k: Optional[int] = None, device='cuda',
                  **engine_kw) -> TorchEngine:
     """Load a workspace onto ``device`` (CUDA unless the caller asks for
     the CPU) and start the engine.  ``engine_config`` defaults to the
     workspace's, else one sized by the model's session_len.
-    ``quant_policy`` overrides its KV-cache policy (0 bf16, 4 int8, 8 int4
-    with calibrated scales); the workspace's ``kv_scales`` go to the
-    engine."""
+    ``quant_policy`` (0 bf16, 4 int8, 8 int4 with calibrated scales) and
+    ``speculative_k`` (0 turns speculation off) override the resolved
+    config; ``tp`` / ``pp`` / ``dp`` above 1 raise the engine's
+    NotImplementedError.  The template comes from ``model_name``, the
+    config's ``model_name`` or the path; its stop words become the
+    engine's defaults."""
     if not is_workspace(model_path):
         raise ValueError(f'{model_path} is not a converted workspace '
                          '(config.json + weights.safetensors)')
@@ -30,12 +54,27 @@ def build_engine(model_path: str,
     cfg, ws_ecfg, params, kv_scales = load_workspace(model_path, dev)
     engine_config = engine_config or ws_ecfg \
         or EngineConfig(session_len=cfg.session_len)
+    over = {name: max(getattr(engine_config, name), v)
+            for name, v in (('tp', tp), ('pp', pp), ('dp', dp)) if v > 1}
+    if quant_policy is not None:
+        over['quant_policy'] = quant_policy
+    if speculative_k is not None:
+        over['speculative_k'] = speculative_k
     # replace re-runs __post_init__, which derives kv_dtype
-    engine_config = dataclasses.replace(
-        engine_config, **({} if quant_policy is None
-                          else {'quant_policy': quant_policy}))
-    return TorchEngine(cfg, engine_config, params, device=dev,
-                       kv_scales=kv_scales, **engine_kw)
+    engine_config = dataclasses.replace(engine_config, **over)
+
+    name = model_name or cfg.model_name
+    template_name = name if name in MODELS.module_dict else \
+        (best_match_model(name) or best_match_model(model_path) or 'base')
+    template = MODELS.get(template_name)()
+    engine = TorchEngine(cfg, engine_config, params, device=dev,
+                         kv_scales=kv_scales,
+                         tokenizer=_resolve_tokenizer(model_path,
+                                                      cfg.vocab_size),
+                         stop_words=template.stop_words or [], **engine_kw)
+    engine.chat_template = template
+    engine.template_name = template_name
+    return engine
 
 
 __all__ = ['build_engine']

@@ -113,9 +113,8 @@ class EngineConfig:
     # shorter suffix matches (longest wins); == ngram disables cascade
     speculative_sampled: bool = True     # rejection-sampling verify for
     # sampled slots (exact marginals); False restricts spec to greedy
-    enable_prefix_caching: bool = False  # cross-session shared prompt-
-    # prefix KV pages (beyond-reference; see kvcache/manager.py); not
-    # ported yet, so True raises in TorchEngine (the JAX default is True)
+    enable_prefix_caching: bool = True   # cross-session shared prompt-
+    # prefix KV pages (beyond-reference; see kvcache/manager.py)
     max_pending_requests: int = 256      # queue bound -> QUEUE_FULL (429)
     request_timeout: float = 0.0         # secs a request may WAIT queued; 0=off
     use_pallas: bool = True              # pallas kernels vs pure-XLA reference path

@@ -1,17 +1,20 @@
-"""Read a converted workspace and carry parameters across from numpy.
+"""Read and write a converted workspace; carry parameters across from
+numpy.
 
 A workspace (``lmdeploy_tpu/convert/converter.py``) is a directory with
 ``config.json`` and one flat ``weights.safetensors``: dense tensors in
 bf16, and each W4A16 projection as ``<name>.packed`` (column-pair
 ``pack_int4`` bytes, [L, K, N/2]), ``<name>.scales`` and ``<name>.zeros``
-([L, G, N], bf16).  The safetensors header is parsed here with ``json``
-and numpy; the ``safetensors``, ``ml_dtypes`` and JAX packages are not
-needed.
+([L, G, N], bf16).  The safetensors file is read and written here with
+``json``, ``struct`` and numpy; the ``safetensors``, ``ml_dtypes`` and
+JAX packages are not needed.  :func:`save_workspace` ports the JAX
+converter's writer, so each package reads the other's workspaces.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import os.path as osp
 import struct
 from typing import Any, Dict, Optional
@@ -21,6 +24,7 @@ import torch
 
 from ..config import EngineConfig, ModelConfig
 from ..models.llama import packable
+from ..ops.cuda.quant_matmul import unpack_nibbles
 from ..ops.linear import (PackedInt4Weight, QuantizedWeight, pack_quantized,
                           unpack_int4)
 
@@ -49,6 +53,98 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
             t = t.view(torch.int16).view(torch.bfloat16)
         out[name] = t
     return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """CPU torch tensors to a .safetensors file (the inverse of
+    :func:`read_safetensors`): the little-endian u64 header length, the
+    JSON header padded with spaces to 8 bytes, then every tensor's bytes
+    in key order, back to back."""
+    names = {v: k for k, v in _NP_DTYPES.items() if k != 'BF16'}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            dtype, arr = 'BF16', t.view(torch.int16).numpy()
+        else:
+            arr = t.numpy()
+            dtype = names[arr.dtype.type]
+        raw = arr.tobytes()
+        header[name] = {'dtype': dtype, 'shape': list(t.shape),
+                        'data_offsets': [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(',', ':')).encode()
+    head += b' ' * (-len(head) % 8)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<Q', len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """uint8 values 0..15, [..., K, N] -> the on-disk workspace packing
+    [..., K, N/2] (the inverse of :func:`unpack_int4`)."""
+    return (q[..., 0::2] & 0xF) | (q[..., 1::2] << 4)
+
+
+def _quantized_parts(w) -> Dict[str, torch.Tensor]:
+    """A W4A16 leaf as the workspace's ``packed`` / ``scales`` / ``zeros``
+    (stacked [L, ...]).  A packed-residency weight gives its zero points
+    back as round(sz / s), which is exact where ``sz`` was made as
+    bf16(s * z) from integer z; anything else raises."""
+    if isinstance(w, QuantizedWeight):
+        return {'packed': pack_int4(w.qvals.cpu()),
+                'scales': w.scales.cpu().to(torch.bfloat16),
+                'zeros': w.zeros.cpu().to(torch.bfloat16)}
+    scales = w.scales[:, :, 0].cpu()
+    zeros = torch.round(w.sz.cpu().float() / scales.float())
+    if not torch.equal((scales.float() * zeros).to(w.sz.dtype), w.sz.cpu()):
+        raise ValueError('save_workspace: sz is not scales * integer zero '
+                         'points; save the QuantizedWeight instead')
+    return {'packed': pack_int4(unpack_nibbles(w.packed.cpu())),
+            'scales': scales.to(torch.bfloat16),
+            'zeros': zeros.to(torch.bfloat16)}
+
+
+def _flatten(params: Dict[str, Any], prefix: str = ''
+             ) -> Dict[str, torch.Tensor]:
+    """The parameter tree as the workspace's flat keys: f32 leaves in
+    bf16, as the JAX converter stores them."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in params.items():
+        key = f'{prefix}{k}'
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + '/'))
+        elif isinstance(v, (QuantizedWeight, PackedInt4Weight)):
+            for part, t in _quantized_parts(v).items():
+                out[f'{key}.{part}'] = t
+        else:
+            t = torch.as_tensor(v).cpu()
+            out[key] = t.to(torch.bfloat16) if t.dtype == torch.float32 \
+                else t
+    return out
+
+
+def save_workspace(dst: str, cfg: ModelConfig, params: Dict[str, Any],
+                   engine_cfg: Optional[EngineConfig] = None,
+                   kv_scales=None) -> None:
+    """Write ``params`` (the port's tree: tensors, QuantizedWeight or
+    PackedInt4Weight leaves) with ``cfg``, the optional engine config and
+    KV qparams as a workspace that both packages load."""
+    os.makedirs(dst, exist_ok=True)
+    write_safetensors(osp.join(dst, 'weights.safetensors'),
+                      _flatten(params))
+    payload: Dict[str, Any] = {'model': dataclasses.asdict(cfg)}
+    if engine_cfg is not None:
+        d = dataclasses.asdict(engine_cfg)
+        d['prefill_buckets'] = list(d['prefill_buckets'])
+        payload['engine'] = d
+    if kv_scales is not None:
+        payload['kv_scales'] = [np.asarray(x).tolist() for x in kv_scales]
+    with open(osp.join(dst, 'config.json'), 'w') as f:
+        json.dump(payload, f, indent=2)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -106,9 +202,6 @@ def load_workspace(src: str, device='cuda'):
         d = dict(payload['engine'])
         d['prefill_buckets'] = tuple(d.get('prefill_buckets',
                                            (128, 512, 2048)))
-        # prefix caching is not ported: the workspace's setting (the JAX
-        # converter saves True by default) is not taken
-        d.pop('enable_prefix_caching', None)
         known = {f.name for f in dataclasses.fields(EngineConfig)}
         ecfg = EngineConfig(**{k: v for k, v in d.items() if k in known})
     flat = read_safetensors(osp.join(src, 'weights.safetensors'))
@@ -141,5 +234,6 @@ def is_workspace(path: str) -> bool:
     return osp.exists(osp.join(path, 'weights.safetensors'))
 
 
-__all__ = ['read_safetensors', 'params_from_numpy', 'load_workspace',
+__all__ = ['read_safetensors', 'write_safetensors', 'pack_int4',
+           'save_workspace', 'params_from_numpy', 'load_workspace',
            'is_workspace']

@@ -28,8 +28,24 @@
 //    32-bit op).  A byte's low and high nibbles belong to groups gb and
 //    G/2 + gb and go to two partial sums, each scaled once by its group's
 //    s.  A warp keeps all 16 of its 16-byte weight loads in flight; a
-//    block's 4 warps split K, and the split is summed with f32 atomicAdd
-//    into a zeroed y: run to run the sum order changes by a few f32 ulps.
+//    block's 4 warps split K and are summed in shared memory in warp
+//    order.  The grid's y blocks split K further (8 for K = 4096, 22 for
+//    K = 11008).  Their sum is taken in a fixed order, so a call gives the
+//    same bits on every run (the TPU kernel's K loop is sequential too,
+//    and a seed must give one sampled stream): each y block writes its f32
+//    partial tile to a workspace [S, M, N] (staged in shared memory, so
+//    the stores are coalesced 16-byte rows); the last block of a column
+//    tile to arrive, found by a ticket counter per (x, z) tile that it
+//    resets for the next launch (as paged_decode_attention.cu merges its
+//    splits), sums the S partials into y in a fixed order: q = 128 /
+//    outputs threads per float4 output (4 at M = 1), each over a fixed
+//    range of splits in index order, their sums added in range order.  At M = 8 the
+//    partials are S*M*N*4 bytes (2.9 MB for w2, 3.1 MB for wqkv) against
+//    22-25 MB of weight, written and read back through L2.  Chosen over a
+//    cluster with a DSMEM reduction: a portable cluster holds 8 blocks, so
+//    w2's 22 splits would need the non-portable size 16 or a new split of
+//    K, while the ticket pattern keeps the split and tile as they were.
+//    y is written, not accumulated, so no zero-fill launch precedes it.
 //  * prefill (large M): w4a16_wgmma.  Bound by operations (2*M*K*N; one
 //    Llama-2-7B layer at M = 512 is 207 GFLOP, 0.21 ms at 989 TF/s), and
 //    behind that by the L2 -> SM traffic of the x tiles, which every block
@@ -556,9 +572,15 @@ __global__ void __launch_bounds__(kDecThreads)
 w4a16_decode(const __nv_bfloat16* __restrict__ x,
              const uint8_t* __restrict__ w,
              const __nv_bfloat16* __restrict__ s, float* __restrict__ y,
-             int M, int K, int N, int group, int steps) {
+             float* __restrict__ ws, int* __restrict__ counter, int M, int K,
+             int N, int group, int steps) {
   constexpr int kFrag = 8 * MT * 4;       // f32 partials per lane
+  constexpr int kRows = 8 * MT;           // rows of x in the tile
+  constexpr int kStride = kDecCols + kDecCols / 16;  // a pad per 16 columns
+  constexpr int kVecs = kDecCols / 4;     // float4 columns of the tile
   __shared__ float red[kDecWarps][kFrag][32];
+  __shared__ __align__(16) float stage[kRows * kStride];
+  __shared__ int last;
 
   const int half_k = K >> 1;
   const int g_half = half_k / group;
@@ -670,8 +692,10 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // the block's 4 warps (4 k slices) summed in shared memory, in fragment
-  // order, then one f32 atomicAdd per output into the zeroed y
+  // the block's 4 warps (4 k slices) summed in shared memory in warp
+  // order into a [rows, 128] tile (padded against bank conflicts), then
+  // written with coalesced 16-byte stores: into y when the grid does not
+  // split K, else into this block's partial tile of the workspace
 #pragma unroll
   for (int t = 0; t < 8; ++t)
 #pragma unroll
@@ -686,54 +710,147 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
     const int t = f / (MT * 4);
     const int mt = (f >> 2) % MT;
     const int e = f & 3;
-    const int c = n0 + (ln >> 2) * 16 + 2 * t + (e >> 1);
-    const int m = m0 + mt * 8 + 2 * (ln & 3) + (e & 1);
-    if (m >= M || c >= N) continue;
+    const int cc = (ln >> 2) * 16 + 2 * t + (e >> 1);  // column in the tile
+    const int r = mt * 8 + 2 * (ln & 3) + (e & 1);
     float v = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kDecWarps; ++wi) v += red[wi][f][ln];
-    atomicAdd(y + (size_t)m * N + c, v);
+    stage[r * kStride + cc + (cc >> 4)] = v;
   }
+  __syncthreads();
+  const int splits = gridDim.y;
+  float* dst = splits > 1 ? ws + (size_t)blockIdx.y * M * N : y;
+  for (int i = tid; i < kRows * kVecs; i += kDecThreads) {
+    const int r = i / kVecs;
+    const int cc = (i % kVecs) * 4;
+    const int m = m0 + r;
+    const int c = n0 + cc;
+    if (m >= M || c >= N) continue;       // N % 16 == 0: c + 3 < N
+    const float* sp = stage + r * kStride + cc + (cc >> 4);
+    *reinterpret_cast<float4*>(dst + (size_t)m * N + c) =
+        make_float4(sp[0], sp[1], sp[2], sp[3]);
+  }
+  if (splits == 1) return;
+
+  // the last y block of this (x, z) tile sums the S partials in a fixed
+  // order.  The ticket is taken after the block's partial is visible
+  // card-wide: thread 0's fence after the barrier orders the block's
+  // stores before its atomic.
+  __syncthreads();
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(counter + tile, 1) == splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // q threads sum each float4 output of the tile's live rows, each over
+  // a fixed range of the splits in index order, and the q sums are added
+  // in range order, so a small tile (M = 1: 32 outputs) keeps every
+  // thread's loads in flight
+  const int tasks = min(kRows, M - m0) * kVecs;
+  const int q = max(1, kDecThreads / tasks);
+  const size_t stride = (size_t)M * N / 4;
+  float4* sums = reinterpret_cast<float4*>(stage);
+  for (int i = tid; i < tasks * q; i += kDecThreads) {
+    const int o = i % tasks;
+    const int j = i / tasks;
+    const int m = m0 + o / kVecs;
+    const int c = n0 + (o % kVecs) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < N) {                          // N % 16 == 0: c + 3 < N
+      const float4* p =
+          reinterpret_cast<const float4*>(ws + (size_t)m * N + c);
+      const int hi = (j + 1) * splits / q;
+#pragma unroll 8
+      for (int sp = j * splits / q; sp < hi; ++sp) {
+        const float4 v = __ldcg(p + sp * stride);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+    }
+    if (q > 1)
+      sums[i] = acc;
+    else if (c < N)
+      *reinterpret_cast<float4*>(y + (size_t)m * N + c) = acc;
+  }
+  if (q > 1) {
+    __syncthreads();
+    if (tid < tasks) {
+      float4 acc = sums[tid];
+      for (int j = 1; j < q; ++j) {
+        const float4 v = sums[j * tasks + tid];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      const int c = n0 + (tid % kVecs) * 4;
+      if (c < N)
+        *reinterpret_cast<float4*>(y + (size_t)(m0 + tid / kVecs) * N + c) =
+            acc;
+    }
+  }
+  if (tid == 0) counter[tile] = 0;        // ready for the next launch
+}
+
+// k16 steps per warp: the most of 4, 2, 1 that divides a group
+int decode_steps(int group) {
+  const int gs = group / 16;
+  return gs % 4 == 0 ? 4 : (gs % 2 == 0 ? 2 : 1);
+}
+
+// y blocks of the decode grid: its split of K
+int decode_splits(int K, int group) {
+  const int rows_per_block = kDecWarps * decode_steps(group) * 16;
+  return (K / 2 + rows_per_block - 1) / rows_per_block;
 }
 
 template <int MT>
 void launch_decode(const __nv_bfloat16* x, const uint8_t* w,
-                   const __nv_bfloat16* s, float* y, int M, int K, int N,
-                   int group, cudaStream_t stream) {
-  // k16 steps per warp: the most of 4, 2, 1 that divides a group
-  const int gs = group / 16;
-  const int steps = gs % 4 == 0 ? 4 : (gs % 2 == 0 ? 2 : 1);
-  const int rows_per_block = kDecWarps * steps * 16;
-  const dim3 grid((N + kDecCols - 1) / kDecCols,
-                  (K / 2 + rows_per_block - 1) / rows_per_block,
+                   const __nv_bfloat16* s, float* y, float* ws, int* counter,
+                   int M, int K, int N, int group, cudaStream_t stream) {
+  const dim3 grid((N + kDecCols - 1) / kDecCols, decode_splits(K, group),
                   (M + 8 * MT - 1) / (8 * MT));
-  w4a16_decode<MT><<<grid, kDecThreads, 0, stream>>>(x, w, s, y, M, K, N,
-                                                     group, steps);
+  w4a16_decode<MT><<<grid, kDecThreads, 0, stream>>>(
+      x, w, s, y, ws, counter, M, K, N, group, decode_steps(group));
 }
 
 }  // namespace
 
 extern "C" {
 
-// regime 0: the decode kernel; y must be zero-filled (split-K atomics).
-// regime 1: the wgmma kernel (group 128); y is overwritten.
+// y is overwritten by both regimes.
+// regime 0: the decode kernel.  With lmd_w4a16_decode_splits(K, group) = S
+// > 1 it takes `ws`, f32 [S, M, N] (16-byte aligned), and `counter`, int32
+// with one entry per (N/128, M/16 or M/8) tile, zero before the first
+// launch; every launch leaves it at zero.
+// regime 1: the wgmma kernel (group 128); ws and counter are not used.
 // Returns the launch's cudaError_t.
 int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
-                   void* y, int M, int K, int N, int group, int regime,
-                   void* stream) {
+                   void* y, void* ws, void* counter, int M, int K, int N,
+                   int group, int regime, void* stream) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const uint8_t*>(packed);
   const auto* sb = static_cast<const __nv_bfloat16*>(scales);
   auto* yf = static_cast<float*>(y);
+  auto* wsf = static_cast<float*>(ws);
+  auto* cnt = static_cast<int*>(counter);
   auto st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N % 16 != 0 || K % 16 != 0) return (int)cudaErrorInvalidValue;
   if (regime == 0) {
-    if (group % 16 != 0 || (K / 2) % group != 0)
+    if (group % 16 != 0 || (K / 2) % group != 0 ||
+        (decode_splits(K, group) > 1 &&
+         (wsf == nullptr || cnt == nullptr ||
+          (reinterpret_cast<uintptr_t>(ws) & 15) != 0)))
       return (int)cudaErrorInvalidValue;
     if (M <= 8)
-      launch_decode<1>(xb, wb, sb, yf, M, K, N, group, st);
+      launch_decode<1>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
     else
-      launch_decode<2>(xb, wb, sb, yf, M, K, N, group, st);
+      launch_decode<2>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
     return (int)cudaGetLastError();
   }
   if (regime != 1 || group != kGroup || (K / 2) % kGroup != 0 ||
@@ -745,6 +862,12 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
     case 1: return (int)launch_wgmma<64, 2>(xb, wb, sb, yf, M, K, N, st);
     default: return (int)launch_wgmma<64, 1>(xb, wb, sb, yf, M, K, N, st);
   }
+}
+
+// The decode regime's split of K (its grid's y blocks); the wrapper sizes
+// the workspace [S, M, N] by it.
+int lmd_w4a16_decode_splits(int K, int group) {
+  return group > 0 && group % 16 == 0 ? decode_splits(K, group) : -1;
 }
 
 // The tile (0: 128 columns x 128 rows, 1: 128 x 64, 2: 64 x 64) the wgmma

@@ -15,13 +15,22 @@ the workspace's calibrated per-layer ``kv_scales``, or scale 1 and zero
 point 0 without them, as the JAX engine does) or nibble-packed int4
 (``quant_policy`` 8 with calibrated per-layer ``kv_scales``).
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-item): tp / pp / dp > 1, dynamic per-token int4 KV (``quant_policy`` 8
-without ``kv_scales``) and per-head int4 qparams, cross-session prefix
-caching and the prompt-logits path.  The JAX engine's fallback that turns
-speculation off after a failed speculative dispatch (a TPU runtime
-workaround) is not ported: such a failure takes the error path of any
-failed round.
+Also as in the JAX engine: cross-session prefix caching (on by default:
+a fresh sequence attaches the published pages of its page-aligned prompt
+prefix and skips their prefill; prompts publish after their prefill and
+at retirement; off under dynamic-NTK rope), the prompt-logits path
+(:meth:`EngineInstance.decode` on a scratch session), the template's
+default stop words, :meth:`TorchEngine.metrics` / ``overloaded`` and
+:meth:`EngineInstance.async_stream_infer` for a server, and recovery: a
+failed rebuild of the device state after a device error is retried at
+the top of every loop turn instead of ending the engine thread.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+item): tp / pp / dp > 1, and dynamic per-token int4 KV (``quant_policy``
+8 without ``kv_scales``) and per-head int4 qparams.  The JAX engine's
+fallback that turns speculation off after a failed speculative dispatch
+(a TPU runtime workaround) is not ported: such a failure takes the error
+path of any failed round.
 """
 from __future__ import annotations
 
@@ -65,6 +74,15 @@ def _all_plain_greedy(cfgs) -> bool:
                and g.min_new_tokens == 0 for g in cfgs)
 
 
+def _is_device_error(e: BaseException) -> bool:
+    """A failure of the device or its runtime (CUDA errors and out of
+    memory are RuntimeErrors in PyTorch), after which the pool's content
+    cannot be trusted; the JAX engine tests for its runtime's error type
+    by name."""
+    return isinstance(e, RuntimeError) and not isinstance(
+        e, (NotImplementedError, RecursionError))
+
+
 def resolve_device(device) -> torch.device:
     """The port's device rule: CUDA unless the caller asks for the CPU;
     a CUDA device without CUDA raises (no quiet switch to the CPU)."""
@@ -105,27 +123,34 @@ class TorchEngine:
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Dict[str, Any], device='cuda', start: bool = True,
-                 kv_scales=None):
+                 kv_scales=None, tokenizer=None, stop_words=None):
         self.device = resolve_device(device)
         if max(engine_cfg.tp, engine_cfg.pp, engine_cfg.dp) > 1:
             raise NotImplementedError(
                 'tp/pp/dp > 1: parallelism is not ported yet '
-                '(ROADMAP.md Queue 1 item 12)')
+                '(ROADMAP.md Queue 1 item 7)')
         kv_bits = kv_bits_named(engine_cfg.kv_dtype)
         kv_scales = kv_scales if kv_bits else None
         if kv_bits == 4 and kv_scales is None:
             raise NotImplementedError(
                 'quant_policy 8 without kv_scales: dynamic per-token int4 '
-                'KV is not ported yet (ROADMAP.md Queue 1 item 8)')
+                'KV is not ported yet (ROADMAP.md Queue 1 item 5)')
         self._kv_width = KV_WIDTHS[kv_bits]
         self._kv_scales = kv_scales
-        if engine_cfg.enable_prefix_caching:
-            raise NotImplementedError(
-                'enable_prefix_caching: cross-session prefix caching is not '
-                'ported yet (ROADMAP.md Queue 1 item 10)')
+        if engine_cfg.enable_prefix_caching and (
+                model_cfg.use_dynamic_ntk
+                or model_cfg.rope_scaling_type == 'dynamic'):
+            # dynamic-NTK K vectors depend on the TOTAL context length at
+            # prefill time, so one session's pages do not fit another's
+            log.info('prefix caching disabled: dynamic-NTK rope makes KV '
+                     'pages context-length-dependent')
+            engine_cfg = dataclasses.replace(engine_cfg,
+                                             enable_prefix_caching=False)
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.params = params
+        self.tokenizer = tokenizer
+        self.default_stop_words = list(stop_words or [])
 
         page = engine_cfg.page_size
         self.session_len = min(engine_cfg.session_len, model_cfg.session_len) \
@@ -139,7 +164,9 @@ class TorchEngine:
         self.cache, self.state = self._alloc_device_state()
         self.seqs = GroupedSequenceManager([SequenceManager(
             PageAllocator(num_pages), page,
-            engine_cfg.cache_max_entry_count, enable_prefix_cache=False)])
+            engine_cfg.cache_max_entry_count,
+            enable_prefix_cache=engine_cfg.enable_prefix_caching)])
+        self._scratch_id = -(1 << 40)  # prompt-logits scratch session ids
 
         self.slots: List[Optional[_Slot]] = \
             [None] * engine_cfg.max_batch_size
@@ -151,7 +178,7 @@ class TorchEngine:
                       'generated_tokens': 0, 'interleaved_rounds': 0,
                       'decode_steps': 0, 'prefill_passes': 0,
                       'spec_rounds': 0, 'spec_emitted': 0,
-                      'spec_fallbacks': 0}
+                      'spec_fallbacks': 0, 'prefix_hit_tokens': 0}
         # adaptive speculative gating: an EMA of accepted tokens per round;
         # below break-even the engine runs plain rounds and re-probes after
         # a cooloff (the JAX engine's constants)
@@ -171,6 +198,7 @@ class TorchEngine:
         self._requests: queue.Queue = queue.Queue()
         self._pending: List = []
         self._shutdown = False
+        self._needs_recovery = False
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name='torch-engine')
         if start:
@@ -191,9 +219,13 @@ class TorchEngine:
 
     def _recover_device_state(self):
         """Drop every session and reallocate after a device error (the
-        pool's content can no longer be trusted)."""
+        pool's content can no longer be trusted).  The old pool is let go
+        first, so that the new one fits."""
         log.warning('resetting device state after a device error')
-        self.seqs.clear()
+        try:
+            self.seqs.clear()
+        except Exception:
+            log.exception('session clear failed during recovery')
         self.cache = self.state = None
         self.cache, self.state = self._alloc_device_state()
         self._rng_now = None
@@ -220,17 +252,13 @@ class TorchEngine:
         return self._thread.is_alive()
 
     def submit(self, request: EngineRequest) -> queue.Queue:
-        if request.return_logits:
-            raise NotImplementedError(
-                'prompt logits are not ported yet (ROADMAP.md Queue 1 '
-                'item 10)')
         out_q: queue.Queue = queue.Queue()
         if not self.alive():
             out_q.put(EngineOutput(ResponseType.INTERNAL_ERROR, [], 0,
                                    finished=True))
             return out_q
         cap = self.ecfg.max_pending_requests
-        if cap and not request.stop \
+        if cap and not (request.stop or request.return_logits) \
                 and self._requests.qsize() + len(self._pending) >= cap:
             self.stats['rejected'] += 1
             out_q.put(EngineOutput(ResponseType.QUEUE_FULL, [], 0,
@@ -238,6 +266,23 @@ class TorchEngine:
             return out_q
         self._requests.put((request, out_q, time.monotonic()))
         return out_q
+
+    def overloaded(self) -> bool:
+        """Whether a new request would be refused with QUEUE_FULL (a
+        server answers 429 before it tokenizes)."""
+        cap = self.ecfg.max_pending_requests
+        return bool(cap) and \
+            self._requests.qsize() + len(self._pending) >= cap
+
+    def metrics(self) -> Dict[str, float]:
+        """Counters and gauges for a server's /metrics endpoint."""
+        out = dict(self.stats)
+        out['queue_depth'] = self._requests.qsize()
+        out['pending_requests'] = len(self._pending)
+        out['slots_busy'] = sum(1 for s in self.slots if s is not None)
+        out['slots_total'] = len(self.slots)
+        out['free_pages_group0'] = self.seqs.free_count(0)
+        return out
 
     def shutdown(self):
         self._shutdown = True
@@ -255,8 +300,29 @@ class TorchEngine:
                                   gen_config=GenerationConfig(), stop=True))
 
     # -- engine loop ----------------------------------------------------------
+    def _fail_all_safe(self):
+        """:meth:`_fail_all`, but a failed rebuild (the device still out of
+        memory, say) arms a retry at the top of each loop turn instead of
+        ending the engine thread."""
+        try:
+            self._fail_all()
+            self._needs_recovery = False
+        except Exception:
+            log.exception('device-state recovery failed; will retry each '
+                          'loop turn')
+            self._needs_recovery = True
+            time.sleep(0.5)
+
     def _loop(self):
         while not self._shutdown:
+            if self._needs_recovery:
+                try:
+                    self._recover_device_state()
+                    self._needs_recovery = False
+                except Exception:
+                    log.exception('device-state recovery failed; will '
+                                  'retry each loop turn')
+                    time.sleep(0.5)
             busy = any(s is not None for s in self.slots) or self._pending
             try:
                 batch = [self._requests.get(timeout=0.0 if busy else 0.05)]
@@ -279,13 +345,13 @@ class TorchEngine:
                     self._flush_prefills()
                 except Exception:
                     log.exception('prefill flush failed')
-                    self._fail_all()
+                    self._fail_all_safe()
             if any(s is not None and not s.done for s in self.slots):
                 try:
                     self._decode_round(self.ecfg.step_length)
                 except Exception:
                     log.exception('decode round failed')
-                    self._fail_all()
+                    self._fail_all_safe()
 
     def _fail_all(self):
         """Answer every running request with INTERNAL_ERROR and rebuild
@@ -295,18 +361,24 @@ class TorchEngine:
                 continue
             slot.out_q.put(EngineOutput(ResponseType.INTERNAL_ERROR, [],
                                         slot.generated, finished=True))
-            self.seqs.erase(slot.request.session_id)
+            try:
+                self.seqs.erase(slot.request.session_id)
+            except Exception:
+                log.exception('session release failed during _fail_all')
             self.slots[i] = None
         self._recover_device_state()
 
     # -- request handling -----------------------------------------------------
     def _handle_batch(self, batch):
-        """Stops first; duplicate session ids among queued requests are
-        rejected; admissions sorted by input length, longest first."""
-        for item in [it for it in batch if it[0].stop]:
+        """Stops and prompt-logits requests first; duplicate session ids
+        among queued requests are rejected; admissions sorted by input
+        length, longest first."""
+        def first(it):
+            return it[0].stop or it[0].return_logits
+        for item in filter(first, batch):
             self._handle_safe(*item)
         seen = set()
-        for req, out_q, t in sorted([it for it in batch if not it[0].stop],
+        for req, out_q, t in sorted([it for it in batch if not first(it)],
                                     key=lambda it: -len(it[0].input_ids)):
             if req.session_id in seen:
                 out_q.put(EngineOutput(ResponseType.SESSION_REPEAT, [], 0,
@@ -327,17 +399,24 @@ class TorchEngine:
             return
         try:
             self._handle_request(req, out_q, enq_t)
-        except Exception:
+        except Exception as e:
             log.exception('request handling failed (session %s)',
                           req.session_id)
             self.stats['errors'] += 1
             out_q.put(EngineOutput(ResponseType.INTERNAL_ERROR, [], 0,
                                    finished=True))
+            # a device error (the logits path's pass, say) leaves the pool
+            # untrusted: rebuild
+            if _is_device_error(e):
+                self._fail_all_safe()
 
     def _handle_request(self, req: EngineRequest, out_q: queue.Queue,
                         enq_t: Optional[float] = None):
         if req.stop:
             self._handle_stop(req, out_q)
+            return
+        if req.return_logits:
+            self._handle_logits(req, out_q)
             return
         for slot in self.slots:
             if slot is not None and slot.request.session_id == req.session_id \
@@ -377,6 +456,38 @@ class TorchEngine:
         if req.sequence_end:
             self.seqs.erase(req.session_id)
         out_q.put(EngineOutput(ResponseType.SUCCESS, [], 0, finished=True))
+
+    def _handle_logits(self, req: EngineRequest, out_q: queue.Queue):
+        """Prompt logits (:meth:`EngineInstance.decode`): the prompt's
+        chunks through ``step.prefill_logits`` on a scratch session that
+        never enters the decode batch, erased afterwards.  Runs on the
+        engine thread, between rounds."""
+        ids = list(map(int, req.input_ids))
+        if not ids or len(ids) > self.session_len:
+            out_q.put(EngineOutput(ResponseType.INPUT_TOO_LONG, [], 0,
+                                   finished=True))
+            return
+        self._scratch_id -= 1          # a unique negative session id
+        scratch_id = self._scratch_id
+        seq = self.seqs.create(scratch_id, 0)
+        seq.active = True              # shielded from eviction
+        try:
+            self.seqs.grow(seq, len(ids))
+            row = self._dev(self._page_row(seq))
+            out = []
+            for padded, pos, n in self._iter_chunks(ids, 0):
+                logits = S.prefill_logits(self.params, self.cache, row,
+                                          self._dev(padded), pos, n,
+                                          self.cfg)
+                out.append(logits[:n, :self.cfg.vocab_size].float())
+            logits = torch.cat(out).cpu().numpy()
+            out_q.put(EngineOutput(ResponseType.FINISH, [], 0, finished=True,
+                                   logits=logits))
+        except NoFreePages:
+            out_q.put(EngineOutput(ResponseType.INTERNAL_ERROR, [], 0,
+                                   finished=True))
+        finally:
+            self.seqs.erase(scratch_id)
 
     def _free_slot_index(self) -> Optional[int]:
         for i, s in enumerate(self.slots):
@@ -420,6 +531,15 @@ class TorchEngine:
                                    finished=True))
             return
 
+        # cross-session prefix caching: a pageless sequence (fresh, or
+        # evicted and about to re-decode) attaches the published pages of
+        # its page-aligned prompt prefix and skips their prefill
+        if self.ecfg.enable_prefix_caching and not seq.pages \
+                and seq.cache_len == 0:
+            hit = self.seqs.match_prefix(seq, all_ids)
+            if hit:
+                self.stats['prefix_hit_tokens'] += hit
+
         seq.active = True
         self.seqs.grow(seq, total_len)
         prefill_ids = all_ids[seq.cache_len:-1] if total_len > 1 else []
@@ -457,9 +577,10 @@ class TorchEngine:
         return row
 
     def _stop_sequences(self, gen: GenerationConfig) -> List[List[int]]:
+        """The request's stop words, else the template's defaults."""
         return [[int(x) for x in w] if isinstance(w, (list, tuple))
                 else [int(w)]
-                for w in (gen.stop_words or [])]
+                for w in (gen.stop_words or self.default_stop_words)]
 
     def _sampling_row(self, gen: GenerationConfig, seq, max_new) -> dict:
         cap = MAX_STOP_BAD_WORDS
@@ -586,6 +707,10 @@ class TorchEngine:
             slot.seq.cache_len = start + len(ids)
             slot.prefilling = False
             S.set_active(self.state, slot_idx, True)
+            if self.ecfg.enable_prefix_caching:
+                # insert-only publish: the prompt is shareable now, not
+                # only at retirement
+                self.seqs.publish(slot.seq)
         self._fresh_admission = True
 
     # -- decode ---------------------------------------------------------------
@@ -689,9 +814,6 @@ class TorchEngine:
                 else 0.7 * ema + 0.3 * acc
             if self._spec_accept_ema < self.SPEC_MIN_ACCEPT:
                 self._spec_cooloff = self.SPEC_COOLOFF_DISPATCHES
-        # every round of the dispatch ran on the device, also those after
-        # the last slot finished
-        self.stats['spec_rounds'] += rounds
         base = 3 * kp1 + 3
         for r in range(arr.shape[0]):
             g, fin, n = arr[r, :kp1], arr[r, kp1:2 * kp1], arr[r, 2 * kp1]
@@ -701,6 +823,9 @@ class TorchEngine:
             # the key as of round r
             self._rng_now = np.ascontiguousarray(
                 arr[r, 3 * kp1 + 1:3 * kp1 + 3].T).view(np.uint32)
+            # rounds up to the one in which the last running slot finished
+            # (the device runs the dispatch's rest masked)
+            self.stats['spec_rounds'] += 1
             self.stats['spec_emitted'] += int(n.sum())
             for t in range(kp1):
                 mask = t < n
@@ -794,6 +919,11 @@ class TorchEngine:
             slot.seq.rng_key = self.state.sampling.rng_key[slot_idx] \
                 .cpu().numpy().view(np.uint32)
         S.clear_slot(self.state, slot_idx)
+        if self.ecfg.enable_prefix_caching:
+            # unbound from the slot first, then its full pages go into the
+            # prefix index (safe even though erase may free the rest)
+            self.seqs.release(slot.seq)
+            self.seqs.publish(slot.seq)
         if slot.request.sequence_end:
             self.seqs.erase(slot.request.session_id)
         else:
@@ -835,6 +965,26 @@ class EngineInstance:
             if out.finished:
                 return
 
+    async def async_stream_infer(self, session_id: int, input_ids,
+                                 gen_config: Optional[GenerationConfig] = None,
+                                 sequence_start: bool = True,
+                                 sequence_end: bool = False, step: int = 0):
+        """Async generator of EngineOutput: the blocking wait for each
+        frame runs in the loop's default executor."""
+        import asyncio
+        out_q = self.engine.submit(EngineRequest(
+            session_id=session_id, input_ids=list(map(int, input_ids)),
+            gen_config=gen_config or GenerationConfig(),
+            sequence_start=sequence_start, sequence_end=sequence_end,
+            step=step))
+        loop = asyncio.get_running_loop()
+        while True:
+            out = await loop.run_in_executor(None, _get_or_dead, out_q,
+                                             self.engine)
+            yield out
+            if out.finished:
+                return
+
     def infer(self, session_id: int, input_ids, **kw) -> EngineOutput:
         last = None
         for last in self.stream_infer(session_id, input_ids, **kw):
@@ -846,6 +996,18 @@ class EngineInstance:
 
     def end(self, session_id: int):
         self.engine.end_session(session_id)
+
+    def decode(self, input_ids) -> np.ndarray:
+        """Prompt logits f32 [len(input_ids), vocab] (for perplexity): row
+        t predicts token t + 1.  Runs on the engine thread, between
+        rounds."""
+        req = EngineRequest(session_id=-1,
+                            input_ids=list(map(int, input_ids)),
+                            gen_config=GenerationConfig(), return_logits=True)
+        out = _get_or_dead(self.engine.submit(req), self.engine)
+        if out.logits is None:
+            raise RuntimeError(f'decode failed: {out.status!r}')
+        return out.logits
 
 
 __all__ = ['TorchEngine', 'EngineInstance', 'resolve_device']

@@ -281,6 +281,24 @@ def prefill_chunks(params, cache: KVCache, state: DecodeState, slots,
     return logits
 
 
+def prefill_logits(params, cache: KVCache, page_row, ids, start_pos: int,
+                   length: int, cfg: ModelConfig):
+    """Like :func:`prefill_chunks` for one chunk, but the logits of ALL its
+    positions (the reference's return-logits path): ids int [T] padded,
+    ``length`` of them real, at ``start_pos``; page_row int32 [MAXP], a
+    standalone row, so DecodeState is never touched.  Returns [T, V]."""
+    t = ids.shape[0]
+    dev = ids.device
+    pos = start_pos + torch.arange(t, dtype=torch.int32, device=dev)
+    batch = StepBatch(ids=ids[None], positions=pos[None],
+                      valid=(torch.arange(t, device=dev) < length)[None],
+                      context_len=torch.full((1,), start_pos + length,
+                                             dtype=torch.int32, device=dev),
+                      page_table=page_row[None])
+    logits, _ = forward(params, cache, batch, cfg, return_all_logits=True)
+    return logits[0]
+
+
 # -- slot surgery (in place) -------------------------------------------------
 
 def install_slot(state: DecodeState, slot: int, token: int,
@@ -322,5 +340,5 @@ def set_page_row(state: DecodeState, slot: int, page_row) -> None:
 
 __all__ = ['DecodeState', 'init_decode_state', 'decode_step', 'decode_steps',
            'spec_decode_round', 'spec_decode_rounds', 'prefill_chunks',
-           'install_slot', 'clear_slot', 'set_finished', 'set_active',
-           'set_page_row']
+           'prefill_logits', 'install_slot', 'clear_slot', 'set_finished',
+           'set_active', 'set_page_row']

@@ -5,7 +5,7 @@ STATIC-qparam quantised pools: int8 (``quant_policy`` 4, the reference's
 KV-INT8 scheme, docs/en/kv_int8.md: per-layer scale and zero point from
 calibration) and nibble-packed int4 (``quant_policy`` 8 with calibrated
 per-layer qparams; uint8 pool whose last dim is Dh/2).  Dynamic
-per-token int4 and per-head int4 qparams are ROADMAP.md Queue 1 item 8.
+per-token int4 and per-head int4 qparams are ROADMAP.md Queue 1 item 5.
 All KV lives in one pool ``[L, P, page_size, KH, Dh]`` addressed through a
 per-slot page table; the host allocator is ``kvcache/manager.py``.
 
@@ -120,7 +120,7 @@ def init_cache(num_layers: int, num_pages: int, page_size: int,
         raise NotImplementedError(
             f'kv_scales of shapes {[tuple(s.shape) for s in scales]}: only '
             f'static per-layer [{num_layers}] qparams are ported; per-head '
-            'int4 qparams are ROADMAP.md Queue 1 item 8')
+            'int4 qparams are ROADMAP.md Queue 1 item 5')
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    qparams=torch.stack(scales, dim=1).to(device))

@@ -3,7 +3,7 @@ workspace.
 
 Port of ``lmdeploy_tpu/lite/apis/kv_qparams.py`` (per-layer export only;
 per-head int4 qparams stay with the int4 path that uses them, ROADMAP.md
-Queue 1 item 8) with its own :func:`load_stats`
+Queue 1 item 5) with its own :func:`load_stats`
 (``lmdeploy_tpu/lite/quantization/calibration.py::load_stats``).  numpy
 only.
 

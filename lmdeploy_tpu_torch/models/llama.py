@@ -108,6 +108,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def random_packed_params(cfg: ModelConfig, seed: int,
+                         device='cuda') -> Dict[str, Any]:
+    """Random W4A16 parameters drawn directly as nibble-packed bytes from
+    a seeded generator on ``device``: group ``cfg.group_size`` (128 when
+    unset), constant scale 0.002 and zero point 8, bf16 normal(0, 0.02)
+    embedding and lm_head, as the JAX bench draws its weights
+    (``bench.py::random_int4_params``).  Nothing is downloaded."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, g = cfg.hidden_size, cfg.group_size or 128
+    dh, h, kh, inter, nl = (cfg.size_per_head, cfg.head_num, cfg.kv_head_num,
+                            cfg.inter_size, cfg.num_layer)
+    bf = torch.bfloat16
+
+    def qw(k, n):
+        return PackedInt4Weight(
+            packed=torch.randint(0, 256, (nl, k // 2, n), generator=gen,
+                                 dtype=torch.uint8, device=device),
+            scales=torch.full((nl, k // g, 1, n), 0.002, dtype=bf,
+                              device=device),
+            sz=torch.full((nl, k // g, n), 0.002 * 8.0, dtype=bf,
+                          device=device))
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02
+                ).to(bf)
+
+    vp = vocab_padded(cfg)
+    return {
+        'tok_embedding': normal(vp, d),
+        'norm': torch.ones((d,), dtype=bf, device=device),
+        'lm_head': normal(d, vp),
+        'layers': {
+            'attn_norm': torch.ones((nl, d), dtype=bf, device=device),
+            'ffn_norm': torch.ones((nl, d), dtype=bf, device=device),
+            'wqkv': qw(d, (h + 2 * kh) * dh), 'wo': qw(h * dh, d),
+            'w1': qw(d, inter), 'w3': qw(d, inter), 'w2': qw(inter, d),
+        },
+    }
+
+
 def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
                     group_size: int = 128) -> Dict[str, Any]:
     """The five projection families -> stacked W4A16 QuantizedWeight
@@ -302,6 +342,7 @@ def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 
 __all__ = ['StepBatch', 'fused_attn_enabled', 'fused_rope_enabled',
-           'vocab_padded', 'init_params', 'quantize_params',
+           'vocab_padded', 'init_params', 'random_packed_params',
+           'quantize_params',
            'packable', 'pack_params', 'embed_tokens', 'forward_layers',
            'lm_head_logits', 'forward', 'mask_vocab_padding']

@@ -17,10 +17,12 @@ prefill chunk the 2*M*K*N operations.  Two kernels, chosen by M at
 - decode (M <= DECODE_MAX_M): tensor cores (mma.sync m16n8k16) with the
   weight as the A operand and x^T as B, so M = 8 fills one n8 tile; it
   reads every packed byte once, 16 bytes per load, turns nibbles into
-  exact bf16 by a mantissa trick, and sums its split over K with f32
-  atomics into a zeroed y (run to run the sum order changes: a few f32
-  ulps of the output).  It takes N % 16 == 0, K % 16 == 0 and any group
-  that is a multiple of 16 dividing K/2.
+  exact bf16 by a mantissa trick.  Its grid splits K; the splits' f32
+  partials go to a workspace and the last block of each column tile sums
+  them in index order (a ticket counter per tile, zeroed once, that every
+  launch leaves at zero), so a call gives the same bits on every run.  It
+  takes N % 16 == 0, K % 16 == 0 and any group that is a multiple of 16
+  dividing K/2.
 - prefill (M > DECODE_MAX_M): wgmma with the weight as the register
   operand (nibbles to bf16 in registers) and x tiles brought by TMA into
   a ring of shared-memory stages, one f32 partial per group folded with
@@ -44,6 +46,29 @@ WGMMA = 'w4a16_gemm[wgmma]'      # the prefill regime's own launch count
 # M = 8 and 0.157 at M = 16, wgmma 0.143 and 0.140; chip_smoke.py phase 3).
 DECODE_MAX_M = 8
 REGIMES = ('decode', 'wgmma')
+
+_counters: dict = {}      # device -> the decode regime's ticket counters
+_splits: dict = {}        # (K, group) -> the decode regime's split of K
+
+
+def _decode_workspace(m: int, k: int, n: int, group: int, device):
+    """(partials f32 [S, M, N], ticket counters) of the decode regime, or
+    (None, None) when its grid does not split K.  The counters are zeroed
+    once when allocated; every launch leaves them at zero."""
+    splits = _splits.get((k, group))
+    if splits is None:
+        splits = build.load().lmd_w4a16_decode_splits(k, group)
+        build.check(min(splits, 0), 'w4a16_gemm: decode splits')
+        _splits[(k, group)] = splits
+    if splits <= 1:
+        return None, None
+    tiles = -(-n // 128) * -(-m // (8 if m <= 8 else 16))
+    c = _counters.get(device)
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return torch.empty((splits, m, n), dtype=torch.float32,
+                       device=device), c
 
 
 def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
@@ -112,13 +137,14 @@ def w4a16_gemm_regime(x: torch.Tensor, packed: torch.Tensor,
     if xb.data_ptr() % 16:                 # TMA takes 16-byte aligned rows
         xb = xb.clone()
     wgmma = regime == 'wgmma'
-    y = (torch.empty if wgmma else torch.zeros)(
-        (m, n), dtype=torch.float32, device=x.device)
-    lib = build.load()
-    rc = lib.lmd_w4a16_gemm(
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    ws, counter = (None, None) if wgmma else _decode_workspace(
+        m, k, n, group, x.device)
+    rc = build.load().lmd_w4a16_gemm(
         xb.data_ptr(), packed[layer].data_ptr(), scales[layer].data_ptr(),
-        y.data_ptr(), m, k, n, group, int(wgmma),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        0 if counter is None else counter.data_ptr(), m, k, n, group,
+        int(wgmma), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, 'w4a16_gemm')
     LAUNCHES[NAME] += 1
     if wgmma:

@@ -61,7 +61,7 @@ def test_w4a16_kernel_matches_plain_on_card(cuda_device, m):
             torch.from_numpy(scales).to(torch.bfloat16).to(cuda_device), 1)
     got = w4a16_gemm(*args)
     want = w4a16_gemm_plain(*args)
-    # f32 sums in another order (split-K atomics at M <= 64)
+    # f32 sums in another order (the kernel splits K over blocks)
     tol = 1e-3 * want.abs().max().item() + 1e-3
     assert (got - want).abs().max().item() <= tol
 
@@ -355,15 +355,31 @@ def test_w4a16_wgmma_matches_plain_on_card(cuda_device, m, n):
 @pytest.mark.parametrize('m', [1, 16, 40, 64, 128])
 def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, regime):
     """Both kernels at the M where the crossover is measured, whichever the
-    wrapper would pick, and the wgmma kernel twice (deterministic)."""
+    wrapper would pick, and each kernel twice (deterministic)."""
     rng = np.random.default_rng(300 + m)
     args = _gemm_args(rng, m, 4096, 1024, cuda_device)
     got = w4a16_gemm_regime(*args, regime)
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
     assert (got - want).abs().max().item() <= tol
-    if regime == 'wgmma':
-        assert torch.equal(got, w4a16_gemm_regime(*args, regime))
+    assert torch.equal(got, w4a16_gemm_regime(*args, regime))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [4096, 11008])
+@pytest.mark.parametrize('m', [1, 5, 8])
+def test_w4a16_decode_is_bit_identical_across_calls(cuda_device, m, k):
+    """The decode regime splits K over 8 (K = 4096) or 22 (K = 11008)
+    blocks and sums their partials in a fixed order: ten calls give the
+    same bits, as the JAX kernel's sequential K loop does."""
+    rng = np.random.default_rng(500 + m + k)
+    args = _gemm_args(rng, m, k, 4096, cuda_device)
+    first = w4a16_gemm_regime(*args, 'decode')
+    for _ in range(9):
+        assert torch.equal(first, w4a16_gemm_regime(*args, 'decode'))
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (first - want).abs().max().item() <= tol
 
 
 def _split_case(rng, ctxs, kv_bits, kh, page, device):

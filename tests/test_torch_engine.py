@@ -202,8 +202,7 @@ def test_cancel_ends_the_stream(port_engine):
 
 
 @pytest.mark.parametrize('kw', [dict(tp=2), dict(pp=2), dict(dp=2),
-                                dict(quant_policy=8),
-                                dict(enable_prefix_caching=True)])
+                                dict(quant_policy=8)])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(ECFG, **kw)),
@@ -501,7 +500,7 @@ def test_load_workspace_written_by_jax_converter(tmp_path):
     """load_workspace reads the JAX converter's format (column-pair int4,
     bf16 dense tensors) without safetensors, and carries weights across
     byte for byte; build_engine serves from it.  The workspace's prefix
-    caching setting (the JAX default, on) is not taken: it is not ported."""
+    caching setting (the JAX default, on) is kept."""
     jp = jax_int4_params(2)
     jp = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
                       if a.dtype == jnp.float32 else a, jp)
@@ -513,7 +512,7 @@ def test_load_workspace_written_by_jax_converter(tmp_path):
     assert kv_scales is None
     assert cfg == ModelConfig(**CFG)
     assert ecfg.prefill_buckets == (16, 32) and ecfg.page_size == 16
-    assert not ecfg.enable_prefix_caching
+    assert ecfg.enable_prefix_caching
     for name in ('wqkv', 'wo', 'w1', 'w3', 'w2'):
         got, want = params['layers'][name], jp['layers'][name]
         assert isinstance(got, PackedInt4Weight)
@@ -545,7 +544,8 @@ def test_load_workspace_written_by_jax_converter(tmp_path):
 def test_port_imports_nothing_of_jax():
     """With jax, the JAX package, safetensors, ml_dtypes and transformers
     unimportable, every module of the port (and chip_smoke.py) imports
-    and a CPU engine serves a request."""
+    and a CPU engine serves a request; so do bench_torch.py and the
+    serving front door, whose tokenizer falls back to DummyTokenizer."""
     code = '''
 import sys
 for name in ('jax', 'jaxlib', 'lmdeploy_tpu', 'safetensors', 'ml_dtypes',
@@ -557,6 +557,7 @@ mods = [m.name for m in pkgutil.walk_packages(lmdeploy_tpu_torch.__path__,
                                               'lmdeploy_tpu_torch.')]
 for m in mods:
     importlib.import_module(m)
+import bench_torch
 import chip_smoke
 from lmdeploy_tpu_torch import EngineConfig, ModelConfig, TorchEngine
 from lmdeploy_tpu_torch import GenerationConfig
@@ -574,6 +575,21 @@ out = eng.create_instance().infer(1, [3, 4, 5], gen_config=GenerationConfig(
     max_new_tokens=3, top_k=1, ignore_eos=True))
 eng.shutdown()
 assert len(out.token_ids) == 3, out
+import asyncio, tempfile
+from lmdeploy_tpu_torch.convert.workspace import save_workspace
+from lmdeploy_tpu_torch.serve.async_engine import AsyncEngine
+from lmdeploy_tpu_torch.tokenizer import DummyTokenizer
+with tempfile.TemporaryDirectory() as ws:
+    save_workspace(ws, cfg, quantize_params(p, cfg))
+    open(ws + '/tokenizer.json', 'w').write('{}')
+    ae = AsyncEngine(ws, device='cpu')
+    assert isinstance(ae.tokenizer, DummyTokenizer)
+    async def gen():
+        return [o async for o in ae.generate('hi', 1, top_k=1,
+                                             request_output_len=3)]
+    outs = asyncio.run(gen())
+    ae.shutdown()
+    assert outs[-1].generate_token_len == 3, outs
 assert not any(n.split('.')[0] in ('jax', 'lmdeploy_tpu')
                for n, m in sys.modules.items() if m is not None)
 print('OK', len(mods))

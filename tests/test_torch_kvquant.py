@@ -126,7 +126,7 @@ def test_write_and_gather_kv_match_jax(bits):
 
 
 def test_per_head_qparams_raise():
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
         tpaged.init_cache(2, 4, 8, 2, 128, torch.uint8, 'cpu',
                           kv_scales=[np.ones((2, 2))] * 4)
 
@@ -324,7 +324,7 @@ def test_int8_engine_greedy_matches_jax_engine():
 def test_unported_kv_routes_raise(kv_scales):
     """Dynamic per-token int4 (quant_policy 8 without kv_scales) and
     per-head int4 qparams raise, naming their ROADMAP.md item."""
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
         TorchEngine(ModelConfig(**CFG),
                     EngineConfig(**dict(ECFG, quant_policy=8)), {},
                     device='cpu', start=False, kv_scales=kv_scales)
