@@ -68,6 +68,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                concurrent streams, a second turn and a request ended by the
                template's stop word.  Counters are set to 0 before each run
                and read after it.
+  6. doors   — a user's checkpoint through every door of the port, at
+               Llama-2-7B width with 2 layers, in a temporary directory: an
+               HF checkpoint (bf16, two safetensors shards) written here,
+               convert_hf --quantize, an engine on that workspace serving 4
+               concurrent requests and two bs1 requests of a 300-token prompt
+               (launches per decode step 10 GEMM + 2 decode attention, per
+               prefill pass 10 GEMM + 2 prefill attention, per 512-bucket
+               pass 10 of them wgmma), an AWQ export of the same
+               quantisation through convert_awq (every tensor bit-equal, an
+               identical stream), build_engine on the HF directory (bf16
+               dense weights; prompt logits against the CPU's), the OpenAI
+               server's core over AsyncEngine without aiohttp (every route,
+               a 404 and a 400), `cli.main chat` in a subprocess and
+               cli/decode.py's perplexity, and a RouterEngine over the
+               engine and a peer process on the same card.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -77,6 +92,7 @@ import argparse
 import contextlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -86,7 +102,7 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
-PHASES = ('probe', 'build', 'kernels', 'model', 'engine')
+PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors')
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
@@ -1800,6 +1816,562 @@ def phase_engine(torch, ctx):
     torch.cuda.empty_cache()
 
 
+DOORS_ROUTER_WORKER = '''
+import sys
+import torch
+from lmdeploy_tpu_torch import build_engine
+from lmdeploy_tpu_torch.config import EngineConfig
+from lmdeploy_tpu_torch.messages import GenerationConfig
+from lmdeploy_tpu_torch.serve.router import serve_engine
+import json
+ws, device, port = sys.argv[1], sys.argv[2], int(sys.argv[3])
+ecfg = dict(json.loads(sys.argv[4]))
+ecfg['prefill_buckets'] = tuple(ecfg['prefill_buckets'])
+engine = build_engine(ws, engine_config=EngineConfig(**ecfg), device=device)
+engine.create_instance().infer(-99, [1, 2, 3], gen_config=GenerationConfig(
+    max_new_tokens=2, top_k=1, ignore_eos=True), sequence_end=True)
+print('READY', flush=True)
+serve_engine(engine, host='127.0.0.1', port=port)
+'''
+
+
+def awq_pack(q):
+    """uint8 values 0..15 [..., N] -> AWQ int32 words [..., N/8] (nibble
+    slot s holds logical column AWQ_ORDER[s])."""
+    from lmdeploy_tpu_torch.convert.awq import AWQ_ORDER
+    q = np.asarray(q).astype(np.uint32).reshape(*q.shape[:-1], -1, 8)
+    words = np.zeros(q.shape[:-1], np.uint32)
+    for slot, col in enumerate(AWQ_ORDER):
+        words |= q[..., col] << np.uint32(4 * slot)
+    return words.view(np.int32)
+
+
+def write_hf_checkpoint(torch, path, cfg, seed):
+    """An HF llama directory: config.json and bf16 normal(0, 0.02)
+    weights (norms 1) from a seeded CPU generator, over two
+    ``model-0000x-of-00002.safetensors`` shards.  Returns its bytes."""
+    from lmdeploy_tpu_torch.convert.workspace import write_safetensors
+    gen = torch.Generator().manual_seed(seed)
+    d, dh, h, kh = (cfg.hidden_size, cfg.size_per_head, cfg.head_num,
+                    cfg.kv_head_num)
+    shapes = {'model.embed_tokens.weight': (cfg.vocab_size, d),
+              'lm_head.weight': (cfg.vocab_size, d),
+              'model.norm.weight': (d,)}
+    for i in range(cfg.num_layer):
+        p = f'model.layers.{i}'
+        shapes.update({f'{p}.self_attn.q_proj.weight': (h * dh, d),
+                       f'{p}.self_attn.k_proj.weight': (kh * dh, d),
+                       f'{p}.self_attn.v_proj.weight': (kh * dh, d),
+                       f'{p}.self_attn.o_proj.weight': (d, h * dh),
+                       f'{p}.mlp.gate_proj.weight': (cfg.inter_size, d),
+                       f'{p}.mlp.up_proj.weight': (cfg.inter_size, d),
+                       f'{p}.mlp.down_proj.weight': (d, cfg.inter_size),
+                       f'{p}.input_layernorm.weight': (d,),
+                       f'{p}.post_attention_layernorm.weight': (d,)})
+    os.makedirs(path)
+    names = sorted(shapes)
+    shards = (names[:len(names) // 2], names[len(names) // 2:])
+    for n, part in enumerate(shards):
+        tensors = {k: (torch.ones(shapes[k]) if k.endswith('norm.weight')
+                       else torch.randn(shapes[k], generator=gen) * 0.02
+                       ).to(torch.bfloat16) for k in part}
+        write_safetensors(os.path.join(
+            path, f'model-0000{n + 1}-of-00002.safetensors'), tensors)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump({'architectures': ['LlamaForCausalLM'],
+                   'num_attention_heads': h, 'num_key_value_heads': kh,
+                   'hidden_size': d, 'intermediate_size': cfg.inter_size,
+                   'num_hidden_layers': cfg.num_layer,
+                   'vocab_size': cfg.vocab_size, 'rms_norm_eps': 1e-5,
+                   'max_position_embeddings': cfg.max_position_embeddings,
+                   'bos_token_id': 1, 'eos_token_id': 2,
+                   'torch_dtype': 'bfloat16'}, f)
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def write_awq_checkpoint(torch, ws, path, cfg):
+    """An AWQ directory holding the workspace ``ws``'s own quantisation:
+    per linear qweight / qzeros as AWQ int32 words and fp16 scales (a
+    bf16 scale in fp16's normal range is exact in fp16), the dense
+    tensors in bf16, and the HF config."""
+    from lmdeploy_tpu_torch.convert.workspace import (read_safetensors,
+                                                      write_safetensors)
+    from lmdeploy_tpu_torch.ops.linear import unpack_int4
+    flat = read_safetensors(os.path.join(ws, 'weights.safetensors'))
+    h, kh, dh = cfg.head_num, cfg.kv_head_num, cfg.size_per_head
+    v = cfg.vocab_size
+    sd = {'model.embed_tokens.weight': flat['tok_embedding'][:v],
+          'lm_head.weight': flat['lm_head'].T[:v].contiguous(),
+          'model.norm.weight': flat['norm']}
+    splits = {'wqkv': (('self_attn.q_proj', 0, h * dh),
+                       ('self_attn.k_proj', h * dh, (h + kh) * dh),
+                       ('self_attn.v_proj', (h + kh) * dh, (h + 2 * kh) * dh)),
+              'wo': (('self_attn.o_proj', 0, None),),
+              'w1': (('mlp.gate_proj', 0, None),),
+              'w3': (('mlp.up_proj', 0, None),),
+              'w2': (('mlp.down_proj', 0, None),)}
+    for name, parts in splits.items():
+        q = unpack_int4(flat[f'layers/{name}.packed'].numpy())
+        z = flat[f'layers/{name}.zeros'].float().numpy().astype(np.uint8)
+        s = flat[f'layers/{name}.scales'].float()
+        for i in range(cfg.num_layer):
+            for hf_name, a, b in parts:
+                p = f'model.layers.{i}.{hf_name}'
+                sd[f'{p}.qweight'] = torch.from_numpy(awq_pack(q[i][:, a:b]))
+                sd[f'{p}.qzeros'] = torch.from_numpy(awq_pack(z[i][:, a:b]))
+                sd[f'{p}.scales'] = s[i][:, a:b].half().contiguous()
+    for i in range(cfg.num_layer):
+        p = f'model.layers.{i}'
+        sd[f'{p}.input_layernorm.weight'] = flat['layers/attn_norm'][i]
+        sd[f'{p}.post_attention_layernorm.weight'] = \
+            flat['layers/ffn_norm'][i]
+    os.makedirs(path)
+    write_safetensors(os.path.join(path, 'model.safetensors'), sd)
+
+
+def same_workspace(torch, a, b):
+    """(config payloads equal, names of tensors whose bits differ)."""
+    from lmdeploy_tpu_torch.convert.workspace import read_safetensors
+    cfgs = []
+    for ws in (a, b):
+        with open(os.path.join(ws, 'config.json')) as f:
+            cfgs.append(json.load(f))
+    fa = read_safetensors(os.path.join(a, 'weights.safetensors'))
+    fb = read_safetensors(os.path.join(b, 'weights.safetensors'))
+    differ = sorted(set(fa) ^ set(fb)) + [
+        k for k in sorted(set(fa) & set(fb))
+        if fa[k].dtype != fb[k].dtype or fa[k].shape != fb[k].shape
+        or not torch.equal(fa[k].view(torch.uint8) if fa[k].dim() else
+                           fa[k], fb[k].view(torch.uint8) if fb[k].dim()
+                           else fb[k])]
+    return cfgs[0] == cfgs[1], differ, len(fa)
+
+
+def phase_doors(torch, ctx):
+    """The way in and out of the port at Llama-2-7B width, 2 layers (see
+    :func:`doors`)."""
+    doors(torch, ctx, llama2_7b(num_layer=2), 'cuda')
+
+
+def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
+    """An HF checkpoint of ``cfg``'s width, written here, goes through
+    every door of the port on ``device``: ``convert_hf --quantize``, an
+    engine on the workspace (launches per decode step and per prefill
+    pass), an AWQ export of that quantisation through ``convert_awq``
+    (bit-equal workspace, identical stream), ``build_engine`` on the HF
+    directory (bf16 dense weights; prompt logits against the CPU's), the
+    OpenAI server's core over ``AsyncEngine`` (every route, no aiohttp),
+    the CLI (``chat`` in a subprocess, ``decode``'s perplexity), and the
+    router with a peer process on the same card.  Everything lives in a
+    temporary directory that is removed at the end."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from lmdeploy_tpu_torch import build_engine
+    from lmdeploy_tpu_torch.cli import decode as cli_decode
+    from lmdeploy_tpu_torch.config import EngineConfig
+    from lmdeploy_tpu_torch.convert.awq import convert_awq
+    from lmdeploy_tpu_torch.convert.converter import convert_hf
+    from lmdeploy_tpu_torch.messages import (EngineRequest, GenerationConfig,
+                                             ResponseType)
+    from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
+    from lmdeploy_tpu_torch.pytorch.decode import perplexity
+    from lmdeploy_tpu_torch.serve.async_engine import AsyncEngine
+    from lmdeploy_tpu_torch.serve.openai import api_server as core
+    from lmdeploy_tpu_torch.serve.router import RouterEngine
+    on_card = device == 'cuda'
+    card = ctx.get('card', '?')
+    nl, name = cfg.num_layer, 'llama2'
+    ecfg = dict(max_batch_size=8, session_len=2048, page_size=64,
+                num_pages=88, max_context_token_num=512,
+                prefill_buckets=(64, 512), step_length=16,
+                enable_prefix_caching=False)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in lens]
+    long_prompt = prompts[2]
+    sid = iter(range(1, 10 ** 6))
+    times, out = {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(key, fn, *a, **kw):
+        t0 = time.monotonic()
+        res = fn(*a, **kw)
+        sync()
+        times[key] = time.monotonic() - t0
+        return res
+
+    def greedy(n):
+        return GenerationConfig(max_new_tokens=n, top_k=1, ignore_eos=True)
+
+    def stream(inst, prompt, n, session=None, **kw):
+        """One greedy request: (tokens, seconds to the first token, tok/s
+        after it)."""
+        t0, first = time.monotonic(), None
+        for last in inst.stream_infer(session or next(sid), prompt,
+                                      greedy(n), **kw):
+            if last.num_generated and first is None:
+                first = time.monotonic()
+        if last.status != ResponseType.FINISH or last.num_generated != n:
+            raise AssertionError(f'request of {len(prompt)} tokens: '
+                                 f'{last.num_generated} tokens, '
+                                 f'{last.status}')
+        t1 = time.monotonic()
+        return (list(last.token_ids), (first or t1) - t0,
+                (n - 1) / max(t1 - (first or t1), 1e-9))
+
+    def mark(eng):
+        return ({n: c[0] for n, c in K.launch_counts(True).items()},
+                {'decode_steps': eng.stats['decode_steps'], 'spec_rounds': 0,
+                 'prefill_passes': eng.stats['prefill_passes']})
+
+    tmp = tempfile.mkdtemp(prefix='lmdeploy-doors-')
+    hf, ws_q, awq, ws_awq = (os.path.join(tmp, n) for n in (
+        'llama2-hf', 'ws-int4', 'llama2-awq', 'ws-awq'))
+    engines, proc = [], None
+    try:
+        # 1. an HF checkpoint, 2. convert_hf --quantize
+        size = timed('hf_write_s', write_hf_checkpoint, torch, hf, cfg, 7)
+        timed('convert_s', convert_hf, hf, ws_q, name, quantize=True,
+              group_size=cfg.group_size or 128)
+        eng = timed('load_int4_s', build_engine, ws_q,
+                    engine_config=EngineConfig(**ecfg), device=device)
+        engines.append(eng)
+        inst = eng.create_instance()
+        K.reset_launch_counts()
+        marks = [mark(eng)]
+        results = [None] * len(prompts)
+
+        def worker(i):
+            results[i] = stream(inst, prompts[i], n_new)
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(r is None for r in results):
+            raise AssertionError('doors: concurrent requests failed')
+        conc_s = time.monotonic() - t0
+        marks.append(mark(eng))
+        bs1 = []
+        for n in (n_new, 8):
+            bs1.append(stream(inst, long_prompt, n))
+            marks.append(mark(eng))
+        counts = K.launch_counts(True)
+        out['int4'] = dict(ttft_s=[r[1] for r in results],
+                           tok_s_4_concurrent=len(prompts) * (n_new - 1)
+                           / conc_s, ttft_bs1_s=bs1[0][1],
+                           tok_s_bs1=bs1[0][2])
+        if on_card:
+            decode, prefill = ('paged_decode_attention_write[bf16]',
+                               'paged_prefill_attention[bf16]')
+            check_route(counts, launches_per_kind(marks, skip=(WGMMA,)),
+                        {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                         'prefill_passes': {'w4a16_gemm': 5 * nl,
+                                            prefill: nl}},
+                        'doors int4 engine',
+                        need=('decode_steps', 'prefill_passes'))
+            # the two bs1 windows: one pass of the 512 bucket each
+            check_route(counts, launches_per_kind(marks[1:]),
+                        {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                         'prefill_passes': {'w4a16_gemm': 5 * nl,
+                                            WGMMA: 5 * nl, prefill: nl}},
+                        'doors int4 engine, 300-token prompts',
+                        need=('decode_steps', 'prefill_passes'))
+            out['int4']['launches'] = {n: c[0] for n, c in counts.items()
+                                       if c[0]}
+            for n in ('w4a16_gemm', decode, prefill):
+                ctx['kernels'].setdefault(n, {})['doors_launches'] = \
+                    counts[n][0]
+        log(f'  doors [{card}]: HF checkpoint ({size / 2 ** 30:.2f} GiB, 2 '
+            f'shards) written in {times["hf_write_s"]:.1f} s, convert_hf '
+            f'--quantize {times["convert_s"]:.1f} s, engine load '
+            f'{times["load_int4_s"]:.1f} s; 4 concurrent requests (prompts '
+            f'{list(lens)}, {n_new} new): TTFT '
+            f'{[round(r[1], 3) for r in results]} s, '
+            f'{out["int4"]["tok_s_4_concurrent"]:.1f} tok/s; bs1 '
+            f'{len(long_prompt)}-token prompt: TTFT {bs1[0][1]:.3f} s, '
+            f'{bs1[0][2]:.1f} tok/s; launches {out["int4"].get("launches")}')
+
+        # 3. AWQ: the workspace's own quantisation, exported and converted
+        timed('awq_write_s', write_awq_checkpoint, torch, ws_q, awq, cfg)
+        shutil.copy(os.path.join(hf, 'config.json'), awq)
+        timed('awq_convert_s', convert_awq, awq, ws_awq, name,
+              cfg.group_size or 128)
+        same_cfg, differ, n_tensors = same_workspace(torch, ws_q, ws_awq)
+        if not same_cfg or differ:
+            raise AssertionError(f'AWQ workspace: config equal {same_cfg}, '
+                                 f'tensors that differ {differ}')
+        eng_awq = timed('load_awq_s', build_engine, ws_awq,
+                        engine_config=EngineConfig(**ecfg), device=device)
+        engines.append(eng_awq)
+        int4_stream = stream(inst, prompts[0], n_new)[0]
+        awq_stream, awq_ttft, awq_tps = stream(eng_awq.create_instance(),
+                                               prompts[0], n_new)
+        eng_awq.shutdown()
+        if awq_stream != int4_stream:
+            raise AssertionError(f'AWQ stream {awq_stream} != {int4_stream}')
+        out['awq'] = dict(ttft_s=awq_ttft, tok_s_bs1=awq_tps)
+        log(f'  AWQ [{card}]: export {times["awq_write_s"]:.1f} s, '
+            f'convert_awq {times["awq_convert_s"]:.1f} s, load '
+            f'{times["load_awq_s"]:.1f} s; {n_tensors} tensors bit-equal to '
+            f'the --quantize workspace, config equal, a greedy bs1 stream '
+            f'of {n_new} identical (TTFT {awq_ttft:.3f} s, {awq_tps:.1f} '
+            f'tok/s)')
+
+        # 4. build_engine on the HF directory: bf16 dense weights
+        eng_hf = timed('load_hf_s', build_engine, hf,
+                       engine_config=EngineConfig(**ecfg), device=device)
+        engines.append(eng_hf)
+        if eng_hf.params['layers']['wqkv'].dtype != torch.bfloat16:
+            raise AssertionError('HF engine: weights not bf16')
+        hf_inst = eng_hf.create_instance()
+        t0 = time.monotonic()
+        lg = hf_inst.decode(long_prompt)
+        times['hf_decode_s'] = time.monotonic() - t0
+        hf_stream = stream(hf_inst, prompts[0], n_new)
+        eng_hf.shutdown()
+        cpu = build_engine(hf, engine_config=EngineConfig(**dict(
+            ecfg, max_batch_size=1, session_len=512)), device='cpu')
+        try:
+            ref = cpu.create_instance().decode(long_prompt)
+        finally:
+            cpu.shutdown()
+        lg, ref = torch.from_numpy(lg), torch.from_numpy(ref)
+        rel = float((lg - ref).abs().max() / ref.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(lg, ref,
+                                                          dim=-1).min())
+        if lg.shape != (len(long_prompt), cfg.vocab_size) or not (
+                rel <= 0.05 and cos >= 0.999):
+            raise AssertionError(f'HF engine prompt logits: shape '
+                                 f'{tuple(lg.shape)}, max err / max|logit| '
+                                 f'{rel:.3e} (tol 0.05), min cosine '
+                                 f'{cos:.6f} (tol 0.999)')
+        out['hf'] = dict(load_s=times['load_hf_s'],
+                         decode_s=times['hf_decode_s'], max_rel_err=rel,
+                         min_cosine=cos, ttft_s=hf_stream[1],
+                         tok_s_bs1=hf_stream[2])
+        log(f'  HF directory engine, bf16 weights [{card}]: load '
+            f'{times["load_hf_s"]:.1f} s; prompt logits of '
+            f'{len(long_prompt)} tokens in {times["hf_decode_s"]:.3f} s, '
+            f'max err / max|logit| {rel:.3e}, min cosine {cos:.6f} against '
+            f'the CPU; bs1 TTFT {hf_stream[1]:.3f} s, {hf_stream[2]:.1f} '
+            f'tok/s')
+
+        # 5. the server's core over AsyncEngine, without aiohttp
+        ae = timed('load_async_s', AsyncEngine, ws_q, device=device,
+                   engine_config=EngineConfig(**ecfg))
+        engines.append(ae)
+        latency = {}
+
+        async def call(method, path, body=None, session='s'):
+            t0 = time.monotonic()
+            status, payload = await core.ROUTES[method, path](
+                ae, body, '127.0.0.1', {'X-Session-Id': session})
+            if not isinstance(payload, (dict, str)):
+                payload = [c async for c in payload]
+            latency.setdefault(path, []).append(time.monotonic() - t0)
+            return status, payload
+
+        def frames(chunks):
+            return [json.loads(c[len('data: '):]) for c in chunks
+                    if c.startswith('data: {')]
+
+        async def drive():
+            chat = {'model': name, 'messages': 'hello there',
+                    'max_tokens': 16, 'top_k': 1, 'ignore_eos': True,
+                    'renew_session': True}
+            r = {'models': await call('GET', '/v1/models'),
+                 'chat': await call('POST', '/v1/chat/completions', chat),
+                 'stream': await call('POST', '/v1/chat/completions',
+                                      dict(chat, stream=True)),
+                 'logprobs': await call('POST', '/v1/chat/completions',
+                                        dict(chat, logprobs=True,
+                                             top_logprobs=5)),
+                 'echo': await call('POST', '/v1/completions', {
+                     'model': name, 'prompt': 'once upon a time',
+                     'max_tokens': 4, 'top_k': 1, 'ignore_eos': True,
+                     'echo': True, 'logprobs': 1}),
+                 'embeddings': await call('POST', '/v1/embeddings',
+                                          {'input': 'abc'}),
+                 'turn1': await call('POST', '/generate', {
+                     'prompt': 'first turn', 'instance_id': 4242,
+                     'request_output_len': 8, 'top_k': 1,
+                     'ignore_eos': True}),
+                 'turn2': await call('POST', '/generate', {
+                     'prompt': 'second turn', 'instance_id': 4242,
+                     'sequence_start': False, 'sequence_end': True,
+                     'request_output_len': 8, 'top_k': 1,
+                     'ignore_eos': True}),
+                 'metrics': await call('GET', '/metrics'),
+                 '404': await call('POST', '/v1/chat/completions',
+                                   dict(chat, model='nope')),
+                 '400': await call('POST', '/v1/chat/completions',
+                                   {'model': name, 'messages': 5})}
+            return r
+        r = asyncio.run(drive())
+        statuses = {k: v[0] for k, v in r.items()}
+        want_status = dict.fromkeys(r, 200)
+        want_status.update({'404': 404, '400': 400})
+        text = r['chat'][1]['choices'][0]['message']['content']
+        streamed = ''.join(f['choices'][0]['delta'].get('content') or ''
+                           for f in frames(r['stream'][1]))
+        content = r['logprobs'][1]['choices'][0]['logprobs']['content']
+        echo = r['echo'][1]['choices'][0]['logprobs']
+        n_echo = len(ae.tokenizer.encode('once upon a time')) + 4
+        gen_tokens = float(next(
+            ln.split()[1] for ln in r['metrics'][1].splitlines()
+            if ln.startswith('lmdeploy_generated_tokens_total ')))
+        checks = {
+            'statuses': statuses == want_status,
+            'model id': r['models'][1]['data'][0]['id'] == name,
+            'stream text == text': streamed == text and text != '',
+            'stream ends [DONE]': r['stream'][1][-1] == 'data: [DONE]\n\n',
+            'top-5 logprobs': len(content) == 16 and all(
+                len(e['top_logprobs']) == 5 and e['logprob'] <= 1e-5
+                for e in content),
+            'echo prompt logprobs': len(echo['tokens']) == n_echo
+            and echo['token_logprobs'][0] is None and all(
+                x <= 1e-5 for x in echo['token_logprobs'][1:]),
+            'embeddings': isinstance(
+                r['embeddings'][1]['data'][0]['embedding'], list),
+            'two turns': r['turn1'][1]['tokens'] == 8
+            and r['turn2'][1]['tokens'] == 8,
+            'metrics': gen_tokens > 0,
+            '404/400 codes': r['404'][1]['code'] == 404
+            and r['400'][1]['code'] == 400}
+        ae.shutdown()
+        if not all(checks.values()):
+            raise AssertionError(f'server core: {checks}; statuses '
+                                 f'{statuses}')
+        out['server_ms'] = {p: [round(x * 1e3, 1) for x in v]
+                            for p, v in latency.items()}
+        log(f'  OpenAI server core over AsyncEngine [{card}] (no aiohttp): '
+            f'load {times["load_async_s"]:.1f} s; every check passed '
+            f'({", ".join(checks)}); latency ms by route '
+            f'{out["server_ms"]}')
+
+        # 6. the CLI: chat in a subprocess, decode's perplexity
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, '-m', 'lmdeploy_tpu_torch.cli.main', 'chat',
+             ws_q, '--max-new-tokens', '16', '--top-k', '1', '--device',
+             device], input='hello\nhow are you\nexit\n', text=True,
+            capture_output=True, timeout=300, cwd=os.path.dirname(
+                os.path.abspath(__file__)))
+        times['cli_chat_s'] = time.monotonic() - t0
+        replies = res.stdout.split('double enter to end input >>> ')[1:]
+        if res.returncode != 0 or len(replies) != 3 or not all(
+                x.strip() for x in replies[:2]):
+            raise AssertionError(f'cli chat: rc {res.returncode}, replies '
+                                 f'{replies}\n{res.stderr[-2000:]}')
+        texts = ['the quick brown fox', 'lmdeploy on one card']
+        t0 = time.monotonic()
+        all_logits = cli_decode.main(ws_q, texts, device=device,
+                                     engine_config=EngineConfig(**ecfg))
+        times['cli_decode_s'] = time.monotonic() - t0
+        ids = [eng.tokenizer.encode(t) for t in texts]
+        ppl_cli = perplexity(all_logits, ids)
+        direct = np.zeros_like(all_logits)
+        for i, x in enumerate(ids):
+            direct[i, :len(x)] = inst.decode(x)
+        ppl = perplexity(direct, ids)
+        if not abs(ppl_cli - ppl) <= 1e-4 * ppl:
+            raise AssertionError(f'cli decode ppl {ppl_cli} against '
+                                 f'{ppl} in-process')
+        out['cli'] = dict(chat_s=times['cli_chat_s'],
+                          decode_s=times['cli_decode_s'], ppl=ppl)
+        log(f'  CLI [{card}]: chat subprocess (2 turns, exit) '
+            f'{times["cli_chat_s"]:.1f} s, rc 0; decode ppl {ppl_cli:.6f} '
+            f'against {ppl:.6f} in-process ({times["cli_decode_s"]:.1f} s)')
+
+        # 7. the router: a peer process on the same card
+        with socket.socket() as s:
+            s.bind(('127.0.0.1', 0))
+            port = s.getsockname()[1]
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, '-c', DOORS_ROUTER_WORKER, ws_q, device,
+             str(port), json.dumps(ecfg)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        seen = []
+        while True:
+            line = proc.stdout.readline()
+            seen.append(line)
+            if 'READY' in line:
+                break
+            if not line or proc.poll() is not None:
+                raise AssertionError('router worker failed:\n'
+                                     + ''.join(seen[-40:]))
+        times['peer_start_s'] = time.monotonic() - t0
+        router = RouterEngine(eng, [f'127.0.0.1:{port}'])
+        before = (eng.stats['requests'], router.remotes[0].metrics().get(
+            'requests', 0))
+        sessions = list(range(9001, 9005))
+        # submitted one after another (each counts as in flight at once),
+        # so least-loaded routing alternates local, peer, local, peer
+        t0 = time.monotonic()
+        queues = {s: router.submit(EngineRequest(
+            session_id=s, input_ids=prompts[0], gen_config=greedy(n_new)))
+            for s in sessions}
+        got = {}
+        for s, q in queues.items():
+            while True:
+                o = q.get(timeout=300)
+                if o.finished:
+                    break
+            if o.status != ResponseType.FINISH:
+                raise AssertionError(f'router session {s}: {o.status}')
+            got[s] = (list(o.token_ids),)
+        times['router_s'] = time.monotonic() - t0
+        where = {s: router._sticky.get(s) for s in sessions}
+        n_remote = sum(1 for w in where.values() if w == 1)
+        after = (eng.stats['requests'], router.remotes[0].metrics().get(
+            'requests', 0))
+        remote_s = next((s for s in sessions if where[s] == 1), None)
+        if remote_s is not None:
+            stream(router.create_instance(), [5, 6, 7], 8, session=remote_s,
+                   sequence_start=False, sequence_end=True)
+        final = router.remotes[0].metrics().get('requests', 0)
+        ok = (len(got) == 4
+              and all(v[0] == int4_stream for v in got.values())
+              and 0 < n_remote < 4
+              and after[0] - before[0] == 4 - n_remote
+              and after[1] - before[1] == n_remote
+              and final - after[1] == 1 and remote_s not in router._sticky)
+        router.remotes[0].close()
+        if not ok:
+            same = [v[0] == int4_stream for v in got.values()]
+            raise AssertionError(f'router: routed {where}, local / remote '
+                                 f'requests {before} -> {after} -> {final}, '
+                                 f'streams equal the local one: {same}')
+        out['router'] = dict(peer_start_s=times['peer_start_s'],
+                             seconds=times['router_s'], routed=where)
+        log(f'  router [{card}]: peer process ready in '
+            f'{times["peer_start_s"]:.1f} s; 4 sessions routed {where} '
+            f'(0 local, 1 the peer), every stream equal to the local '
+            f'engine\'s, in {times["router_s"]:.2f} s; a continued session '
+            f'stayed on the peer')
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=60)
+        for e in engines:
+            e.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out['times_s'] = times
+    ctx['doors'] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -1837,6 +2409,7 @@ def main(argv=None) -> int:
             launches_per_decode_step=k.get('launches_per_decode_step'),
             launches_per_prefill_pass=k.get('launches_per_prefill_pass'),
             spec_launches=k.get('spec_launches'),
+            doors_launches=k.get('doors_launches'),
             launches_per_verify_round=k.get('launches_per_verify_round'),
             max_abs_err=k.get('max_abs_err'), tolerance=k.get('tolerance'),
             ms=k.get('ms'), kernel_ms=k.get('ms'), plain_ms=k.get('plain_ms'),

@@ -1,8 +1,8 @@
-"""Top-level facade: build an engine from a converted workspace.
+"""Top-level facade: build an engine from a model path.
 
-Port of ``lmdeploy_tpu/api.py::build_engine`` for workspaces (an HF
-directory needs the converter, ROADMAP.md Queue 1 item 4): loads the
-workspace onto the device, applies the caller's overrides, resolves the
+Port of ``lmdeploy_tpu/api.py::build_engine``: loads a converted
+workspace, or an HF or meta-llama checkpoint directory (bf16 dense
+weights), onto the device, applies the caller's overrides, resolves the
 chat template and its stop words, and starts the engine.
 """
 from __future__ import annotations
@@ -11,8 +11,12 @@ import dataclasses
 import os.path as osp
 from typing import Optional
 
+import torch
+
 from .config import EngineConfig
-from .convert.workspace import is_workspace, load_workspace
+from .convert.hf import load_hf_dir
+from .convert.workspace import (is_workspace, load_workspace,
+                                params_from_numpy)
 from .engine.engine import TorchEngine, resolve_device
 from .model import MODELS, best_match_model
 from .tokenizer import DummyTokenizer, Tokenizer
@@ -38,20 +42,24 @@ def build_engine(model_path: str,
                  dp: int = 1, quant_policy: Optional[int] = None,
                  speculative_k: Optional[int] = None, device='cuda',
                  **engine_kw) -> TorchEngine:
-    """Load a workspace onto ``device`` (CUDA unless the caller asks for
-    the CPU) and start the engine.  ``engine_config`` defaults to the
-    workspace's, else one sized by the model's session_len.
+    """Load a workspace, or an HF / meta-llama directory as bf16 dense
+    weights, onto ``device`` (CUDA unless the caller asks for the CPU)
+    and start the engine.  ``engine_config`` defaults to the workspace's,
+    else one sized by the model's session_len.
     ``quant_policy`` (0 bf16, 4 int8, 8 int4 with calibrated scales) and
     ``speculative_k`` (0 turns speculation off) override the resolved
     config; ``tp`` / ``pp`` / ``dp`` above 1 raise the engine's
     NotImplementedError.  The template comes from ``model_name``, the
     config's ``model_name`` or the path; its stop words become the
     engine's defaults."""
-    if not is_workspace(model_path):
-        raise ValueError(f'{model_path} is not a converted workspace '
-                         '(config.json + weights.safetensors)')
     dev = resolve_device(device)
-    cfg, ws_ecfg, params, kv_scales = load_workspace(model_path, dev)
+    if is_workspace(model_path):
+        cfg, ws_ecfg, params, kv_scales = load_workspace(model_path, dev)
+    else:
+        # runtime weights in bf16: f32 would double device memory and the
+        # bytes each decode step reads
+        cfg, params = load_hf_dir(model_path, torch.bfloat16)
+        params, ws_ecfg, kv_scales = params_from_numpy(params, dev), None, None
     engine_config = engine_config or ws_ecfg \
         or EngineConfig(session_len=cfg.session_len)
     over = {name: max(getattr(engine_config, name), v)

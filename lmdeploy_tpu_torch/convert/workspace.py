@@ -1,7 +1,7 @@
 """Read and write a converted workspace; carry parameters across from
 numpy.
 
-A workspace (``lmdeploy_tpu/convert/converter.py``) is a directory with
+A workspace (``convert/converter.py`` writes one) is a directory with
 ``config.json`` and one flat ``weights.safetensors``: dense tensors in
 bf16, and each W4A16 projection as ``<name>.packed`` (column-pair
 ``pack_int4`` bytes, [L, K, N/2]), ``<name>.scales`` and ``<name>.zeros``
@@ -35,23 +35,28 @@ _NP_DTYPES = {'F32': np.float32, 'F16': np.float16, 'F64': np.float64,
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Every tensor of a .safetensors file as a CPU torch tensor."""
+    """Every tensor of a .safetensors file as a CPU torch tensor.  The
+    file is memory-mapped and each tensor copied out of the map once, so
+    a checkpoint costs one copy in host memory, not two."""
     with open(path, 'rb') as f:
         (n,) = struct.unpack('<Q', f.read(8))
         header = json.loads(f.read(n))
-        data = f.read()
+    tensors = {k: v for k, v in header.items() if k != '__metadata__'}
+    size = max((m['data_offsets'][1] for m in tensors.values()), default=0)
+    # np.memmap refuses an empty map
+    data = np.memmap(path, np.uint8, mode='r', offset=8 + n,
+                     shape=(size,)) if size else np.empty(0, np.uint8)
     out = {}
-    for name, meta in header.items():
-        if name == '__metadata__':
-            continue
+    for name, meta in tensors.items():
         begin, end = meta['data_offsets']
         dtype = meta['dtype']
-        arr = np.frombuffer(data[begin:end], _NP_DTYPES[dtype]).reshape(
+        arr = np.array(data[begin:end]).view(_NP_DTYPES[dtype]).reshape(
             meta['shape'])
-        t = torch.from_numpy(arr.copy())
+        t = torch.from_numpy(arr)
         if dtype == 'BF16':
             t = t.view(torch.int16).view(torch.bfloat16)
         out[name] = t
+    del data
     return out
 
 

@@ -313,7 +313,9 @@ def lm_head_logits(params: Dict[str, Any], h_out: torch.Tensor,
         # bf16 product, f32 output (the JAX preferred_element_type)
         logits = torch.mm(h2, lm_head, out_dtype=torch.float32)
     else:
-        logits = torch.mm(h2, lm_head).float()
+        # the CPU has no bf16 GEMM with an f32 output: the same bf16
+        # values multiplied in f32 (each product exact), f32 logits
+        logits = torch.mm(h2.float(), lm_head.float())
     return logits.reshape(*lead, -1)
 
 

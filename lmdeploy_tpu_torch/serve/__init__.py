@@ -1,2 +1,3 @@
-"""Serving layer of the port: :class:`AsyncEngine` (the OpenAI server,
-router and gradio UI are ROADMAP.md Queue 1 item 3, second half)."""
+"""Serving layer of the port: :class:`AsyncEngine`, the OpenAI server
+(``openai/``: a transport-free core and its aiohttp adapter), the
+multi-host router and the gradio UI."""

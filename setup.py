@@ -30,6 +30,7 @@ setup(
     entry_points={
         'console_scripts': [
             'lmdeploy-tpu = lmdeploy_tpu.cli.main:main',
+            'lmdeploy-tpu-torch = lmdeploy_tpu_torch.cli.main:main',
         ],
     },
 )

@@ -598,3 +598,36 @@ print('OK', len(mods))
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith('OK')
+
+
+def test_serving_modules_load_neither_aiohttp_nor_pydantic():
+    """The server's core, its protocol, the router, the gradio app and
+    the CLI import without aiohttp, pydantic or gradio (the card's machine
+    has none of them) and load none of them; only the transports'
+    functions (build_app, main, run_server) import aiohttp or gradio."""
+    code = '''
+import sys
+import importlib
+mods = ['lmdeploy_tpu_torch.serve.openai.api_server',
+        'lmdeploy_tpu_torch.serve.openai.protocol',
+        'lmdeploy_tpu_torch.serve.openai.api_client',
+        'lmdeploy_tpu_torch.serve.router',
+        'lmdeploy_tpu_torch.serve.gradio.app',
+        'lmdeploy_tpu_torch.cli.main', 'lmdeploy_tpu_torch.cli.chat',
+        'lmdeploy_tpu_torch.cli.decode',
+        'lmdeploy_tpu_torch.convert.converter']
+for m in mods:
+    importlib.import_module(m)
+loaded = sorted({n.split('.')[0] for n in sys.modules} &
+                {'aiohttp', 'pydantic', 'gradio', 'jax', 'lmdeploy_tpu'})
+print('LOADED', loaded)
+for name in ('aiohttp', 'pydantic', 'gradio'):
+    sys.modules[name] = None
+for m in mods:
+    importlib.reload(sys.modules[m])
+print('OK')
+'''
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert 'LOADED []' in res.stdout and 'OK' in res.stdout
