@@ -83,6 +83,25 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                a 404 and a 400), `cli.main chat` in a subprocess and
                cli/decode.py's perplexity, and a RouterEngine over the
                engine and a peer process on the same card.
+  7. quant   — a user quantises that checkpoint on the card and serves it:
+               `lite calibrate` (16 x 512 synthetic ids, bf16 through the
+               prefill-attention kernel: 32 launches; the first 2 samples'
+               stats against a CPU f32 calibration, each within 2% of its
+               max |value|), `lite auto_awq` from those stats, an engine on
+               the workspace with a dynamic int4 pool (quant_policy 8, no
+               scales; 4 concurrent requests and a bs1 one of 256, GEMM
+               launches only; prompt logits of 300 tokens against the CPU's
+               within 5% / cosine 0.999; one store's codes identical to the
+               plain version's, qparams within 2 f32 steps on <= 0.5%),
+               `lite kv_qparams --kv-bits 4 --per-head` (a per-head pool, the
+               same checks) and `--kv-bits 4` per layer (kernels 2 and 3 at
+               int4 launch as before); then the 32-layer model of phase 5 on
+               a dynamic and a static int4 pool (4 concurrent requests of 32
+               new, bs1 128, a bs1 request of 16 under a CUDA-only profile:
+               tok/s, TTFT, peak memory, device ms per forward pass, which at
+               bs1 is a token).  Phases 5 and 7 keep sessions in the native C++
+               store; phase 5's prefix-hit follower also runs on the Python
+               one (LMDEPLOY_TPU_NATIVE=0) and must prefill the same tokens.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -102,7 +121,7 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
-PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors')
+PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant')
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
@@ -1080,20 +1099,28 @@ def teacher_forced_logits(torch, params, cfg, prompt, tokens):
     return logits[0, len(prompt) - 1:, :cfg.vocab_size].float()
 
 
-def count_kernels(torch, fn):
-    """Kernels one call of ``fn`` launches (torch.profiler, CUDA)."""
+def device_kernels(torch, fn):
+    """The kernels one call of ``fn`` runs, by name: [(device ms, launches,
+    name)], most time first (torch.profiler, CUDA activity only, which
+    keeps the trace small enough to read back quickly)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = 0
+    rows = []
     for e in prof.key_averages():
         dev = getattr(e, 'self_device_time_total', None)
         if dev is None:
             dev = getattr(e, 'self_cuda_time_total', 0)
-        n += e.count if dev > 0 else 0
-    return n
+        if dev > 0:
+            rows.append((dev / 1e3, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
+def count_kernels(torch, fn):
+    """Kernels one call of ``fn`` launches."""
+    return sum(n for _, n, _ in device_kernels(torch, fn))
 
 
 def check_route(counts, solved, want, label, need=()):
@@ -1783,8 +1810,33 @@ def phase_engine(torch, ctx):
         eng, inst, hit = prefix_hit('bf16', 0, None, ref_bf16['tokens'])
         ctx['engine_prefix'] = {'bf16': hit}
         ctx['prompt_logits'] = prompt_logits(eng, inst)
+        native = eng.metrics()['native_cache_manager']
         eng.shutdown()
         del eng, inst
+        # the same leader and follower on the Python session store: the
+        # follower prefills exactly as many tokens as on the native one
+        os.environ['LMDEPLOY_TPU_NATIVE'] = '0'
+        try:
+            eng, inst, hit_py = prefix_hit('bf16', 0, None,
+                                           ref_bf16['tokens'])
+            python = eng.metrics()['native_cache_manager']
+            eng.shutdown()
+            del eng, inst
+        finally:
+            del os.environ['LMDEPLOY_TPU_NATIVE']
+        if (native, python) != (1, 0) or any(
+                hit_py[k] != hit[k] for k in ('hit_tokens',
+                                              'prefill_passes')):
+            raise AssertionError(
+                f'prefix hit by store: native {native} {hit["hit_tokens"]} '
+                f'{hit["prefill_passes"]}, python {python} '
+                f'{hit_py["hit_tokens"]} {hit_py["prefill_passes"]}')
+        ctx['engine_prefix']['bf16_python_store'] = hit_py
+        log(f'  session stores: the follower hit {hit["hit_tokens"][1]} '
+            f'tokens and prefilled {hit["prefill_passes"][1]} on the native '
+            f'store (the default) and on the Python one '
+            f'(LMDEPLOY_TPU_NATIVE=0); TTFT {hit["ttft_follower_s"]:.3f} / '
+            f'{hit_py["ttft_follower_s"]:.3f} s')
         eng, inst = engine(4, scales[8])
         ctx['engine_int8'] = main_traffic(eng, inst, 'int8')
         if ctx.get('profile'):
@@ -1948,6 +2000,22 @@ def same_workspace(torch, a, b):
     return cfgs[0] == cfgs[1], differ, len(fa)
 
 
+def hf_checkpoint(torch, ctx, cfg) -> dict:
+    """The HF checkpoint of phases doors and quant (``cfg``'s widths, seed
+    7), written once into a temporary directory that :func:`main` removes
+    at the end: {'path', 'bytes', 'write_s'}."""
+    if 'hf' not in ctx:
+        import tempfile
+        root = tempfile.mkdtemp(prefix='lmdeploy-smoke-')
+        ctx.setdefault('tmpdirs', []).append(root)
+        path = os.path.join(root, 'llama2-hf')
+        t0 = time.monotonic()
+        size = write_hf_checkpoint(torch, path, cfg, 7)
+        ctx['hf'] = dict(path=path, bytes=size,
+                         write_s=time.monotonic() - t0)
+    return ctx['hf']
+
+
 def phase_doors(torch, ctx):
     """The way in and out of the port at Llama-2-7B width, 2 layers (see
     :func:`doors`)."""
@@ -2032,12 +2100,15 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
                  'prefill_passes': eng.stats['prefill_passes']})
 
     tmp = tempfile.mkdtemp(prefix='lmdeploy-doors-')
-    hf, ws_q, awq, ws_awq = (os.path.join(tmp, n) for n in (
-        'llama2-hf', 'ws-int4', 'llama2-awq', 'ws-awq'))
+    ws_q, awq, ws_awq = (os.path.join(tmp, n) for n in (
+        'ws-int4', 'llama2-awq', 'ws-awq'))
     engines, proc = [], None
     try:
-        # 1. an HF checkpoint, 2. convert_hf --quantize
-        size = timed('hf_write_s', write_hf_checkpoint, torch, hf, cfg, 7)
+        # 1. an HF checkpoint (shared with phase quant), 2. convert_hf
+        # --quantize
+        hf_info = hf_checkpoint(torch, ctx, cfg)
+        hf, size = hf_info['path'], hf_info['bytes']
+        times['hf_write_s'] = hf_info['write_s']
         timed('convert_s', convert_hf, hf, ws_q, name, quantize=True,
               group_size=cfg.group_size or 128)
         eng = timed('load_int4_s', build_engine, ws_q,
@@ -2372,6 +2443,444 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
     ctx['doors'] = out
 
 
+def cast_tree(torch, tree, dtype, device):
+    """A dense parameter tree with every floating tensor as ``dtype`` on
+    ``device``."""
+    return {k: cast_tree(torch, v, dtype, device) if isinstance(v, dict)
+            else v.to(device=device, dtype=dtype) if v.is_floating_point()
+            else v.to(device) for k, v in tree.items()}
+
+
+def kv_scales_from_dynamic(torch, cache):
+    """Per-layer static int4 qparams covering what a dynamic pool holds:
+    each layer's written rows' (min, min + 15 * scale) envelope through
+    the port's kv_qparams formula (asymmetric).  A row counts as written
+    where its scale is not the pool's initial 1.0."""
+    from lmdeploy_tpu_torch.lite.apis.kv_qparams import qparams_from_stats
+    keys, values = {}, {}
+    for layer in range(cache.dyn.shape[0]):
+        d = cache.dyn[layer].float()
+        for j, out in ((0, keys), (2, values)):
+            scale, mn = d[..., j, :], d[..., j + 1, :]
+            written = scale != 1.0
+            lo = float(mn[written].min())
+            hi = float((mn + 15 * scale)[written].max())
+            out[layer] = dict(min=np.float32(lo), max=np.float32(hi),
+                              absmax=np.float32(max(-lo, hi)))
+    return qparams_from_stats(keys, values, 4)
+
+
+def logits_gate(torch, got, want, label):
+    """Prompt logits within 5% of max|logit| and cosine >= 0.999 of the
+    reference (phase 4's gates); returns (rel, cos)."""
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(got, want,
+                                                      dim=-1).min())
+    if got.shape != want.shape or not (rel <= 0.05 and cos >= 0.999):
+        raise AssertionError(f'{label}: shape {tuple(got.shape)} vs '
+                             f'{tuple(want.shape)}, max err / max|logit| '
+                             f'{rel:.3e} (tol 0.05), min cosine {cos:.6f} '
+                             '(tol 0.999)')
+    return rel, cos
+
+
+def phase_quant(torch, ctx):
+    """The quantisation toolkit and the int4 pools it feeds, at Llama-2-7B
+    width (see :func:`quant`)."""
+    quant(torch, ctx, llama2_7b(num_layer=2), 'cuda', deep_cfg=llama2_7b())
+
+
+def quant(torch, ctx, cfg, device, deep_cfg=None, samples=16, seqlen=512,
+          lens=(16, 100, 300, 500), n_new=64, bs1_new=256, deep_new=128,
+          deep_conc_new=32, prompt_len=300, prof_new=16):
+    """A user quantises the doors phase's HF checkpoint on ``device``
+    through ``cli.main lite`` and serves it: ``lite calibrate``
+    (``samples`` x ``seqlen`` synthetic ids; the first 2 samples' stats
+    against a CPU f32 calibration, each stat within 2% of its max
+    |value|), ``lite auto_awq`` from those stats and
+    an engine on the workspace with a dynamic int4 pool (quant_policy 8,
+    no scales: 4 concurrent requests and a bs1 one, prompt logits against
+    the CPU's dynamic-int4 forward, and one store's bytes against the
+    plain version's), ``lite kv_qparams --kv-bits 4 --per-head`` (a bs1
+    request, logits against the CPU) and ``--kv-bits 4`` per layer
+    (kernels 2 and 3 launch as before).  With ``deep_cfg`` (32 layers,
+    random W4A16 weights) a dynamic and a static int4 pool serve the same
+    traffic on the same engine configuration: tok/s, TTFT, peak memory
+    and, on the card, device ms per token."""
+    import shutil
+    import tempfile
+
+    from lmdeploy_tpu_torch import build_engine
+    from lmdeploy_tpu_torch.config import EngineConfig
+    from lmdeploy_tpu_torch.engine.engine import TorchEngine
+    from lmdeploy_tpu_torch.kvcache import paged
+    from lmdeploy_tpu_torch.cli.main import main as cli_main
+    from lmdeploy_tpu_torch.lite.quantization.calibration import (
+        CalibrationContext, load_model)
+    from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
+    from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
+    on_card = device == 'cuda'
+    card = ctx.get('card', '?')
+    nl = cfg.num_layer
+    hf = hf_checkpoint(torch, ctx, cfg)['path']
+    ecfg = dict(max_batch_size=8, session_len=2048, page_size=64,
+                num_pages=88, max_context_token_num=512,
+                prefill_buckets=(64, 512), step_length=16,
+                enable_prefix_caching=False, quant_policy=8)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in lens]
+    long_prompt = rng.integers(3, cfg.vocab_size, size=prompt_len).tolist()
+    sid = iter(range(1, 10 ** 6))
+    out, times, engines = {}, {}, []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(key, fn, *a, **kw):
+        t0 = time.monotonic()
+        res = fn(*a, **kw)
+        sync()
+        times[key] = time.monotonic() - t0
+        return res
+
+    def stream(inst, prompt, n):
+        """One greedy request of n tokens: (tokens, TTFT s, tok/s after
+        the first token, (first, end) monotonic times)."""
+        t0, first = time.monotonic(), None
+        for last in inst.stream_infer(next(sid), prompt, GenerationConfig(
+                max_new_tokens=n, top_k=1, ignore_eos=True),
+                sequence_end=True):
+            if last.num_generated and first is None:
+                first = time.monotonic()
+        if last.status != ResponseType.FINISH or last.num_generated != n:
+            raise AssertionError(f'quant: request of {len(prompt)} tokens: '
+                                 f'{last.num_generated} tokens, '
+                                 f'{last.status}')
+        t1 = time.monotonic()
+        return (list(last.token_ids), (first or t1) - t0,
+                (n - 1) / max(t1 - (first or t1), 1e-9), (first or t1, t1))
+
+    def mark(eng):
+        return ({n: c[0] for n, c in K.launch_counts(True).items()},
+                {'decode_steps': eng.stats['decode_steps'], 'spec_rounds': 0,
+                 'prefill_passes': eng.stats['prefill_passes']})
+
+    def serve(eng, label, want, bs1=bs1_new, new=n_new):
+        """4 concurrent requests, then a bs1 one; ``want`` is the route's
+        launches ({kind: {kernel: per pass}}) on the card."""
+        inst = eng.create_instance()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        marks, results = [mark(eng)], [None] * len(prompts)
+
+        def worker(i):
+            results[i] = stream(inst, prompts[i], new)
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if any(r is None for r in results):
+            raise AssertionError(f'{label}: concurrent requests failed')
+        marks.append(mark(eng))
+        tokens, ttft, tps, _ = stream(inst, prompts[0][:16], bs1)
+        marks.append(mark(eng))
+        counts = K.launch_counts(True)
+        conc = len(prompts) * (new - 1) / (
+            max(r[3][1] for r in results) - min(r[3][0] for r in results))
+        res = dict(ttft_s=[r[1] for r in results], tok_s_4_concurrent=conc,
+                   ttft_bs1_s=ttft, tok_s_bs1=tps)
+        if on_card:
+            check_route(counts, launches_per_kind(marks, skip=(WGMMA,)),
+                        want, label, need=('decode_steps', 'prefill_passes'))
+            res['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+            res['launches'] = {n: c[0] for n, c in counts.items() if c[0]}
+        log(f'  {label} [{card}]: 4 concurrent (prompts {list(lens)}, {new} '
+            f'new): TTFT {[round(x, 3) for x in res["ttft_s"]]} s, '
+            f'{conc:.1f} tok/s; bs1 ({bs1} new): TTFT {ttft:.3f} s, '
+            f'{tps:.1f} tok/s; peak memory '
+            f'{res.get("peak_mem_gib", float("nan")):.2f} GiB; launches '
+            f'{res.get("launches")}')
+        return inst, res
+
+    def cpu_logits(extra=None):
+        eng = build_engine(ws, engine_config=EngineConfig(**dict(
+            ecfg, max_batch_size=1, session_len=512, **(extra or {}))),
+            device='cpu')
+        try:
+            return eng.create_instance().decode(long_prompt)
+        finally:
+            eng.shutdown()
+
+    def lite(key, *argv):
+        """``cli.main lite <argv>``, timed as times[key]; raises unless it
+        returns 0."""
+        rc = timed(key, cli_main, ['lite'] + [str(a) for a in argv])
+        if rc != 0:
+            raise AssertionError(f'lite {argv}: rc {rc}')
+
+    laps = [time.monotonic()]
+
+    def lap(key):
+        """Seconds since the previous lap, as times[key]."""
+        laps.append(time.monotonic())
+        times[key] = laps[-1] - laps[-2]
+
+    gemm = {'w4a16_gemm': 5 * nl}
+    tmp = tempfile.mkdtemp(prefix='lmdeploy-quant-')
+    work, ws = os.path.join(tmp, 'work'), os.path.join(tmp, 'ws')
+    try:
+        # 1. lite calibrate on the device: kernel 3 in every layer of
+        # every sample's pass (dense bf16 projections on torch.matmul)
+        K.reset_launch_counts()
+        lite('calibrate_s', 'calibrate', hf, '--calib-samples', samples,
+             '--calib-seqlen', seqlen, '--work-dir', work, '--device',
+             device)
+        counts = K.launch_counts(True)
+        if on_card:
+            pre = 'paged_prefill_attention[bf16]'
+            got = {n: c for n, c in counts.items() if c != (0, 0)}
+            if got != {pre: (samples * nl, 0)}:
+                raise AssertionError(f'calibrate: launches {got}, want '
+                                     f'{samples * nl} of {pre} only')
+            ctx['kernels'].setdefault(pre, {})['quant_launches'] = \
+                samples * nl
+        # the first 2 samples' stats on the device against the CPU's f32
+        gen = torch.Generator().manual_seed(0)
+        first2 = [torch.randint(0, cfg.vocab_size, (1, seqlen),
+                                generator=gen) for _ in range(2)]
+        t0 = time.monotonic()
+        cpu_cfg, cpu_params = load_model(hf, 'cpu')
+        stats = {}
+        for side, params in (('cpu', cpu_params),
+                             ('device', cast_tree(torch, cpu_params,
+                                                  torch.bfloat16, device))):
+            c = CalibrationContext(cpu_cfg, params, 'llama')
+            for ids in first2:
+                c.step(ids)
+            stats[side] = c.export()
+            del c, params
+        del cpu_params
+        times['compare_s'] = time.monotonic() - t0
+        gaps = {k: float(np.abs(stats['device'][k] - want).max()
+                         / max(float(np.abs(want).max()), 1e-30))
+                for k, want in stats['cpu'].items()}
+        worst = max(gaps, key=gaps.get)
+        if sorted(stats['device']) != sorted(stats['cpu']) or \
+                gaps[worst] > 0.02:
+            raise AssertionError(f'calibration stats, device vs CPU: '
+                                 f'largest gap {gaps[worst]:.3e} of max|stat|'
+                                 f' at {worst} (tol 0.02)')
+        out['calibration'] = dict(largest_gap=gaps[worst], at=worst,
+                                  stats=len(gaps))
+        log(f'  lite calibrate [{card}]: {samples} x {seqlen} synthetic ids '
+            f'in {times["calibrate_s"]:.1f} s ({samples * nl} prefill '
+            f'attention launches); first 2 samples, bf16 on the device vs f32 '
+            f'on the CPU: largest stat gap {gaps[worst]:.3e} of that stat\'s '
+            f'max |value| ({worst}; {len(gaps)} stats; tol 0.02), '
+            f'{times["compare_s"]:.1f} s')
+
+        lap('step1_s')
+        # 2. lite auto_awq from the device's stats; a dynamic int4 pool
+        lite('auto_awq_s', 'auto_awq', hf, '--work-dir', work, '--dst', ws,
+             '--w-group-size', cfg.group_size or 128, '--device', device)
+        eng = timed('load_dynamic_s', build_engine, ws,
+                    engine_config=EngineConfig(**ecfg), device=device)
+        engines.append(eng)
+        if not eng.cache.dynamic_scales:
+            raise AssertionError('quant_policy 8 without scales: not a '
+                                 'dynamic pool')
+        inst, out['dynamic'] = serve(eng, 'AWQ workspace, dynamic int4 pool',
+                                     {'decode_steps': gemm,
+                                      'prefill_passes': gemm})
+        if on_card:
+            ctx['kernels'].setdefault('w4a16_gemm', {})['quant_launches'] = \
+                out['dynamic']['launches']['w4a16_gemm']
+        t0 = time.monotonic()
+        lg = inst.decode(long_prompt)
+        times['dynamic_decode_s'] = time.monotonic() - t0
+        eng.shutdown()
+        out['dynamic']['logits'] = logits_gate(
+            torch, lg, timed('cpu_logits_dynamic_s', cpu_logits),
+            'dynamic pool prompt logits')
+        # one store of the same K/V rows on the device and on the CPU
+        g = torch.Generator().manual_seed(4)
+        kh, dh = cfg.kv_head_num, cfg.size_per_head
+        rows = [(torch.randn((8, 64, kh, dh), generator=g) * 2).to(
+            torch.bfloat16) for _ in range(2)]
+        pos = torch.arange(64, dtype=torch.int32).expand(8, 64)
+        pt = torch.arange(16, dtype=torch.int32).reshape(8, 2)
+        pools = {}
+        for dev in ('cpu', device):
+            c = paged.init_cache(nl, 16, 64, kh, dh, torch.uint8, dev,
+                                 dynamic_scales=True)
+            paged.write_kv_dynamic(c.k, c.v, c.dyn, nl - 1,
+                                   rows[0].to(dev), rows[1].to(dev),
+                                   pos.to(dev), pt.to(dev),
+                                   torch.ones((8, 64), dtype=torch.bool,
+                                              device=dev))
+            pools[dev] = [x.cpu() for x in (c.k, c.v, c.dyn)]
+        a, b = pools['cpu'], pools[device]
+        steps = (a[2].view(torch.int32) - b[2].view(torch.int32)).abs()
+        share = float((steps != 0).float().mean())
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])) or \
+                int(steps.max()) > 2 or share > 5e-3:
+            raise AssertionError(f'dynamic store, device vs plain: codes '
+                                 f'equal {torch.equal(a[0], b[0])}/'
+                                 f'{torch.equal(a[1], b[1])}, qparams '
+                                 f'{int(steps.max())} steps on {share:.2e}')
+        out['dynamic']['store'] = dict(max_steps=int(steps.max()),
+                                       share=share)
+        log(f'  dynamic pool [{card}]: prompt logits ({prompt_len}) vs the '
+            f'CPU: max err / max|logit| {out["dynamic"]["logits"][0]:.3e}, '
+            f'min cosine {out["dynamic"]["logits"][1]:.6f}; one store of '
+            f'[8, 64, {kh}, {dh}] K/V rows: codes identical, qparams '
+            f'{int(steps.max())} f32 steps apart on {share:.2e} of values; '
+            f'auto_awq {times["auto_awq_s"]:.1f} s, load '
+            f'{times["load_dynamic_s"]:.1f} s')
+
+        lap('step2_s')
+        # 3. lite kv_qparams --kv-bits 4 --per-head, then per layer
+        lite('kv_qparams_per_head_s', 'kv_qparams', work, ws, '--kv-bits', 4,
+             '--per-head')
+        eng = build_engine(ws, engine_config=EngineConfig(**ecfg),
+                           device=device)
+        engines.append(eng)
+        if not eng.cache.per_head:
+            raise AssertionError('kv_qparams --per-head: not a per-head pool')
+        inst = eng.create_instance()
+        K.reset_launch_counts()
+        marks = [mark(eng)]
+        for n in (32, 8):
+            stream(inst, prompts[1], n)
+            marks.append(mark(eng))
+        if on_card:
+            check_route(K.launch_counts(True), launches_per_kind(
+                marks, skip=(WGMMA,)), {'decode_steps': gemm,
+                                        'prefill_passes': gemm},
+                'per-head int4 pool', need=('decode_steps',
+                                            'prefill_passes'))
+        lg = inst.decode(long_prompt)
+        eng.shutdown()
+        out['per_head'] = dict(logits=logits_gate(
+            torch, lg, timed('cpu_logits_per_head_s', cpu_logits),
+            'per-head pool prompt logits'))
+        lite('kv_qparams_s', 'kv_qparams', work, ws, '--kv-bits', 4)
+        eng = build_engine(ws, engine_config=EngineConfig(**ecfg),
+                           device=device)
+        engines.append(eng)
+        if eng.cache.per_head or eng.cache.dynamic_scales:
+            raise AssertionError('kv_qparams --kv-bits 4: not a per-layer '
+                                 'pool')
+        inst = eng.create_instance()
+        K.reset_launch_counts()
+        marks = [mark(eng)]
+        for n in (32, 8):
+            stream(inst, prompts[1], n)
+            marks.append(mark(eng))
+        counts = K.launch_counts(True)
+        if on_card:
+            dec, pre = ('paged_decode_attention_write[int4]',
+                        'paged_prefill_attention[int4]')
+            check_route(counts, launches_per_kind(marks, skip=(WGMMA,)),
+                        {'decode_steps': {**gemm, dec: nl},
+                         'prefill_passes': {**gemm, pre: nl}},
+                        'per-layer int4 pool from kv_qparams',
+                        need=('decode_steps', 'prefill_passes'))
+            for n in (dec, pre):
+                ctx['kernels'].setdefault(n, {})['quant_launches'] = \
+                    counts[n][0]
+        eng.shutdown()
+        log(f'  per-head pool [{card}]: prompt logits vs the CPU: max err / '
+            f'max|logit| {out["per_head"]["logits"][0]:.3e}, min cosine '
+            f'{out["per_head"]["logits"][1]:.6f}; kv_qparams '
+            f'{times["kv_qparams_per_head_s"]:.2f} s (per head), '
+            f'{times["kv_qparams_s"]:.2f} s (per layer, kernels 2 and 3 '
+            'launch)')
+
+        lap('step3_s')
+        # 4. full depth: dynamic against static int4 on one engine config
+        if deep_cfg is not None:
+            dn = deep_cfg.num_layer
+            params = random_packed_params(deep_cfg, 5, device)
+            deep_ecfg = EngineConfig(**dict(ecfg, speculative_k=0))
+            scales, deep = None, {}
+            for label in ('dynamic', 'static'):
+                if on_card:
+                    torch.cuda.empty_cache()
+                eng = TorchEngine(deep_cfg, deep_ecfg, params,
+                                  device=device,
+                                  kv_scales=scales)
+                engines.append(eng)
+                want = {'w4a16_gemm': 5 * dn}
+                want_step, want_pass = dict(want), dict(want)
+                if label == 'static':
+                    want_step['paged_decode_attention_write[int4]'] = dn
+                    want_pass['paged_prefill_attention[int4]'] = dn
+                _, deep[label] = serve(
+                    eng, f'{dn} layers, {label} int4 pool',
+                    {'decode_steps': want_step,
+                     'prefill_passes': want_pass},
+                    bs1=deep_new, new=deep_conc_new)
+                lap(f'deep_{label}_serve_s')
+                if label == 'dynamic':
+                    scales = kv_scales_from_dynamic(torch, eng.cache)
+                if on_card:
+                    # device time of a bs1 request of prof_new tokens, per
+                    # forward pass (a decode round runs step_length steps
+                    # whatever the request needs; at bs1 a step is a token)
+                    inst = eng.create_instance()
+                    t0, before = time.monotonic(), mark(eng)[1]
+                    rows = device_kernels(torch, lambda: stream(
+                        inst, prompts[0], prof_new))
+                    wall, after = time.monotonic() - t0, mark(eng)[1]
+                    passes = sum(after[k] - before[k] for k in after)
+                    dev_ms = sum(r[0] for r in rows)
+                    deep[label].update(
+                        device_ms_per_token=dev_ms / passes,
+                        launches_per_pass=sum(r[1] for r in rows) / passes,
+                        top_kernels=[(n[:60], ms, c)
+                                     for ms, c, n in rows[:6]])
+                    log(f'    device time, bs1 {prof_new} new '
+                        f'({label}): {dev_ms:.1f} ms over {passes} forward '
+                        f'passes, {wall:.1f} s wall with the profiler; '
+                        + '; '.join(
+                            f'{n[:50]} {ms:.1f} ms / {c}x'
+                            for ms, c, n in rows[:5]))
+                    lap(f'deep_{label}_profile_s')
+                eng.shutdown()
+            del params
+            out['deep'] = deep
+            log(f'  {dn} layers [{card}]: dynamic vs static int4 pool: bs1 '
+                f'{deep["dynamic"]["tok_s_bs1"]:.1f} vs '
+                f'{deep["static"]["tok_s_bs1"]:.1f} tok/s, 4 concurrent '
+                f'{deep["dynamic"]["tok_s_4_concurrent"]:.1f} vs '
+                f'{deep["static"]["tok_s_4_concurrent"]:.1f} tok/s, TTFT bs1 '
+                f'{deep["dynamic"]["ttft_bs1_s"]:.3f} vs '
+                f'{deep["static"]["ttft_bs1_s"]:.3f} s, device ms / token '
+                f'{deep["dynamic"].get("device_ms_per_token", float("nan")):.2f}'
+                f' vs '
+                f'{deep["static"].get("device_ms_per_token", float("nan")):.2f}'
+                f', peak memory '
+                f'{deep["dynamic"].get("peak_mem_gib", float("nan")):.2f} vs '
+                f'{deep["static"].get("peak_mem_gib", float("nan")):.2f} GiB')
+    finally:
+        for e in engines:
+            e.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out['times_s'] = times
+    ctx['quant'] = out
+    log(f'  quant times (s) [{card}]: '
+        + ', '.join(f'{k} {v:.1f}' for k, v in times.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -2393,13 +2902,18 @@ def main(argv=None) -> int:
         raise SystemExit(f'unknown phases {sorted(unknown)}')
     ctx = {'kernels': {}, 'profile': args.profile}
     t_all = time.monotonic()
-    for name in PHASES:
-        if name not in phases:
-            continue
-        log(f'== phase {name}')
-        t0 = time.monotonic()
-        globals()[f'phase_{name}'](torch, ctx)
-        log(f'== phase {name} ok ({time.monotonic() - t0:.1f} s)')
+    try:
+        for name in PHASES:
+            if name not in phases:
+                continue
+            log(f'== phase {name}')
+            t0 = time.monotonic()
+            globals()[f'phase_{name}'](torch, ctx)
+            log(f'== phase {name} ok ({time.monotonic() - t0:.1f} s)')
+    finally:
+        import shutil
+        for root in ctx.get('tmpdirs', []):
+            shutil.rmtree(root, ignore_errors=True)
     kernels = []
     for name, k in ctx['kernels'].items():
         base = name.split('[')[0]
@@ -2410,6 +2924,7 @@ def main(argv=None) -> int:
             launches_per_prefill_pass=k.get('launches_per_prefill_pass'),
             spec_launches=k.get('spec_launches'),
             doors_launches=k.get('doors_launches'),
+            quant_launches=k.get('quant_launches'),
             launches_per_verify_round=k.get('launches_per_verify_round'),
             max_abs_err=k.get('max_abs_err'), tolerance=k.get('tolerance'),
             ms=k.get('ms'), kernel_ms=k.get('ms'), plain_ms=k.get('plain_ms'),

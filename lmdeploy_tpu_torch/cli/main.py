@@ -5,10 +5,12 @@ Commands mirror the reference's python -m entrypoints:
   convert   checkpoint -> workspace         (lmdeploy.serve.turbomind.deploy)
   serve     OpenAI-compatible API server    (lmdeploy.serve.openai.api_server)
   decode    prompt logits / perplexity      (lmdeploy.turbomind.decode)
+  lite      quantisation toolkit: calibrate, auto_awq, kv_qparams
+                                            (lmdeploy.lite.apis)
 
-``chat``, ``serve`` and ``decode`` take ``--device cpu`` to run on the CPU
-(the default is CUDA).  ``lite`` and ``chat-baseline`` belong to the JAX
-package and are not ported yet.
+``chat``, ``serve``, ``decode``, ``lite calibrate`` and ``lite auto_awq``
+take ``--device cpu`` to run on the CPU (the default is CUDA).
+``chat-baseline`` belongs to the JAX package and is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,8 +19,6 @@ import sys
 # commands of the JAX package's CLI that the port does not have yet, and
 # where ROADMAP.md queues them
 NOT_PORTED = {
-    'lite': 'ROADMAP.md Queue 1 item "The remaining benchmarks and tools" '
-            '(the rest of lite/)',
     'chat-baseline': 'ROADMAP.md Queue 1 item "The remaining benchmarks '
                      'and tools" (pytorch/, the HF eager backend)',
 }
@@ -44,6 +44,9 @@ def main(argv=None):
         pos, kw = _args(rest)
         decode_main(pos[0], pos[1:], **kw)
         return 0
+    if cmd == 'lite':
+        from ..lite.cli import main as lite_main
+        return lite_main(rest)
     if cmd in NOT_PORTED:
         print(f'{cmd}: not ported to lmdeploy_tpu_torch yet; '
               f'{NOT_PORTED[cmd]} brings it')

@@ -13,7 +13,15 @@ at the exact sub-step and interactive sessions follow the JAX engine.
 The KV pool is bf16 (``quant_policy`` 0), int8 (``quant_policy`` 4, with
 the workspace's calibrated per-layer ``kv_scales``, or scale 1 and zero
 point 0 without them, as the JAX engine does) or nibble-packed int4
-(``quant_policy`` 8 with calibrated per-layer ``kv_scales``).
+(``quant_policy`` 8): with calibrated per-layer or per-head ``[L, KH]``
+``kv_scales``, or without them dynamic per-token-head-group qparams
+written beside each token (the JAX engine's default int4 KV).
+
+The host session store is the native C++ cache manager
+(``kvcache/native.py``, built with g++ at first use), as in the JAX
+engine; ``LMDEPLOY_TPU_NATIVE=0`` chooses the Python one
+(``kvcache/manager.py``).  Unlike the JAX engine, a failed build raises
+with the compiler's message instead of switching to Python.
 
 Also as in the JAX engine: cross-session prefix caching (on by default:
 a fresh sequence attaches the published pages of its page-aligned prompt
@@ -25,9 +33,8 @@ default stop words, :meth:`TorchEngine.metrics` / ``overloaded`` and
 failed rebuild of the device state after a device error is retried at
 the top of every loop turn instead of ending the engine thread.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): tp / pp / dp > 1, and dynamic per-token int4 KV (``quant_policy``
-8 without ``kv_scales``) and per-head int4 qparams.  The JAX engine's
+Not ported yet (raises NotImplementedError naming its ROADMAP.md
+item): tp / pp / dp > 1.  The JAX engine's
 fallback that turns speculation off after a failed speculative dispatch
 (a TPU runtime workaround) is not ported: such a failure takes the error
 path of any failed round.
@@ -35,6 +42,7 @@ path of any failed round.
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -46,7 +54,9 @@ import torch
 from ..config import EngineConfig, ModelConfig
 from ..kvcache.manager import (GroupedSequenceManager, NoFreePages,
                                PageAllocator, SequenceManager)
-from ..kvcache.paged import KV_WIDTHS, init_cache, kv_bits_named
+from ..kvcache.native import NativeSequenceManager
+from ..kvcache.paged import (KV_WIDTHS, init_cache, kv_bits_named,
+                             kv_dyn_groups)
 from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
                         ResponseType)
 from ..ops import prng
@@ -131,12 +141,11 @@ class TorchEngine:
                 '(ROADMAP.md Queue 1 item 7)')
         kv_bits = kv_bits_named(engine_cfg.kv_dtype)
         kv_scales = kv_scales if kv_bits else None
-        if kv_bits == 4 and kv_scales is None:
-            raise NotImplementedError(
-                'quant_policy 8 without kv_scales: dynamic per-token int4 '
-                'KV is not ported yet (ROADMAP.md Queue 1 item 5)')
         self._kv_width = KV_WIDTHS[kv_bits]
         self._kv_scales = kv_scales
+        # an int4 pool without calibrated qparams: dynamic per-token-head
+        # qparams (the JAX engine's default int4 KV)
+        self._dyn_kv = kv_bits == 4 and kv_scales is None
         if engine_cfg.enable_prefix_caching and (
                 model_cfg.use_dynamic_ntk
                 or model_cfg.rope_scaling_type == 'dynamic'):
@@ -162,10 +171,18 @@ class TorchEngine:
                              f'of {self.max_pages_per_seq} pages')
         self.num_pages = num_pages
         self.cache, self.state = self._alloc_device_state()
-        self.seqs = GroupedSequenceManager([SequenceManager(
-            PageAllocator(num_pages), page,
-            engine_cfg.cache_max_entry_count,
-            enable_prefix_cache=engine_cfg.enable_prefix_caching)])
+        self.native_cache_manager = \
+            os.environ.get('LMDEPLOY_TPU_NATIVE', '1') != '0'
+        if self.native_cache_manager:
+            store = NativeSequenceManager(
+                num_pages, page, engine_cfg.cache_max_entry_count,
+                enable_prefix_cache=engine_cfg.enable_prefix_caching)
+        else:
+            store = SequenceManager(
+                PageAllocator(num_pages), page,
+                engine_cfg.cache_max_entry_count,
+                enable_prefix_cache=engine_cfg.enable_prefix_caching)
+        self.seqs = GroupedSequenceManager([store])
         self._scratch_id = -(1 << 40)  # prompt-logits scratch session ids
 
         self.slots: List[Optional[_Slot]] = \
@@ -210,7 +227,8 @@ class TorchEngine:
         cache = init_cache(self.cfg.num_layer, self.num_pages,
                            self.ecfg.page_size, self.cfg.kv_head_num,
                            self.cfg.size_per_head, self._kv_width.dtype,
-                           device=self.device, kv_scales=self._kv_scales)
+                           device=self.device, kv_scales=self._kv_scales,
+                           dynamic_scales=self._dyn_kv)
         state = S.init_decode_state(self.ecfg.max_batch_size,
                                     self.max_pages_per_seq, self.session_len,
                                     eos_id=self.cfg.end_id,
@@ -239,6 +257,10 @@ class TorchEngine:
         bytes_per_tok = int(self.cfg.num_layer * 2 * self.cfg.kv_head_num
                             * self.cfg.size_per_head
                             * self._kv_width.elem_bytes)
+        if self._dyn_kv:
+            # the dynamic qparams: 4 f32 per token-head-group and layer
+            bytes_per_tok += (self.cfg.num_layer * 4 * 4 * self.cfg.kv_head_num
+                              * kv_dyn_groups(self.cfg.size_per_head))
         free, _ = torch.cuda.mem_get_info(self.device)
         pages = int(free * self.ecfg.hbm_utilization
                     // (bytes_per_tok * self.ecfg.page_size))
@@ -282,6 +304,7 @@ class TorchEngine:
         out['slots_busy'] = sum(1 for s in self.slots if s is not None)
         out['slots_total'] = len(self.slots)
         out['free_pages_group0'] = self.seqs.free_count(0)
+        out['native_cache_manager'] = int(self.native_cache_manager)
         return out
 
     def shutdown(self):
@@ -460,8 +483,9 @@ class TorchEngine:
     def _handle_logits(self, req: EngineRequest, out_q: queue.Queue):
         """Prompt logits (:meth:`EngineInstance.decode`): the prompt's
         chunks through ``step.prefill_logits`` on a scratch session that
-        never enters the decode batch, erased afterwards.  Runs on the
-        engine thread, between rounds."""
+        never enters the decode batch, erased before the answer is put
+        (a caller that reads the store after the answer finds the scratch
+        pages free).  Runs on the engine thread, between rounds."""
         ids = list(map(int, req.input_ids))
         if not ids or len(ids) > self.session_len:
             out_q.put(EngineOutput(ResponseType.INPUT_TOO_LONG, [], 0,
@@ -480,14 +504,13 @@ class TorchEngine:
                                           self._dev(padded), pos, n,
                                           self.cfg)
                 out.append(logits[:n, :self.cfg.vocab_size].float())
-            logits = torch.cat(out).cpu().numpy()
-            out_q.put(EngineOutput(ResponseType.FINISH, [], 0, finished=True,
-                                   logits=logits))
+            status, logits = (ResponseType.FINISH,
+                              torch.cat(out).cpu().numpy())
         except NoFreePages:
-            out_q.put(EngineOutput(ResponseType.INTERNAL_ERROR, [], 0,
-                                   finished=True))
+            status, logits = ResponseType.INTERNAL_ERROR, None
         finally:
             self.seqs.erase(scratch_id)
+        out_q.put(EngineOutput(status, [], 0, finished=True, logits=logits))
 
     def _free_slot_index(self) -> Optional[int]:
         for i, s in enumerate(self.slots):

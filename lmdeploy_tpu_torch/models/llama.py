@@ -24,18 +24,31 @@ two switches with its defaults:
 Chunks (T > 1) scatter their K/V (:func:`write_kv`) and run the paged
 prefill kernel.  The pool is updated in place.  The lm_head is a plain
 ``torch.matmul``, as the JAX package leaves it to XLA.
+
+An int4 pool with dynamic or per-head qparams takes the JAX package's
+gather route for such pools on every device, the card included (its
+kernels read static per-layer qparams only): every decode, prefill and
+verify step stores its K/V (:func:`write_kv_dynamic`, or :func:`write_kv`
+with per-head qparams), gathers and dequantises the layer's pages
+(:func:`gather_kv_layer_dynamic` / :func:`gather_kv_layer`) and runs
+``ops/attention.py::gqa_attention``.
+
+:func:`forward_layers` takes an optional calibration ``hook`` (see there).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..kvcache.paged import KVCache, write_kv
+from ..kvcache.paged import (KVCache, gather_kv_layer,
+                             gather_kv_layer_dynamic, write_kv,
+                             write_kv_dynamic)
+from ..ops.attention import gqa_attention
 from ..ops.cuda.paged_attention import (paged_decode_attention,
                                         paged_decode_attention_rope_write,
                                         paged_decode_attention_write,
@@ -223,9 +236,19 @@ def _layer_linear(x: torch.Tensor, w, layer: int,
 
 
 def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
-                   h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                   h: torch.Tensor, cfg: ModelConfig,
+                   hook: Optional[Callable[[int, str, torch.Tensor], None]]
+                   = None) -> torch.Tensor:
     """The layer loop on an embedded activation [B, T, D]; returns the
-    final hidden state.  The pool is updated in place."""
+    final hidden state.  The pool is updated in place.
+
+    ``hook(layer, name, x)``, when given, sees each projection's input
+    (``'attn_in'``: the attention norm's output, the input of wqkv;
+    ``'attn_out'``: the attention output before wo; ``'ffn_in'``: the FFN
+    norm's output, the input of w1 and w3; ``'ffn_act'``: silu(gate) * up,
+    the input of w2) and the post-rope K (``'k'``) and the V (``'v'``)
+    that the layer stores, [B, T, KH, Dh].  With a hook, rope runs outside
+    the decode kernel so that the hook sees it applied."""
     b, t = batch.ids.shape
     dh = cfg.size_per_head
     tables = rope_tables(
@@ -239,10 +262,15 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         rope_original_max=cfg.rope_original_max_position,
         rope_low_freq_factor=cfg.rope_low_freq_factor,
         rope_high_freq_factor=cfg.rope_high_freq_factor)
-    # per-layer static qparams, [L, 4] on the device (kernels read a row)
+    # static qparams on the device: per-layer [L, 4] rows (the kernels read
+    # a row) or per-head [L, 4, KH]
     qp = cache.qparams if cache.quantized else None
-    fused_attn = fused_attn_enabled()
-    fused_rope = t == 1 and fused_attn and fused_rope_enabled()
+    # dynamic or per-head int4 qparams: the gather route (no kernel reads
+    # them), as in the JAX package
+    gather = cache.dynamic_scales or cache.per_head
+    fused_attn = fused_attn_enabled() and not gather
+    fused_rope = (t == 1 and fused_attn and fused_rope_enabled()
+                  and hook is None)
     if fused_rope:
         cos_f, sin_f = rope_full_tables(tables[0][:, 0], tables[1][:, 0], dh)
         qscale = (tables[2][:, 0].float() if tables[2] is not None
@@ -251,8 +279,15 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
     for li in range(cfg.num_layer):
         bqkv = lw['bqkv'][li] if 'bqkv' in lw else None
         x = rms_norm(h, lw['attn_norm'][li], cfg.norm_eps)
+        if hook is not None:
+            hook(li, 'attn_in', x)
         q, k, v = _split_qkv(_layer_linear(x, lw['wqkv'], li, bqkv), cfg)
         qp_l = None if qp is None else qp[li]
+        if not fused_rope:
+            q, k = apply_rope_qk(q, k, tables)
+            if hook is not None:
+                hook(li, 'k', k)
+                hook(li, 'v', v)
         if fused_rope:
             # q and k arrive unrotated: rope, append and attend, one kernel
             o = paged_decode_attention_rope_write(
@@ -261,13 +296,26 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
                 batch.valid[:, 0], qp_l, half=cfg.rotary_embedding // 2)
             o = o[:, None]
         elif t == 1 and fused_attn:
-            q, k = apply_rope_qk(q, k, tables)
             o = paged_decode_attention_write(
                 q[:, 0], k[:, 0].contiguous(), v[:, 0].contiguous(),
                 cache.k, cache.v, li, batch.page_table, batch.context_len,
                 batch.valid[:, 0], qp_l)[:, None]
+        elif gather:
+            if cache.dynamic_scales:
+                write_kv_dynamic(cache.k, cache.v, cache.dyn, li, k, v,
+                                 batch.positions, batch.page_table,
+                                 batch.valid)
+                kk, vv = gather_kv_layer_dynamic(
+                    cache.k[li], cache.v[li], cache.dyn[li],
+                    batch.page_table, dtype=q.dtype)
+            else:
+                write_kv(cache.k, cache.v, li, k, v, batch.positions,
+                         batch.page_table, batch.valid, qp_l)
+                kk, vv = gather_kv_layer(cache.k[li], cache.v[li],
+                                         batch.page_table, qp_l.unbind(),
+                                         dtype=q.dtype)
+            o = gqa_attention(q, kk, vv, batch.positions, batch.context_len)
         else:
-            q, k = apply_rope_qk(q, k, tables)
             write_kv(cache.k, cache.v, li, k, v, batch.positions,
                      batch.page_table, batch.valid, qp_l)
             if t == 1:
@@ -279,15 +327,22 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
                                             batch.page_table,
                                             batch.positions[:, 0],
                                             batch.context_len, qp_l)
-        o = _layer_linear(o.reshape(b, t, -1), lw['wo'], li)
+        o = o.reshape(b, t, -1)
+        if hook is not None:
+            hook(li, 'attn_out', o)
+        o = _layer_linear(o, lw['wo'], li)
         if 'bo' in lw:
             o = o + lw['bo'][li]
         h = h + o
         x = rms_norm(h, lw['ffn_norm'][li], cfg.norm_eps)
+        if hook is not None:
+            hook(li, 'ffn_in', x)
         gate = _layer_linear(x, lw['w1'], li)
         up = _layer_linear(x, lw['w3'], li)
-        h = h + _layer_linear(F.silu(gate.float()).to(up.dtype) * up,
-                              lw['w2'], li)
+        act = F.silu(gate.float()).to(up.dtype) * up
+        if hook is not None:
+            hook(li, 'ffn_act', act)
+        h = h + _layer_linear(act, lw['w2'], li)
     return h
 
 

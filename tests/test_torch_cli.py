@@ -138,19 +138,21 @@ def test_main_dispatch(monkeypatch, tmp_path, capsys):
 
 
 def test_unported_commands_return_1_and_import_nothing_missing():
-    """lite and chat-baseline print which ROADMAP item brings them and
-    return 1, with JAX, the JAX package and transformers unimportable."""
+    """chat-baseline prints which ROADMAP item brings it and returns 1, and
+    lite (ported) refuses an unknown command with 1, with JAX, the JAX
+    package and transformers unimportable."""
     code = '''
 import sys
 for name in ('jax', 'jaxlib', 'lmdeploy_tpu', 'transformers', 'aiohttp',
              'pydantic', 'gradio'):
     sys.modules[name] = None
 from lmdeploy_tpu_torch.cli.main import main
-rcs = [main(['lite', 'auto_awq', 'x']), main(['chat-baseline', 'x'])]
+rcs = [main(['lite', 'frobnicate']), main(['chat-baseline', 'x'])]
 print('RCS', rcs)
 '''
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert 'RCS [1, 1]' in res.stdout
-    assert res.stdout.count('ROADMAP.md Queue 1') == 2
+    assert res.stdout.count('ROADMAP.md Queue 1') == 1
+    assert 'unknown lite command: frobnicate' in res.stdout

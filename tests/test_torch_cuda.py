@@ -454,3 +454,83 @@ def test_decode_splits_match_plain_on_card(cuda_device, mode, kv_bits, g):
             phys = int(pt[2, p2 // page])
             assert torch.equal(k1[1, phys, p2 % page], kc[1, phys, p2 % page])
             assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_dynamic_int4_store_and_gather_on_card_match_cpu(cuda_device):
+    """The dynamic int4 pool's gather route (no kernel: plain PyTorch on
+    every device) on the card against the CPU: after the same store the
+    packed bytes are identical, scales and minima within one f32 rounding
+    step on at most 0.5% of values, and the bf16 gather within one bf16
+    ulp."""
+    from lmdeploy_tpu_torch.kvcache import paged
+    rng = np.random.default_rng(70)
+    b, t, kh, page, maxp = 3, 40, 4, 16, 4
+    k = torch.from_numpy(rng.normal(size=(b, t, kh, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    v = torch.from_numpy(rng.normal(size=(b, t, kh, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    pos = torch.arange(t, dtype=torch.int32).expand(b, t).contiguous()
+    pt = torch.arange(b * maxp, dtype=torch.int32).reshape(b, maxp)
+    valid = torch.ones((b, t), dtype=torch.bool)
+    valid[2, 30:] = False
+    out = {}
+    for dev in ('cpu', cuda_device):
+        c = paged.init_cache(2, b * maxp, page, kh, 128, torch.uint8, dev,
+                             dynamic_scales=True)
+        paged.write_kv_dynamic(c.k, c.v, c.dyn, 1, k.to(dev), v.to(dev),
+                               pos.to(dev), pt.to(dev), valid.to(dev))
+        kk, vv = paged.gather_kv_layer_dynamic(c.k[1], c.v[1], c.dyn[1],
+                                               pt.to(dev))
+        out[str(dev)] = [x.cpu() for x in (c.k, c.v, c.dyn, kk, vv)]
+    cpu, card = out['cpu'], out[str(cuda_device)]
+    assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[1], card[1])
+    steps = ((cpu[2].view(torch.int32) - card[2].view(torch.int32)).abs())
+    assert steps.max() <= 2 and (steps != 0).float().mean() <= 5e-3
+    for a, c in zip(cpu[3:], card[3:]):
+        ulps = (a.view(torch.int16).int() - c.view(torch.int16).int()).abs()
+        assert ulps.max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['dynamic', 'per_head'])
+def test_gather_route_forward_on_card_matches_cpu(cuda_device, kind):
+    """A 2-layer Dh-128 model's prefill chunk and decode steps through a
+    dynamic and a per-head int4 pool on the card against the CPU (dense
+    bf16 weights): logits within 5% of max |logit|, cosine >= 0.999."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.kvcache.paged import init_cache
+    from lmdeploy_tpu_torch.models import llama
+    cfg = ModelConfig(head_num=4, kv_head_num=2, size_per_head=128,
+                      inter_size=512, num_layer=2, vocab_size=256,
+                      rotary_embedding=128, session_len=128)
+    gen = torch.Generator().manual_seed(3)
+    params = llama.init_params(cfg, gen, torch.bfloat16, 'cpu')
+    kw = dict(dynamic_scales=True) if kind == 'dynamic' else dict(
+        kv_scales=[[[0.5, 0.6]] * 2, [[0.0, 0.5]] * 2, [[0.4, 0.45]] * 2,
+                   [[0.25, 0.0]] * 2])
+    logits = {}
+    for dev in ('cpu', cuda_device):
+        p = {k: (v.to(dev) if torch.is_tensor(v) else
+                 {n: t.to(dev) for n, t in v.items()})
+             for k, v in params.items()}
+        cache = init_cache(2, 8, 16, 2, 128, torch.uint8, dev, **kw)
+        ids = torch.arange(3, 35, dtype=torch.int32)[None].to(dev)
+        rows = []
+        for step in range(4):
+            t = ids.shape[1]
+            start = 0 if step == 0 else 31 + step
+            batch = llama.StepBatch(
+                ids=ids, positions=(start + torch.arange(
+                    t, dtype=torch.int32))[None].to(dev),
+                valid=torch.ones((1, t), dtype=torch.bool, device=dev),
+                context_len=torch.tensor([start + t], dtype=torch.int32,
+                                         device=dev),
+                page_table=torch.arange(8, dtype=torch.int32)[None].to(dev))
+            lg, _ = llama.forward(p, cache, batch, cfg)
+            rows.append(lg.float().cpu())
+            ids = torch.tensor([[7 + step]], dtype=torch.int32, device=dev)
+        logits[str(dev)] = torch.cat(rows)
+    a, c = logits['cpu'], logits[str(cuda_device)]
+    assert (a - c).abs().max() <= 0.05 * a.abs().max()
+    assert torch.nn.functional.cosine_similarity(a, c, dim=-1).min() >= 0.999

@@ -204,6 +204,15 @@ def test_cancel_ends_the_stream(port_engine):
 @pytest.mark.parametrize('kw', [dict(tp=2), dict(pp=2), dict(dp=2),
                                 dict(quant_policy=8)])
 def test_unported_engine_options_raise(kw):
+    """tp / pp / dp > 1 raise, naming their ROADMAP.md item.  quant_policy
+    8 without kv_scales, which raised before dynamic int4 KV was ported,
+    now allocates the dynamic pool."""
+    if kw.get('quant_policy') == 8:
+        eng = TorchEngine(ModelConfig(**CFG),
+                          EngineConfig(**dict(ECFG, **kw)), {},
+                          device='cpu', start=False)
+        assert eng.cache.dynamic_scales and eng.cache.quant_bits == 4
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(ECFG, **kw)),
                     {}, device='cpu', start=False)
@@ -542,14 +551,17 @@ def test_load_workspace_written_by_jax_converter(tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """With jax, the JAX package, safetensors, ml_dtypes and transformers
-    unimportable, every module of the port (and chip_smoke.py) imports
-    and a CPU engine serves a request; so do bench_torch.py and the
-    serving front door, whose tokenizer falls back to DummyTokenizer."""
+    """With jax, the JAX package, safetensors, ml_dtypes, transformers,
+    tokenizers and datasets unimportable, every module of the port (and
+    chip_smoke.py) imports and a CPU engine serves a request; so do
+    bench_torch.py and the serving front door, whose tokenizer falls back
+    to DummyTokenizer, and the quantisation toolkit (lite calibrate,
+    auto_awq and kv_qparams through cli.main) on an HF checkpoint, whose
+    workspace an engine serves on a dynamic and a per-head int4 pool."""
     code = '''
 import sys
 for name in ('jax', 'jaxlib', 'lmdeploy_tpu', 'safetensors', 'ml_dtypes',
-             'transformers'):
+             'transformers', 'tokenizers', 'datasets'):
     sys.modules[name] = None
 import importlib, pkgutil, torch
 import lmdeploy_tpu_torch
@@ -590,14 +602,41 @@ with tempfile.TemporaryDirectory() as ws:
     outs = asyncio.run(gen())
     ae.shutdown()
     assert outs[-1].generate_token_len == 3, outs
-assert not any(n.split('.')[0] in ('jax', 'lmdeploy_tpu')
+# the quantisation toolkit on an HF checkpoint written here: calibrate
+# (raw synthetic ids: no tokenizer loads), auto_awq, kv_qparams, and the
+# engine on the dynamic and the per-head int4 pool
+from chip_smoke import write_hf_checkpoint
+from lmdeploy_tpu_torch import build_engine
+from lmdeploy_tpu_torch.cli.main import main as cli_main
+with tempfile.TemporaryDirectory() as tmp:
+    hf, work, ws = tmp + '/hf', tmp + '/work', tmp + '/ws'
+    write_hf_checkpoint(torch, hf, cfg, 0)
+    assert cli_main(['lite', 'calibrate', hf, '--calib-samples', '2',
+                     '--calib-seqlen', '16', '--work-dir', work,
+                     '--device', 'cpu']) == 0
+    assert cli_main(['lite', 'auto_awq', hf, '--work-dir', work, '--dst',
+                     ws]) == 0
+    for extra in ([], ['--per-head']):
+        if extra:
+            assert cli_main(['lite', 'kv_qparams', work, ws, '--kv-bits',
+                             '4'] + extra) == 0
+        eng = build_engine(ws, device='cpu', quant_policy=8)
+        assert eng.cache.dynamic_scales != bool(extra)
+        out = eng.create_instance().infer(1, [3, 4, 5],
+                                          gen_config=GenerationConfig(
+            max_new_tokens=3, top_k=1, ignore_eos=True))
+        eng.shutdown()
+        assert len(out.token_ids) == 3, out
+assert not any(n.split('.')[0] in ('jax', 'lmdeploy_tpu', 'transformers',
+                                   'tokenizers', 'safetensors')
                for n, m in sys.modules.items() if m is not None)
 print('OK', len(mods))
 '''
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert res.stdout.startswith('OK')
+    # the lite commands print their progress before the last line
+    assert res.stdout.splitlines()[-1].startswith('OK')
 
 
 def test_serving_modules_load_neither_aiohttp_nor_pydantic():

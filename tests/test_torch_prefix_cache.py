@@ -3,7 +3,8 @@ against the JAX engine on the same weights.
 
 Ports of ``tests/test_prefix_cache.py``'s engine tests: streams with
 caching on equal those with it off (exactly: the CPU runs the same plain
-arithmetic either way), a rewind into shared pages stays private, seeded
+arithmetic either way), on each of the port's session stores (the native
+C++ manager and the Python one), a rewind into shared pages stays private, seeded
 sampling is unperturbed, and a prompt is shareable while its request still
 generates; on the same traffic the port's ``prefix_hit_tokens`` equals the
 JAX engine's.  Then ``EngineInstance.decode`` against the JAX one on a
@@ -12,6 +13,7 @@ f32 tolerance).
 """
 import dataclasses
 import json
+import os
 import os.path as osp
 import threading
 
@@ -42,6 +44,15 @@ SYSTEM = [3, 7, 11, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67, 71,
           73, 79]                                  # 18-token shared prefix
 
 
+@pytest.fixture(params=['native', 'python'])
+def store(request, monkeypatch):
+    """The port's session store under test: the native C++ manager (the
+    default) or the Python one (LMDEPLOY_TPU_NATIVE=0)."""
+    monkeypatch.setenv('LMDEPLOY_TPU_NATIVE',
+                       '1' if request.param == 'native' else '0')
+    return request.param
+
+
 @pytest.fixture(scope='module')
 def weights():
     jp = jax_int4_params()
@@ -49,9 +60,12 @@ def weights():
 
 
 def port_engine(params, **over):
-    return TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(PC_ECFG,
-                                                               **over)),
-                       params, device='cpu')
+    eng = TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(PC_ECFG,
+                                                              **over)),
+                      params, device='cpu')
+    assert eng.metrics()['native_cache_manager'] == \
+        (os.environ['LMDEPLOY_TPU_NATIVE'] != '0')
+    return eng
 
 
 def jax_engine(jp, **over):
@@ -85,7 +99,7 @@ def both(weights, script, **over):
     return on, s_on
 
 
-def test_prefix_cache_exact_streams(weights):
+def test_prefix_cache_exact_streams(weights, store):
     sessions = [(1, SYSTEM + [101, 103]), (2, SYSTEM + [107, 109, 113]),
                 (3, SYSTEM + [101, 103])]          # an exact repeat of 1
 
@@ -99,7 +113,7 @@ def test_prefix_cache_exact_streams(weights):
     assert stats['prefix_hit_tokens'] == 32
 
 
-def test_prefix_cache_rewind_isolation(weights):
+def test_prefix_cache_rewind_isolation(weights, store):
     """A session that rewinds into shared pages must not corrupt another
     that reuses the same published prefix afterwards."""
     prompt = SYSTEM + [101, 103]
@@ -116,7 +130,7 @@ def test_prefix_cache_rewind_isolation(weights):
     assert a1 == b
 
 
-def test_prefix_cache_sampled_reproducible(weights):
+def test_prefix_cache_sampled_reproducible(weights, store):
     """Prefix hits do not perturb the sampled path: the same seed gives
     the same stream, caching on or off."""
     prompt = SYSTEM + [101]
@@ -130,7 +144,7 @@ def test_prefix_cache_sampled_reproducible(weights):
     assert first == second
 
 
-def test_prefix_cache_publishes_prompt_during_generation(weights):
+def test_prefix_cache_publishes_prompt_during_generation(weights, store):
     """A running request's prompt is shareable right after its prefill
     (an insert-only publish), not only at retirement."""
 
@@ -195,7 +209,7 @@ def _jax_tree(tree):
 
 
 @pytest.mark.parametrize('length', [1, 13, 45])
-def test_decode_matches_jax(length):
+def test_decode_matches_jax(length, store):
     """Prompt logits (``EngineInstance.decode``) against the JAX engine's
     on a dense f32 model, over one chunk and over several (the budget is
     32 tokens), within rtol 2e-3 / atol 5e-3."""
@@ -220,7 +234,7 @@ def test_decode_matches_jax(length):
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=5e-3)
 
 
-def test_decode_leaves_running_requests_undisturbed(weights):
+def test_decode_leaves_running_requests_undisturbed(weights, store):
     """A prompt-logits request served between decode rounds leaves a
     running request's stream as it is alone."""
     _, params = weights
@@ -243,7 +257,7 @@ def test_decode_leaves_running_requests_undisturbed(weights):
         eng.shutdown()
 
 
-def test_decode_refuses_empty_and_too_long(weights):
+def test_decode_refuses_empty_and_too_long(weights, store):
     _, params = weights
     eng = port_engine(params)
     try:
