@@ -16,7 +16,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                decode (all 8 batch slots: GEMM M=8, attention B=8); the GEMM
                also at the verify's M=40, prefill attention also at the
                verify's T=5 (B=8 all live, one live slot with 7 padding
-               rows, B=1 at ctx 80 / 512 / 2048)
+               rows, B=1 at ctx 80 / 512 / 2048); and kernels 1-3 at one
+               tp = 2 rank's shapes (the GEMM at K x N 4096 x 6144, 2048 x
+               4096, 4096 x 5632, 5632 x 4096 and M = 1 / 8 / 40 / 512,
+               attention at H = KH = 16)
   4. model   — a 2-layer full-width W4A16 model: one 64-token prefill chunk
                + 4 decode steps + one T=5 speculative verify forward (every
                row's logits) through the kernels on the card against the
@@ -102,6 +105,22 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                bs1 is a token).  Phases 5 and 7 keep sessions in the native C++
                store; phase 5's prefix-hit follower also runs on the Python
                one (LMDEPLOY_TPU_NATIVE=0) and must prefill the same tokens.
+  8. parallel — phase 5's 32-layer model at tp = 1 and tp = 2 (a second rank
+               process spawned by the engine on the same card; the device
+               collectives go through gloo): bs1 64 new on plain and on
+               speculative rounds, 4 concurrent requests, prompt logits of
+               300 and a seeded sampled pair.  tp = 2's greedy streams equal
+               tp = 1's up to near-ties, its logits lie within 5% of
+               max|logit| (cosine >= 0.999), the seeded pair is identical,
+               each rank launches 160 GEMM / 32 decode attention per decode
+               step and 160 / 32 prefill attention per pass and verify
+               round with no plain call, the ranks' readback digests agree
+               and every rank exits 0 within 30 s.  Then dp = 2 (4
+               concurrent, a continued session stays in its group) and
+               dp x tp = 2 x 2 at 4 layers (four ranks) against 1 x 1.  It
+               prints start / serve / stop seconds, tok/s of ranks sharing
+               one card (not a tp speed), peak memory per rank and the
+               device group's backend.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -121,7 +140,8 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
-PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant')
+PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant',
+          'parallel')
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
@@ -757,12 +777,173 @@ def check_verify(torch, ctx, timer):
         torch.cuda.empty_cache()
 
 
+# one tp rank's projections of Llama-2-7B at tp = 2 (K, N), w1 / w3 /
+# w2 at the inter of 11264 that the preparation pads 11008 to
+TP2_GEMMS = (('wqkv', 4096, 6144), ('wo', 2048, 4096), ('w1', 4096, 5632),
+             ('w2', 5632, 4096))
+TP2_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 512)
+
+
+def check_rank_shapes(torch, ctx, timer):
+    """Kernels 1-3 at the shapes one rank of a tp = 2 Llama-2-7B engine
+    gives them: the GEMM at TP2_GEMMS x TP2_ROWS (the regime the wrapper
+    picks), decode attention (mode 1) and prefill attention (a 512-token
+    chunk, the T = 5 verify) at H = KH = 16, each KV width, against the
+    plain versions, with times, SDPA / torch.matmul and the bound."""
+    from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
+    from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
+    from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
+        unpack_nibbles, w4a16_gemm, w4a16_gemm_plain)
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    n_layers = 4
+    rows = {}
+    for name, k, n in TP2_GEMMS:
+        g = k // 128
+        packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
+        scales = (torch.rand((n_layers, g, 1, n), generator=gen,
+                             device='cuda') * 0.01 + 0.001).to(torch.bfloat16)
+        deq = [(unpack_nibbles(packed[i]).float().reshape(g, 128, n)
+                * scales[i].float()).reshape(k, n).to(torch.bfloat16)
+               for i in range(n_layers)]
+        for m in TP2_ROWS:
+            x = torch.randn((m, k), generator=gen, device='cuda').to(
+                torch.bfloat16)
+            want = w4a16_gemm_plain(x, packed, scales, 1)
+            got = w4a16_gemm(x, packed, scales, 1)
+            torch.cuda.synchronize()
+            tol = 1e-3 * want.abs().max().item() + 1e-3
+            err = (got - want).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f'w4a16_gemm tp=2 {name} M={m}: max '
+                                     f'abs err {err} > {tol}')
+            ms = timer.graph(lambda i: w4a16_gemm(x, packed, scales,
+                                                  i % n_layers), 16)
+            lib = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
+                              16)
+            plain = timer.events(lambda i: w4a16_gemm_plain(
+                x, packed, scales, i % n_layers), 2, warmup=1)
+            bms, by = bound_ms(m * k * 2 + k * n // 2 + g * n * 2 + m * n * 4,
+                               2.0 * m * k * n)
+            rows[f'{name} K={k} N={n} M={m}'] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, max_abs_err=err)
+            log(f'  w4a16_gemm tp=2 rank {name:4s} M={m:3d} K={k:5d} '
+                f'N={n:5d}: kernel {ms:.4f} ms, plain {plain:.3f} ms, '
+                f'torch.matmul {lib:.4f} ms, bound {bms:.4f} ms ({by}), max '
+                f'abs err {err:.2e} (tol {tol:.2e})')
+        del deq, packed, scales
+        torch.cuda.empty_cache()
+    ctx['kernels'].setdefault('w4a16_gemm', {})['tp2'] = rows
+    kh = h = 16
+    dh, page, mode = 128, 64, 'paged_decode_attention_write'
+    label, ctxs, masked = DECODE_CASES[0]
+    for kv_bits, (width, _, elem_bytes) in KV_WIDTHS.items():
+        qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
+              if kv_bits else None)
+        d = _decode_inputs(torch, gen, ctxs, masked, kh, h, dh, n_layers,
+                           kv_bits)
+        k1, v1, k2, v2 = (x.clone() for x in (d['kc'], d['vc'], d['kc'],
+                                              d['vc']))
+        got = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
+        want = _decode_call(PA, mode, mode + '_plain', d, k2, v2, 2, qp)
+        torch.cuda.synchronize()
+        ok = d['valid'].bool()
+        err = (got.float() - want.float())[ok].abs().max().item()
+        if not (torch.equal(k1, k2) and torch.equal(v1, v2)
+                and err <= 1e-2):
+            raise AssertionError(f'{mode}[{width}] tp=2 {label}: err {err}'
+                                 ' or the pool differs')
+        ms = timer.graph(lambda i: _decode_call(
+            PA, mode, mode, d, d['kc'], d['vc'], i % n_layers, qp), 32)
+        plain = timer.events(lambda i: _decode_call(
+            PA, mode, mode + '_plain', d, k2, v2, i % n_layers, qp), 2,
+            warmup=1)
+        live = [i for i in range(len(ctxs)) if i not in masked]
+        n_kv = max(ctxs[i] for i in live)
+        kvg = [(kk[live, :, :n_kv], vv[live, :, :n_kv]) for kk, vv in
+               _dequant_gather(torch, d['kc'], d['vc'], d['pt'],
+                               -(-n_kv // page) * page, qp)]
+        q4 = d['q'][live][:, :, None]
+        lib = timer.graph(lambda i: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              q4, *kvg[i % n_layers]), 32)
+        tok = sum(ctxs[i] for i in live)
+        b = len(ctxs)
+        bms, by = bound_ms(2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
+                           + 2 * b * kh * dh * 2
+                           + 2 * len(live) * kh * dh * elem_bytes,
+                           4.0 * tok * h * dh)
+        ctx['kernels'].setdefault(f'{mode}[{width}]', {})['tp2'] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+            bound_by=by, max_abs_err=err, shape=f'H=KH=16, {label}')
+        log(f'  {mode}[{width}] tp=2 rank H=KH=16 {label}: kernel {ms:.4f} '
+            f'ms, plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} '
+            f'ms ({by}), max abs err {err:.2e} (tol 1e-2), pool identical')
+        del d, k1, v1, k2, v2, kvg
+        pre = {}
+        for plabel, starts, ends, t in (
+                ('512-token chunk from 0', [0], [512], 512),
+                ('verify T=5 B=8 ctx~512',
+                 [512 - 7 * i - 5 for i in range(8)],
+                 [512 - 7 * i for i in range(8)], 5)):
+            bb = len(starts)
+            kc, vc, pt = _paged_case(torch, gen, bb, ends, n_layers,
+                                     pages=sum(-(-e // page) for e in ends)
+                                     + 8, kh=kh, kv_bits=kv_bits)
+            q = torch.randn((bb, t, h, dh), generator=gen,
+                            device='cuda').to(torch.bfloat16)
+            sp = torch.tensor(starts, dtype=torch.int32, device='cuda')
+            ce = torch.tensor(ends, dtype=torch.int32, device='cuda')
+            got = paged_prefill_attention(q, kc, vc, 1, pt, sp, ce, qp)
+            want = paged_prefill_attention_plain(q, kc, vc, 1, pt, sp, ce,
+                                                 qp)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= 1e-2:
+                raise AssertionError(f'paged_prefill_attention[{width}] '
+                                     f'tp=2 {plabel}: max abs err {err}')
+            ms = timer.graph(lambda i: paged_prefill_attention(
+                q, kc, vc, i % n_layers, pt, sp, ce, qp), 8)
+            plain = timer.events(lambda i: paged_prefill_attention_plain(
+                q, kc, vc, i % n_layers, pt, sp, ce, qp), 2, warmup=1)
+            n_kv = max(ends)
+            kvg = [(kk[:, :, :n_kv], vv[:, :, :n_kv]) for kk, vv in
+                   _dequant_gather(torch, kc, vc, pt,
+                                   -(-n_kv // page) * page, qp)]
+            qt = q.transpose(1, 2)
+            mask = (torch.arange(n_kv, device='cuda')[None, None, None]
+                    <= sp[:, None, None, None]
+                    + torch.arange(t, device='cuda')[None, None, :, None])
+            lib = timer.graph(lambda i: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qt, *kvg[i % n_layers], attn_mask=mask),
+                              8)
+            bms, by = bound_ms(
+                2 * bb * t * h * dh * 2 + 2 * sum(ends) * kh * dh
+                * elem_bytes,
+                sum(4.0 * dh * h * (t * s + t * (t + 1) / 2)
+                    for s in starts))
+            pre[plabel] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bms, bound_by=by, max_abs_err=err)
+            log(f'  paged_prefill_attention[{width}] tp=2 rank H=KH=16 '
+                f'{plabel}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA '
+                f'(masked) {lib:.4f} ms, bound {bms:.4f} ms ({by}), max abs '
+                f'err {err:.2e} (tol 1e-2)')
+            del kc, vc, kvg
+        ctx['kernels'].setdefault(f'paged_prefill_attention[{width}]',
+                                  {})['tp2'] = pre
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, ctx):
     timer = Timer(torch)
     check_gemm(torch, ctx, timer)
     check_decode(torch, ctx, timer)
     check_prefill(torch, ctx, timer)
     check_verify(torch, ctx, timer)
+    check_rank_shapes(torch, ctx, timer)
 
 
 def llama2_7b(num_layer: int = 32):
@@ -1077,7 +1258,7 @@ def launches_per_kind(marks, skip=()):
     return per, kinds, m.tolist()
 
 
-def teacher_forced_logits(torch, params, cfg, prompt, tokens):
+def teacher_forced_logits(torch, params, cfg, prompt, tokens, dev='cuda'):
     """f32 logits [len(tokens), V] of one forward over the prompt and the
     stream (each row predicts the stream's next token), through the
     kernels, in a pool of its own."""
@@ -1087,8 +1268,7 @@ def teacher_forced_logits(torch, params, cfg, prompt, tokens):
     t, page = len(ids), 64
     pages = -(-t // page)
     cache = init_cache(cfg.num_layer, pages, page, cfg.kv_head_num,
-                       cfg.size_per_head, torch.bfloat16, 'cuda')
-    dev = 'cuda'
+                       cfg.size_per_head, torch.bfloat16, dev)
     batch = StepBatch(
         ids=torch.tensor([ids], dtype=torch.int32, device=dev),
         positions=torch.arange(t, dtype=torch.int32, device=dev)[None],
@@ -1535,9 +1715,9 @@ def phase_engine(torch, ctx):
         eng, inst = engine(quant_policy, kv_scales, prefix=True)
         real, shapes = S.prefill_chunks, []
 
-        def recording(*a):
+        def recording(*a, **kw):
             shapes.append((tuple(a[4].shape), a[6].tolist()))
-            return real(*a)
+            return real(*a, **kw)
         S.prefill_chunks = recording
         try:
             K.reset_launch_counts()
@@ -2881,6 +3061,378 @@ def quant(torch, ctx, cfg, device, deep_cfg=None, samples=16, seqlen=512,
         + ', '.join(f'{k} {v:.1f}' for k, v in times.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: tensor and data parallelism over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def phase_parallel(torch, ctx):
+    parallel(torch, ctx, llama2_7b(), 'cuda')
+
+
+def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
+             n_new=32, bs1_new=64, bs1_len=100, logits_len=300,
+             ecfg_kw=None, timeout=300.0):
+    """Tensor and data parallelism at ``cfg``'s width on ``device``: a
+    tp = 1 engine, then tp = 2 (two ranks, the second a spawned process),
+    each serving
+    a bs1 greedy request from a ``bs1_len``-token prompt on plain and on
+    speculative rounds (k = SPEC_K), 4 concurrent requests, prompt logits
+    and a seeded sampled request twice.  tp = 2's greedy streams equal
+    tp = 1's up to near-ties, its prompt logits lie within 5% of max|logit|
+    (cosine >= 0.999), the seeded runs are identical, every rank launches
+    5L GEMMs and L decode attentions per decode step and L prefill
+    attentions per pass (and per verify round) with no plain call, the
+    ranks' readback digests are equal and every rank exits 0 within 30 s.
+    Then dp = 2 (4 concurrent requests over two groups, a continued
+    session stays in its group) against tp = 1, and dp x tp = 2 x 2 (four
+    ranks) at ``shallow`` layers against 1 x 1.  Ranks get a card each when
+    the machine has enough, else they share the first over gloo, and then
+    their rates are not a tp speed."""
+    import dataclasses
+
+    from lmdeploy_tpu_torch.config import EngineConfig
+    from lmdeploy_tpu_torch.engine.engine import TorchEngine
+    from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
+    from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
+    on_card = device == 'cuda'
+    card = ctx.get('card', '?')
+    ecfg = EngineConfig(**(ecfg_kw or dict(
+        max_batch_size=8, session_len=2048, page_size=64, num_pages=88,
+        max_context_token_num=512, prefill_buckets=(64, 512),
+        step_length=16, speculative_k=0, enable_prefix_caching=False)))
+    rng = np.random.default_rng(9)
+    v = cfg.vocab_size
+    prompts = [rng.integers(3, v, size=n).tolist() for n in lens]
+    bs1_prompt = rng.integers(3, v, size=bs1_len).tolist()
+    logits_prompt = rng.integers(3, v, size=logits_len).tolist()
+    sampled = GenerationConfig(max_new_tokens=n_new, top_k=40, top_p=0.9,
+                               temperature=0.8, repetition_penalty=1.1,
+                               random_seed=7, ignore_eos=True)
+    sid = iter(range(1, 10 ** 6))
+    names = K.KERNEL_NAMES + K.REGIME_NAMES
+    passes_of = DevicePasses()
+    summary = {}
+
+    def greedy(n):
+        return GenerationConfig(max_new_tokens=n, top_k=1, ignore_eos=True)
+
+    def stream(inst, prompt, gen, session=None, **kw):
+        t0, first, last = time.monotonic(), None, None
+        for last in inst.stream_infer(session or next(sid), prompt, gen,
+                                      **kw):
+            if last.num_generated and first is None:
+                first = time.monotonic()
+        if last.status != ResponseType.FINISH \
+                or last.num_generated != gen.max_new_tokens:
+            raise AssertionError(f'request of {len(prompt)} tokens: '
+                                 f'{last.num_generated}, {last.status}')
+        end = time.monotonic()
+        return dict(tokens=list(last.token_ids), ttft=first - t0,
+                    tok_s=(last.num_generated - 1) / max(end - first, 1e-9))
+
+    def concurrent(inst, prompts, n, **kw):
+        out = [None] * len(prompts)
+        sids = [next(sid) for _ in prompts]
+
+        def one(i):
+            out[i] = stream(inst, prompts[i], greedy(n), session=sids[i],
+                            **kw)
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(o is None for o in out):
+            raise AssertionError('a concurrent request failed')
+        rate = len(prompts) * (n - 1) / (time.monotonic() - t0)
+        return [o['tokens'] for o in out], rate, sids
+
+    def mark(eng):
+        """Every rank's (launch counts, passes so far), and the reports."""
+        reports = eng.fns.rank_report()
+        passes = passes_of(eng)
+        return [({n: r['launches'].get(n, 0) for n in names}, passes)
+                for r in reports], reports
+
+    def check_ranks(label, marks, reports):
+        """Each rank's launches per decode step, verify round and prefill
+        pass from the windows between marks: 5L GEMM, L decode attention
+        (decode steps), L prefill attention (verify rounds and prefill
+        passes), and no plain call."""
+        nl = cfg.num_layer
+        gemm = {'w4a16_gemm': 5 * nl}
+        want = {'decode_steps': dict(
+                    gemm, **{'paged_decode_attention_write[bf16]': nl}),
+                'spec_rounds': dict(
+                    gemm, **{'paged_prefill_attention[bf16]': nl}),
+                'prefill_passes': dict(
+                    gemm, **{'paged_prefill_attention[bf16]': nl})}
+        per_rank = []
+        for rank, rep in enumerate(reports):
+            rank_marks = [m[rank] for m in marks]
+            solved = launches_per_kind(rank_marks, skip=(WGMMA,))
+            counts = {n: (rep['launches'].get(n, 0),
+                          rep['plain_calls'].get(n, 0)) for n in names}
+            if on_card:
+                check_route(counts, solved, want, f'{label} rank {rank}',
+                            need=('decode_steps', 'spec_rounds',
+                                  'prefill_passes'))
+            per_rank.append({k: {n: x for n, x in solved[0][k].items() if x}
+                             for k in solved[1]})
+        return per_rank
+
+    def agree(params, mcfg, prompt, ref, got, label):
+        """``got`` equals the tp = 1 stream ``ref``, or parts from it first
+        at a step whose top-2 gap in the teacher-forced tp = 1 forward is
+        under 1% of max|logit|.  Returns the steps that agree."""
+        same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                    None)
+        if same is None:
+            return len(ref)
+        lg = teacher_forced_logits(torch, params, mcfg, prompt, ref,
+                                   device)[same]
+        top2 = lg.topk(2).values
+        if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
+            raise AssertionError(f'{label}: streams part at step {same} '
+                                 'with no near-tie there')
+        log(f'  {label}: parts at step {same} of {len(ref)}, a near-tie')
+        return same
+
+    def serve(eng, label):
+        """The tp script on one engine: windows for the launch solve, then
+        prompt logits and the seeded sampled pair."""
+        inst = eng.create_instance()
+        eng.fns.rank_report(reset=True)
+        t0 = time.monotonic()
+        marks, reports = [], None
+        m, first = mark(eng)
+        marks.append(m)
+        out = {'bs1': stream(inst, bs1_prompt, greedy(bs1_new),
+                             sequence_end=True)}
+        m, after = mark(eng)
+        marks.append(m)
+        # each rank's host ms a decode step of the bs1 request: issuing
+        # the step's launches, and waiting for the readback
+        steps = m[0][1]['decode_steps'] - marks[0][0][1]['decode_steps']
+        out['host_ms_per_step'] = [
+            {k: round((b['host_s'][k] - a['host_s'][k]) * 1e3 / steps, 2)
+             for k in a['host_s']} for a, b in zip(first, after)]
+        eng.ecfg.speculative_k = SPEC_K
+        before = dict(eng.stats)
+        try:
+            out['bs1_spec'] = stream(inst, bs1_prompt, greedy(bs1_new),
+                                     sequence_end=True)
+        finally:
+            eng.ecfg.speculative_k = 0
+        out['spec_rounds'] = eng.stats['spec_rounds'] \
+            - before['spec_rounds']
+        marks.append(mark(eng)[0])
+        out['concurrent'], out['conc_tok_s'], _ = concurrent(
+            inst, prompts, n_new, sequence_end=True)
+        m, reports = mark(eng)
+        marks.append(m)
+        out['launches'] = check_ranks(label, marks, reports)
+        out['rank_launches'] = [
+            {n: c for n, c in r['launches'].items() if c} for r in reports]
+        out['logits'] = torch.from_numpy(inst.decode(logits_prompt))
+        out['sampled'] = [stream(inst, prompts[0], sampled,
+                                 sequence_end=True)['tokens']
+                          for _ in range(2)]
+        out['wall'] = time.monotonic() - t0
+        out['reports'] = eng.fns.rank_report()
+        out['collective_ms'] = eng.fns.collective_ms()
+        return out
+
+    def start(mcfg, params, **kw):
+        """A started engine and its start time; rank 0's peak memory while
+        it prepares the ranks' blocks goes to ``summary``, and the peak is
+        reset for the serving that follows."""
+        t0 = time.monotonic()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        eng = TorchEngine(mcfg, dataclasses.replace(ecfg, **kw), params,
+                          device=device, rank_timeout=timeout)
+        if on_card:
+            summary.setdefault('start_peak_gib_rank0', {})[str(kw)] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+        return eng, time.monotonic() - t0
+
+    def stop(eng, label):
+        t0 = time.monotonic()
+        eng.shutdown()
+        took = time.monotonic() - t0
+        if eng.rank_exitcodes != [0] * len(eng.rank_exitcodes) \
+                or took > 30.0:
+            raise AssertionError(f'{label}: ranks exited '
+                                 f'{eng.rank_exitcodes} in {took:.1f} s')
+        return took
+
+    def ms_or_dash(ms):
+        return '-' if ms is None else f'{ms:.4f}'
+
+    def placement(world):
+        """How ``world`` ranks sit on this machine's cards; rates of ranks
+        that share one card are not a tp speed."""
+        if on_card and torch.cuda.device_count() >= world:
+            return 'a card per rank'
+        return 'ranks sharing one card: not a tp speed'
+
+    def describe(label, eng, res, start_s, stop_s):
+        peaks = [round(r['peak_bytes'] / 2 ** 30, 2)
+                 for r in res['reports']]
+        backend = eng.ranks.backend if eng.ranks is not None else '-'
+        world = eng.tp * eng.dp
+        log(f'  {label} [{card}]: start {start_s:.1f} s, serve '
+            f'{res["wall"]:.1f} s, stop {stop_s:.1f} s; bs1 '
+            f'{res["bs1"]["tok_s"]:.1f} tok/s plain, '
+            f'{res["bs1_spec"]["tok_s"]:.1f} on verify rounds '
+            f'({res["spec_rounds"]} rounds), 4 concurrent '
+            f'{res["conc_tok_s"]:.1f} tok/s, TTFT bs1 '
+            f'{res["bs1"]["ttft"]:.3f} s ({placement(world)}; device '
+            f'collectives over {backend}); peak memory per '
+            f'rank while serving {peaks} GiB; one activation all-reduce '
+            f'[{ecfg.max_batch_size}, {cfg.hidden_size}] '
+            f'{ms_or_dash(res["collective_ms"])} ms; host ms a bs1 decode '
+            f'step by rank {res["host_ms_per_step"]}; launches per pass, '
+            f'rank 0: '
+            f'{res["launches"][0]}')
+        summary[label] = dict(
+            start_s=start_s, serve_s=res['wall'], stop_s=stop_s,
+            tok_s_bs1=res['bs1']['tok_s'],
+            tok_s_bs1_spec=res['bs1_spec']['tok_s'],
+            tok_s_4_concurrent=res['conc_tok_s'],
+            ttft_bs1_s=res['bs1']['ttft'], peak_gib_per_rank=peaks,
+            backend=backend, launches_per_pass=res['launches'],
+            collective_ms=res['collective_ms'],
+            host_ms_per_step=res['host_ms_per_step'])
+
+    t_phase = time.monotonic()
+    params = random_packed_params(cfg, 5, device)
+    eng, t_start = start(cfg, params)
+    try:
+        one = serve(eng, 'tp=1')
+    finally:
+        t_stop = stop(eng, 'tp=1')
+    describe('tp=1', eng, one, t_start, t_stop)
+    del eng
+    eng, t_start = start(cfg, params, tp=2)
+    try:
+        if eng.ranks.backend != ('gloo' if torch.cuda.device_count() < 2
+                                 or not on_card else 'nccl'):
+            raise AssertionError(f'device group {eng.ranks.backend}')
+        two = serve(eng, 'tp=2')
+    finally:
+        t_stop = stop(eng, 'tp=2')
+    describe('tp=2', eng, two, t_start, t_stop)
+    # followers' final reports: every frame replayed, same readback bytes
+    digests = {r['readback_sha256'] for r in two['reports']}
+    if len(digests) != 1 or len(eng.rank_reports) != 1:
+        raise AssertionError(f'tp=2 readback digests {digests}, final '
+                             f'reports {len(eng.rank_reports)}')
+    frames = eng.rank_reports[0]['frames']
+    del eng
+    agreed = [agree(params, cfg, bs1_prompt, one['bs1']['tokens'],
+                    two['bs1']['tokens'], 'tp=2 bs1'),
+              agree(params, cfg, bs1_prompt, one['bs1_spec']['tokens'],
+                    two['bs1_spec']['tokens'], 'tp=2 bs1 speculative')]
+    agreed += [agree(params, cfg, p, a, b, f'tp=2 concurrent {len(p)}')
+               for p, a, b in zip(prompts, one['concurrent'],
+                                  two['concurrent'])]
+    if two['sampled'][0] != two['sampled'][1]:
+        raise AssertionError('tp=2: the seeded sampled runs differ')
+    a, b = one['logits'], two['logits']
+    rel = float((a - b).abs().max() / a.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0))
+    if not (rel <= 0.05 and cos >= 0.999):
+        raise AssertionError(f'tp=2 prompt logits: {rel:.3e} of max|logit|,'
+                             f' cosine {cos:.6f}')
+    log(f'  tp=2 against tp=1: greedy steps agreeing {agreed} (of '
+        f'{[len(one["bs1"]["tokens"]), len(one["bs1_spec"]["tokens"])]} + '
+        f'{n_new} each); prompt logits ({logits_len}) {rel:.3e} of '
+        f'max|logit|, cosine {cos:.6f}; seeded sampled pair identical; '
+        f'readback digests equal; follower replayed {frames} frames')
+    summary['tp2_vs_tp1'] = dict(agreed=agreed, logits_rel=rel,
+                                 logits_cos=cos, frames=frames)
+    for name in ('w4a16_gemm', 'paged_decode_attention_write[bf16]',
+                 'paged_prefill_attention[bf16]'):
+        if on_card:
+            ctx['kernels'].setdefault(name, {})['tp2_launches'] = [
+                r.get(name, 0) for r in two['rank_launches']]
+
+    # dp = 2: two groups of one rank each, 4 concurrent requests
+    eng, t_start = start(cfg, params, dp=2)
+    try:
+        inst = eng.create_instance()
+        t0 = time.monotonic()
+        toks, rate, sids = concurrent(inst, prompts, n_new)
+        groups = [eng.seqs.group_of(s) for s in sids]
+        cont = stream(inst, [5], greedy(8), session=sids[0],
+                      sequence_start=False)
+        kept = eng.seqs.group_of(sids[0])
+        for s in sids:
+            inst.end(s)
+        wall = time.monotonic() - t0
+        free = [eng.metrics()[f'free_pages_group{g}'] for g in range(2)]
+    finally:
+        t_stop = stop(eng, 'dp=2')
+    if sorted(set(groups)) != [0, 1] or kept != groups[0] \
+            or len(cont['tokens']) != 8:
+        raise AssertionError(f'dp=2 groups {groups}, continued in {kept}')
+    dp_agreed = [agree(params, cfg, p, a, b, f'dp=2 concurrent {len(p)}')
+                 for p, a, b in zip(prompts, one['concurrent'], toks)]
+    del eng
+    log(f'  dp=2 [{card}]: start {t_start:.1f} s, 4 concurrent '
+        f'{rate:.1f} tok/s ({placement(2)}), {wall:.1f} s, '
+        f'stop {t_stop:.1f} s; sessions in groups {groups}, the continued '
+        f'one stayed in {kept}; free pages per group {free}; steps agreeing '
+        f'with tp=1 {dp_agreed}')
+    summary['dp=2'] = dict(start_s=t_start, serve_s=wall, stop_s=t_stop,
+                           tok_s_4_concurrent=rate, groups=groups,
+                           agreed=dp_agreed)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # dp x tp = 2 x 2 (four ranks) against 1 x 1, at `shallow` layers
+    cfg4 = dataclasses.replace(cfg, num_layer=shallow)
+    params4 = random_packed_params(cfg4, 6, device)
+    res = {}
+    for label, kw in (('1x1', {}), ('2x2', dict(dp=2, tp=2))):
+        eng, t_start = start(cfg4, params4, **kw)
+        try:
+            t0 = time.monotonic()
+            toks, rate, _ = concurrent(eng.create_instance(), prompts,
+                                       n_new, sequence_end=True)
+            res[label] = (toks, rate, time.monotonic() - t0, t_start,
+                          eng.fns.collective_ms())
+        finally:
+            t_stop = stop(eng, label)
+        del eng
+    agreed4 = [agree(params4, cfg4, p, a, b, f'2x2 concurrent {len(p)}')
+               for p, a, b in zip(prompts, res['1x1'][0], res['2x2'][0])]
+    log(f'  dp x tp = 2 x 2 at {shallow} layers [{card}]: start '
+        f'{res["2x2"][3]:.1f} s, 4 concurrent {res["2x2"][1]:.1f} tok/s '
+        f'({placement(4)}) against {res["1x1"][1]:.1f} at '
+        f'1 x 1; one activation all-reduce [{ecfg.max_batch_size // 2}, '
+        f'{cfg.hidden_size}] {ms_or_dash(res["2x2"][4])} ms; steps agreeing '
+        f'{agreed4}')
+    summary['2x2'] = dict(start_s=res['2x2'][3], serve_s=res['2x2'][2],
+                          tok_s_4_concurrent=res['2x2'][1],
+                          tok_s_1x1=res['1x1'][1], agreed=agreed4)
+    passes_of.close()
+    ctx['parallel'] = summary
+    log(f'  rank 0 peak memory while starting (GiB, by config): '
+        f'{summary.get("start_peak_gib_rank0")}')
+    log(f'  parallel: {time.monotonic() - t_phase:.1f} s')
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -2934,7 +3486,8 @@ def main(argv=None) -> int:
             chunk64_over300=k.get('chunk64_over300'),
             layer_by_m=k.get('layer_by_m'), crossover=k.get('crossover'),
             cases=k.get('cases'), verify=k.get('verify'),
-            verify_m40=k.get('verify_m40'),
+            verify_m40=k.get('verify_m40'), tp2=k.get('tp2'),
+            tp2_launches=k.get('tp2_launches'),
             card=ctx.get('card')))
     log(f'total {time.monotonic() - t_all:.1f} s')
     log(ctx.get('card', '?'))       # nvidia-smi name, power.limit

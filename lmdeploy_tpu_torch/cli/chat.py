@@ -108,9 +108,16 @@ if __name__ == '__main__':
     ap.add_argument('--temperature', type=float, default=None)
     ap.add_argument('--top-p', type=float, default=None)
     ap.add_argument('--top-k', type=int, default=None)
-    ap.add_argument('--tp', type=int, default=1)
-    ap.add_argument('--pp', type=int, default=1)
-    ap.add_argument('--dp', type=int, default=1)
+    ap.add_argument('--tp', type=int, default=1,
+                    help='tensor-parallel ranks (one process each, spawned '
+                         'by the engine; a card each when there are enough, '
+                         'else they share the first)')
+    ap.add_argument('--pp', type=int, default=1,
+                    help='pipeline stages (not ported: above 1 raises)')
+    ap.add_argument('--dp', type=int, default=1,
+                    help='data-parallel groups: independent batches of '
+                         'max_batch_size / dp slots, each with its own '
+                         'page pool')
     ap.add_argument('--quant-policy', type=int, default=None,
                     choices=(0, 4, 8))
     ap.add_argument('--speculative-k', type=int, default=None,

@@ -33,15 +33,28 @@ default stop words, :meth:`TorchEngine.metrics` / ``overloaded`` and
 failed rebuild of the device state after a device error is retried at
 the top of every loop turn instead of ending the engine thread.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md
-item): tp / pp / dp > 1.  The JAX engine's
-fallback that turns speculation off after a failed speculative dispatch
-(a TPU runtime workaround) is not ported: such a failure takes the error
-path of any failed round.
+Parallelism (``parallel/``): ``EngineConfig.tp`` shards the weights and
+the KV heads over tp ranks (an all-reduce after wo and w2, the vocab
+gathered after lm_head); ``dp`` runs dp independent continuous batches,
+each with ``max_batch_size / dp`` slots, its own page pool (pool-local
+ids) and its own session store, sessions sticky to their group.  Rank 0
+is this engine: it runs the scheduler and frames every device dispatch to
+the other ranks (``parallel/multihost.py``), which it spawns as processes
+unless ``torch.distributed`` is already initialised at world tp * dp (one
+process per rank, then rank 0 calls ``serve_leader`` and the others
+``serve_follower``).  Under several ranks a failed dispatch is fatal: the
+engine answers its requests with INTERNAL_ERROR, logs the ranks' exit
+codes and stops; it never serves on with fewer ranks.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+pp > 1.  The JAX engine's fallback that turns speculation off after a
+failed speculative dispatch (a TPU runtime workaround) is not ported: such
+a failure takes the error path of any failed round.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import queue
 import threading
@@ -50,19 +63,22 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from ..config import EngineConfig, ModelConfig
 from ..kvcache.manager import (GroupedSequenceManager, NoFreePages,
                                PageAllocator, SequenceManager)
 from ..kvcache.native import NativeSequenceManager
-from ..kvcache.paged import (KV_WIDTHS, init_cache, kv_bits_named,
-                             kv_dyn_groups)
+from ..kvcache.paged import KV_WIDTHS, kv_bits_named, kv_dyn_groups
 from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
                         ResponseType)
 from ..ops import prng
 from ..ops.sampling import MAX_STOP_BAD_WORDS
+from ..parallel import multihost
+from ..parallel import tp as TP
 from ..utils.logger import get_logger
-from . import step as S
+from .step import StepFns
 
 log = get_logger()
 
@@ -91,6 +107,18 @@ def _is_device_error(e: BaseException) -> bool:
     by name."""
     return isinstance(e, RuntimeError) and not isinstance(
         e, (NotImplementedError, RecursionError))
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(map(_tree_bytes, tree.values()))
+    if dataclasses.is_dataclass(tree):
+        return sum(_tree_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
 
 
 def resolve_device(device) -> torch.device:
@@ -133,12 +161,22 @@ class TorchEngine:
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Dict[str, Any], device='cuda', start: bool = True,
-                 kv_scales=None, tokenizer=None, stop_words=None):
+                 kv_scales=None, tokenizer=None, stop_words=None,
+                 rank_timeout: float = multihost.DEFAULT_TIMEOUT_S):
+        """``rank_timeout``: seconds any collective among the ranks may
+        wait (tp * dp > 1) before the engine stops with RankFailure."""
         self.device = resolve_device(device)
-        if max(engine_cfg.tp, engine_cfg.pp, engine_cfg.dp) > 1:
+        if engine_cfg.pp > 1:
             raise NotImplementedError(
-                'tp/pp/dp > 1: parallelism is not ported yet '
-                '(ROADMAP.md Queue 1 item 7)')
+                'pp > 1: pipeline parallelism with the ring decode '
+                '(parallel/pp.py) is not ported yet (ROADMAP.md Queue 1 '
+                'item 7)')
+        self.tp, self.dp = max(1, engine_cfg.tp), max(1, engine_cfg.dp)
+        b = engine_cfg.max_batch_size
+        if b % self.dp:
+            raise ValueError(f'max_batch_size {b} not divisible by '
+                             f'dp={self.dp}')
+        self.b_local = b // self.dp
         kv_bits = kv_bits_named(engine_cfg.kv_dtype)
         kv_scales = kv_scales if kv_bits else None
         self._kv_width = KV_WIDTHS[kv_bits]
@@ -165,24 +203,57 @@ class TorchEngine:
         self.session_len = min(engine_cfg.session_len, model_cfg.session_len) \
             if model_cfg.session_len else engine_cfg.session_len
         self.max_pages_per_seq = -(-self.session_len // page)
-        num_pages = engine_cfg.num_pages or self._derive_num_pages()
-        if num_pages < self.max_pages_per_seq:
-            raise ValueError(f'{num_pages} pages cannot hold one session '
-                             f'of {self.max_pages_per_seq} pages')
+        self._procs: List[Any] = []
+        self.rank_exitcodes: List[Optional[int]] = []
+        self.rank_reports: List[Dict[str, Any]] = []
+        self.ranks = None
+        self.fns = None
+        self._own_group = False
+        self._rank_timeout = rank_timeout
+        world = self.tp * self.dp
+        shards = self._prepare_shards(params) if world > 1 else [params]
+        rank = dist.get_rank() if world > 1 and dist.is_initialized() else 0
+        self.params = shards[rank % self.tp]
+        num_pages = engine_cfg.num_pages or self._derive_num_pages(shards)
+        num_pages -= num_pages % self.dp   # one pool of pages per dp group
+        if num_pages // self.dp < self.max_pages_per_seq:
+            raise ValueError(
+                f'{num_pages} pages / dp={self.dp} cannot hold one '
+                f'session of {self.max_pages_per_seq} pages')
         self.num_pages = num_pages
-        self.cache, self.state = self._alloc_device_state()
+        if world > 1:
+            self._start_ranks(shards)
+        del shards
+        try:
+            pool, state_shape = self._rank_shapes(
+                self.ranks.tp_rank if self.ranks is not None else 0)
+            fns = StepFns(model_cfg, self.device, pool, state_shape,
+                          self.ranks)
+            self.cache, self.state = fns.alloc_device_state()
+        except BaseException:
+            self._stop_ranks()
+            raise
+        if self.ranks is not None and self.ranks.rank == 0:
+            # every dispatch is framed to the other ranks before it runs
+            fns = multihost.RecordingFns(
+                fns, multihost.FrameChannel(self.ranks.host_group))
+        self.fns = fns
         self.native_cache_manager = \
             os.environ.get('LMDEPLOY_TPU_NATIVE', '1') != '0'
+        # one store per dp group, over its pool-local page ids
+        pages_local = self.num_pages // self.dp
         if self.native_cache_manager:
-            store = NativeSequenceManager(
-                num_pages, page, engine_cfg.cache_max_entry_count,
+            stores = [NativeSequenceManager(
+                pages_local, page, engine_cfg.cache_max_entry_count,
                 enable_prefix_cache=engine_cfg.enable_prefix_caching)
+                for _ in range(self.dp)]
         else:
-            store = SequenceManager(
-                PageAllocator(num_pages), page,
+            stores = [SequenceManager(
+                PageAllocator(pages_local), page,
                 engine_cfg.cache_max_entry_count,
                 enable_prefix_cache=engine_cfg.enable_prefix_caching)
-        self.seqs = GroupedSequenceManager([store])
+                for _ in range(self.dp)]
+        self.seqs = GroupedSequenceManager(stores)
         self._scratch_id = -(1 << 40)  # prompt-logits scratch session ids
 
         self.slots: List[Optional[_Slot]] = \
@@ -221,19 +292,151 @@ class TorchEngine:
         if start:
             self._thread.start()
 
+    def start(self):
+        """Start the scheduler thread of a ``start=False`` engine."""
+        if not self._thread.is_alive():
+            self._thread.start()
+
     # -- construction helpers -------------------------------------------------
+    def _rank_shapes(self, tp_rank: int):
+        """One rank's ``init_cache`` / ``init_decode_state`` arguments: its
+        dp group's pages and slots, its KV heads and their qparams."""
+        pool = dict(num_layers=self.cfg.num_layer,
+                    num_pages=self.num_pages // self.dp,
+                    page_size=self.ecfg.page_size,
+                    kv_heads=self.cfg.kv_head_num // self.tp,
+                    head_dim=self.cfg.size_per_head,
+                    dtype=self._kv_width.dtype,
+                    kv_scales=TP.shard_kv_scales(self._kv_scales, self.tp,
+                                                 tp_rank),
+                    dynamic_scales=self._dyn_kv)
+        state_shape = dict(batch=self.b_local,
+                           max_pages=self.max_pages_per_seq,
+                           hist_len=self.session_len, eos_id=self.cfg.end_id)
+        return pool, state_shape
+
+    def _prepare_shards(self, params) -> List[Dict[str, Any]]:
+        """The tp ranks' weight blocks (``parallel/tp.py``), each checked
+        against the card's kernels when the engine runs on CUDA."""
+        if self.tp == 1:
+            shards = [params]
+        else:
+            prepared = TP.pack_params_for_tp(
+                TP.prepare_params_for_tp(params, self.cfg, self.tp), self.tp)
+            shards = [TP.shard_params(prepared, self.tp, r)
+                      for r in range(self.tp)]
+        if self.device.type == 'cuda':
+            for r, shard in enumerate(shards):
+                TP.check_kernel_shapes(shard, r)
+        return shards
+
+    def _rank_devices(self) -> List[torch.device]:
+        """Rank r on card r when there is a card per rank, else every rank
+        on the engine's device (ranks sharing one card, or the CPU)."""
+        world = self.tp * self.dp
+        if self.device.type == 'cuda' and torch.cuda.device_count() >= world:
+            return [torch.device('cuda', r) for r in range(world)]
+        dev = self.device
+        if dev.type == 'cuda' and dev.index is None:
+            dev = torch.device('cuda', torch.cuda.current_device())
+        return [dev] * world
+
+    def _start_ranks(self, shards) -> None:
+        """Join the ranks: the caller's ``torch.distributed`` group of
+        world tp * dp, or follower processes spawned here, each handed its
+        weight block as CPU shared-memory tensors.  A rank that does not
+        come up raises, with the exit codes of those that died."""
+        world = self.tp * self.dp
+        if dist.is_initialized():
+            if dist.get_world_size() != world:
+                raise ValueError(
+                    f'torch.distributed world {dist.get_world_size()} != '
+                    f'tp {self.tp} x dp {self.dp}')
+            self.ranks = TP.make_ranks(self.tp, self.dp, self.device,
+                                       self._rank_timeout)
+            # every rank sized its pool from its own device: take the least
+            pages = torch.tensor([self.num_pages])
+            dist.all_reduce(pages, dist.ReduceOp.MIN,
+                            group=self.ranks.host_group)
+            self.num_pages = int(pages)
+            return
+        devices = self._rank_devices()
+        if self.device.type == 'cuda':
+            # built once, here: every rank loads the same library
+            from ..ops.cuda import build
+            build.load()
+        self.device = devices[0]
+        self.params = multihost.to_device(self.params, self.device)
+        timeout = datetime.timedelta(seconds=self._rank_timeout)
+        store = dist.TCPStore('127.0.0.1', 0, world, True, timeout=timeout,
+                              wait_for_workers=False)
+        ctx = mp.get_context('spawn')
+        try:
+            for rank in range(1, world):
+                pool, state_shape = self._rank_shapes(rank % self.tp)
+                p = ctx.Process(
+                    target=multihost.run_rank, daemon=True,
+                    name=f'lmdeploy-rank{rank}',
+                    args=(rank, self.tp, self.dp, '127.0.0.1', store.port,
+                          self._rank_timeout, str(devices[rank]),
+                          torch.get_num_threads(), self.cfg, pool,
+                          state_shape,
+                          multihost.to_device(shards[rank % self.tp],
+                                               torch.device('cpu'))))
+                p.start()
+                self._procs.append(p)
+            deadline = time.monotonic() + self._rank_timeout
+            keys = [f'ready/{r}' for r in range(1, world)]
+            while not store.check(keys):
+                if any(p.exitcode is not None for p in self._procs) \
+                        or time.monotonic() > deadline:
+                    raise multihost.RankFailure(
+                        'ranks did not start: exit codes '
+                        f'{[p.exitcode for p in self._procs]}')
+                time.sleep(0.05)
+            dist.init_process_group('gloo', store=store, rank=0,
+                                    world_size=world, timeout=timeout)
+            self._own_group = True
+            self.ranks = TP.make_ranks(self.tp, self.dp, self.device,
+                                       self._rank_timeout)
+        except BaseException:
+            self._stop_ranks()
+            raise
+
+    def _stop_ranks(self) -> None:
+        """Stop the followers (the stop frame; their final reports land in
+        ``rank_reports``) and join the spawned ones within 30 s; a rank
+        that has not exited by then, or any rank when the stop frame could
+        not go out (the ranks are down, or never served), is killed.  Ends
+        the group this engine made: after a stop frame at once, since the
+        followers end theirs then and NCCL tears a communicator down on
+        all its ranks together."""
+        stopped = False
+        if isinstance(self.fns, multihost.RecordingFns):
+            try:
+                self.rank_reports = self.fns.stop()
+                stopped = self.fns.failure is None
+            except Exception:
+                log.exception('stopping the ranks failed')
+        if stopped:
+            self._end_group()
+        deadline = time.monotonic() + (30.0 if stopped else 0.0)
+        for p in self._procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+        self.rank_exitcodes = [p.exitcode for p in self._procs]
+        self._end_group()
+
+    def _end_group(self) -> None:
+        if self._own_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._own_group = False
+
     def _alloc_device_state(self):
-        """Fresh KV pool + decode state on the engine's device."""
-        cache = init_cache(self.cfg.num_layer, self.num_pages,
-                           self.ecfg.page_size, self.cfg.kv_head_num,
-                           self.cfg.size_per_head, self._kv_width.dtype,
-                           device=self.device, kv_scales=self._kv_scales,
-                           dynamic_scales=self._dyn_kv)
-        state = S.init_decode_state(self.ecfg.max_batch_size,
-                                    self.max_pages_per_seq, self.session_len,
-                                    eos_id=self.cfg.end_id,
-                                    device=self.device)
-        return cache, state
+        """Fresh KV pool + decode state on every rank."""
+        return self.fns.alloc_device_state()
 
     def _recover_device_state(self):
         """Drop every session and reallocate after a device error (the
@@ -249,22 +452,31 @@ class TorchEngine:
         self._rng_now = None
         self._prefill_jobs = []
 
-    def _derive_num_pages(self) -> int:
+    def _derive_num_pages(self, shards) -> int:
         """Pool size from free device memory (CUDA) or enough pages for
-        max_batch_size full sessions (CPU)."""
+        max_batch_size full sessions (CPU).  A rank holds kv_head_num / tp
+        heads; ranks that share the card split its budget, after the
+        weights of the followers still to come."""
         if self.device.type != 'cuda':
             return self.ecfg.max_batch_size * self.max_pages_per_seq
         bytes_per_tok = int(self.cfg.num_layer * 2 * self.cfg.kv_head_num
                             * self.cfg.size_per_head
-                            * self._kv_width.elem_bytes)
+                            * self._kv_width.elem_bytes) // self.tp
         if self._dyn_kv:
             # the dynamic qparams: 4 f32 per token-head-group and layer
             bytes_per_tok += (self.cfg.num_layer * 4 * 4 * self.cfg.kv_head_num
-                              * kv_dyn_groups(self.cfg.size_per_head))
+                              * kv_dyn_groups(self.cfg.size_per_head)
+                              ) // self.tp
+        world = self.tp * self.dp
+        sharing = world if len(set(self._rank_devices())) == 1 else 1
+        to_come = 0
+        if sharing > 1 and not dist.is_initialized():
+            to_come = sum(_tree_bytes(shards[r % self.tp])
+                          for r in range(1, world))
         free, _ = torch.cuda.mem_get_info(self.device)
-        pages = int(free * self.ecfg.hbm_utilization
-                    // (bytes_per_tok * self.ecfg.page_size))
-        return max(pages, 2 * self.max_pages_per_seq)
+        budget = (free - to_come) * self.ecfg.hbm_utilization / sharing
+        pages = int(budget // (bytes_per_tok * self.ecfg.page_size)) * self.dp
+        return max(pages, 2 * self.max_pages_per_seq * self.dp)
 
     # -- public API ----------------------------------------------------------
     def create_instance(self) -> 'EngineInstance':
@@ -303,14 +515,23 @@ class TorchEngine:
         out['pending_requests'] = len(self._pending)
         out['slots_busy'] = sum(1 for s in self.slots if s is not None)
         out['slots_total'] = len(self.slots)
-        out['free_pages_group0'] = self.seqs.free_count(0)
+        for g in range(self.dp):
+            out[f'free_pages_group{g}'] = self.seqs.free_count(g)
         out['native_cache_manager'] = int(self.native_cache_manager)
+        out['tp'], out['dp'] = self.tp, self.dp
+        out['device_group_nccl'] = int(self.ranks is not None
+                                       and self.ranks.backend == 'nccl')
         return out
 
     def shutdown(self):
+        """Stop the engine thread, then the other ranks (joined within
+        30 s; ``rank_exitcodes`` and ``rank_reports`` hold how they
+        ended)."""
         self._shutdown = True
         if self._thread.is_alive():
             self._thread.join(timeout=10)
+        if self.ranks is not None:
+            self._stop_ranks()
 
     def end_session(self, session_id: int):
         """Free a session's cache (sequence_end)."""
@@ -326,15 +547,38 @@ class TorchEngine:
     def _fail_all_safe(self):
         """:meth:`_fail_all`, but a failed rebuild (the device still out of
         memory, say) arms a retry at the top of each loop turn instead of
-        ending the engine thread."""
+        ending the engine thread.  With several ranks a failure is final
+        (:meth:`_ranks_down`)."""
         try:
             self._fail_all()
             self._needs_recovery = False
+        except multihost.RankFailure as e:
+            self._ranks_down(e)
         except Exception:
             log.exception('device-state recovery failed; will retry each '
                           'loop turn')
             self._needs_recovery = True
             time.sleep(0.5)
+
+    def _ranks_down(self, e: BaseException):
+        """The ranks fell out of step (one died, timed out or failed a
+        dispatch): the engine thread ends; every request already answered
+        or still waiting gets INTERNAL_ERROR (:func:`_get_or_dead`)."""
+        log.error('the engine\'s ranks are down (%s); spawned ranks\' exit '
+                  'codes %s; the engine stops', e,
+                  [p.exitcode for p in self._procs])
+        self._shutdown = True
+
+    def _ping_ranks(self):
+        """Keep the followers' wait for the next frame inside the group's
+        timeout while the leader is idle."""
+        fns = self.fns
+        if isinstance(fns, multihost.RecordingFns) and \
+                time.monotonic() - fns.last_frame > self._rank_timeout / 4:
+            try:
+                fns.ping()
+            except multihost.RankFailure as e:
+                self._ranks_down(e)
 
     def _loop(self):
         while not self._shutdown:
@@ -342,11 +586,16 @@ class TorchEngine:
                 try:
                     self._recover_device_state()
                     self._needs_recovery = False
+                except multihost.RankFailure as e:
+                    self._ranks_down(e)
+                    break
                 except Exception:
                     log.exception('device-state recovery failed; will '
                                   'retry each loop turn')
                     time.sleep(0.5)
             busy = any(s is not None for s in self.slots) or self._pending
+            if not busy:
+                self._ping_ranks()
             try:
                 batch = [self._requests.get(timeout=0.0 if busy else 0.05)]
                 while True:
@@ -468,7 +717,7 @@ class TorchEngine:
         self._pending = kept
         for i, slot in enumerate(self.slots):
             if slot is not None and slot.request.session_id == req.session_id:
-                S.set_finished(self.state, i)
+                self.fns.set_finished(self.state, i)
                 slot.done = True
                 slot.out_q.put(EngineOutput(
                     ResponseType.CANCELED,
@@ -493,16 +742,16 @@ class TorchEngine:
             return
         self._scratch_id -= 1          # a unique negative session id
         scratch_id = self._scratch_id
+        # dp group 0 holds scratch sessions (StepFns.prefill_logits)
         seq = self.seqs.create(scratch_id, 0)
         seq.active = True              # shielded from eviction
         try:
             self.seqs.grow(seq, len(ids))
-            row = self._dev(self._page_row(seq))
+            row = self._page_row(seq)
             out = []
             for padded, pos, n in self._iter_chunks(ids, 0):
-                logits = S.prefill_logits(self.params, self.cache, row,
-                                          self._dev(padded), pos, n,
-                                          self.cfg)
+                logits = self.fns.prefill_logits(self.params, self.cache,
+                                                 row, padded, pos, n)
                 out.append(logits[:n, :self.cfg.vocab_size].float())
             status, logits = (ResponseType.FINISH,
                               torch.cat(out).cpu().numpy())
@@ -512,15 +761,42 @@ class TorchEngine:
             self.seqs.erase(scratch_id)
         out_q.put(EngineOutput(status, [], 0, finished=True, logits=logits))
 
-    def _free_slot_index(self) -> Optional[int]:
-        for i, s in enumerate(self.slots):
-            if s is None:
+    def _free_slot_index(self, group: Optional[int] = None) -> Optional[int]:
+        """First free slot, in ``group``'s slot range when a session is
+        sticky to a dp group (its pages live in that group's pool)."""
+        rng = range(len(self.slots)) if group is None else \
+            range(group * self.b_local, (group + 1) * self.b_local)
+        for i in rng:
+            if self.slots[i] is None:
                 return i
         return None
 
+    def _pick_group(self) -> Optional[int]:
+        """Least-loaded dp group with a free slot (running slots first,
+        then free pages)."""
+        best, best_key = None, None
+        for g in range(self.dp):
+            if self._free_slot_index(g) is None:
+                continue
+            running = sum(1 for i in range(g * self.b_local,
+                                           (g + 1) * self.b_local)
+                          if self.slots[i] is not None)
+            key = (running, -self.seqs.free_count(g))
+            if best_key is None or key < best_key:
+                best, best_key = g, key
+        return best
+
     def _admit(self, req: EngineRequest, out_q: queue.Queue,
                enq_t: Optional[float] = None):
-        slot_idx = self._free_slot_index()
+        # dp groups: a continued session is sticky to the group holding
+        # its pages; a new one goes to the least-loaded group
+        if not req.sequence_start and req.session_id in self.seqs:
+            group = self.seqs.group_of(req.session_id)
+            slot_idx = self._free_slot_index(group)
+        else:
+            group = self._pick_group()
+            slot_idx = None if group is None \
+                else self._free_slot_index(group)
         if slot_idx is None:
             # busy engine: wait for a free slot (continuous batching)
             self._pending.append((req, out_q,
@@ -529,7 +805,7 @@ class TorchEngine:
             return
         self.stats['requests'] += 1
         if req.sequence_start:
-            seq = self.seqs.create(req.session_id, 0)
+            seq = self.seqs.create(req.session_id, group)
         else:
             seq = self.seqs.fetch(req.session_id)
             if req.step and req.step < len(seq.token_ids):
@@ -569,9 +845,10 @@ class TorchEngine:
         start_pos = seq.cache_len
         hist = np.zeros((self.session_len,), np.int32)
         hist[:total_len] = all_ids
-        S.install_slot(self.state, slot_idx, all_ids[-1], total_len - 1,
-                       hist, total_len, self._page_row(seq),
-                       self._sampling_row(gen, seq, max_new))
+        self.fns.install_slot(self.state, slot_idx, all_ids[-1],
+                              total_len - 1, hist, total_len,
+                              self._page_row(seq),
+                              self._sampling_row(gen, seq, max_new))
 
         stop_seqs = self._stop_sequences(gen)
         multi = [sw for sw in stop_seqs if len(sw) > 1]
@@ -591,7 +868,7 @@ class TorchEngine:
             # prefill deferred to one batched pass (_flush_prefills); the
             # slot sits inactive until its KV is written
             slot.prefilling = True
-            S.set_active(self.state, slot_idx, False)
+            self.fns.set_active(self.state, slot_idx, False)
             self._prefill_jobs.append((slot_idx, prefill_ids, start_pos))
 
     def _page_row(self, seq) -> np.ndarray:
@@ -628,8 +905,7 @@ class TorchEngine:
             repetition_penalty=gen.repetition_penalty,
             presence_penalty=gen.presence_penalty,
             frequency_penalty=gen.frequency_penalty,
-            rng_key=torch.from_numpy(key.view(np.int32).copy()),
-            bad_words=torch.from_numpy(bad), stop_words=torch.from_numpy(stop),
+            rng_key=key.view(np.int32).copy(), bad_words=bad, stop_words=stop,
             eos_id=self.cfg.end_id, ignore_eos=bool(gen.ignore_eos),
             min_new_tokens=gen.min_new_tokens, max_new_tokens=max_new)
 
@@ -659,9 +935,6 @@ class TorchEngine:
         self._decode_round(self.ecfg.step_length
                            if k >= self.ecfg.step_length else 1)
 
-    def _dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr)).to(self.device)
-
     def _flush_prefills(self):
         """Prefill every queued admission in batched chunk passes: each
         pass appends ONE chunk for every unfinished job."""
@@ -687,11 +960,10 @@ class TorchEngine:
                 chunk = ids[offs[j]:offs[j] + budget]
                 for padded, pos, n in self._iter_chunks(chunk,
                                                         start + offs[j]):
-                    S.prefill_chunks(self.params, self.cache, self.state,
-                                     self._dev([slot_idx]),
-                                     self._dev(padded[None]),
-                                     self._dev(np.int32([pos])),
-                                     self._dev(np.int32([n])), self.cfg)
+                    self.fns.prefill_chunks(
+                        self.params, self.cache, self.state,
+                        np.int32([slot_idx]), padded[None], np.int32([pos]),
+                        np.int32([n]))
                     self.stats['prefill_passes'] += 1
                 offs[j] += len(chunk)
             else:
@@ -717,10 +989,9 @@ class TorchEngine:
                     slots_arr[r] = slot_idx
                     starts_arr[r] = pos
                     lens_arr[r] = len(chunk)
-                S.prefill_chunks(self.params, self.cache, self.state,
-                                 self._dev(slots_arr), self._dev(ids_arr),
-                                 self._dev(starts_arr), self._dev(lens_arr),
-                                 self.cfg)
+                self.fns.prefill_chunks(self.params, self.cache, self.state,
+                                        slots_arr, ids_arr, starts_arr,
+                                        lens_arr)
                 self.stats['prefill_passes'] += 1
             self._interleave_decode()
         for slot_idx, ids, start in jobs:
@@ -729,7 +1000,7 @@ class TorchEngine:
                 continue
             slot.seq.cache_len = start + len(ids)
             slot.prefilling = False
-            S.set_active(self.state, slot_idx, True)
+            self.fns.set_active(self.state, slot_idx, True)
             if self.ecfg.enable_prefix_caching:
                 # insert-only publish: the prompt is shareable now, not
                 # only at retirement
@@ -746,7 +1017,8 @@ class TorchEngine:
             need = min(slot.context_len + steps, self.session_len)
             if need > len(slot.seq.pages) * page:
                 self.seqs.grow(slot.seq, need)
-                S.set_page_row(self.state, i, self._page_row(slot.seq))
+                self.fns.set_page_row(self.state, i,
+                                      self._page_row(slot.seq))
 
     def _decode_round(self, steps: int):
         """One dispatch of ``steps`` decode steps (or speculative rounds)
@@ -792,12 +1064,11 @@ class TorchEngine:
         # through its 'candidates' mode with top_k 1 (a TPU schedule
         # choice), whose token is the same argmax; the port calls
         # 'greedy'.  Keys split alike in both.
-        self.state, packed, _ = S.decode_steps(
-            self.params, self.cache, self.state, self.cfg, num_steps=k,
+        self.state, arr = self.fns.decode_steps(
+            self.params, self.cache, self.state, num_steps=k,
             sampling_mode='greedy' if greedy else sampled, topn=topn,
-            passes=passes)
+            passes=passes)                # arr: [5 + 2*topn, k, B]
         self.stats['decode_steps'] += k
-        arr = packed.cpu().numpy()        # [5 + 2*topn, k, B]
         logprobs = np.ascontiguousarray(arr[2]).view(np.float32)
         for t in range(k):
             # the key as of sub-step t: a slot retired at t saves it
@@ -822,13 +1093,12 @@ class TorchEngine:
         evidence."""
         kp1 = self.ecfg.speculative_k + 1
         self._grow_pages(rounds * kp1)
-        self.state, packed = S.spec_decode_rounds(
-            self.params, self.cache, self.state, self.cfg,
-            num_rounds=rounds, k_draft=kp1 - 1,
-            ngram=self.ecfg.speculative_ngram,
+        # arr: [R, 3*kp1 + 3 + 2*kp1*topn, B]
+        self.state, arr = self.fns.spec_decode_rounds(
+            self.params, self.cache, self.state, num_rounds=rounds,
+            k_draft=kp1 - 1, ngram=self.ecfg.speculative_ngram,
             ngram_min=self.ecfg.speculative_ngram_min, sampling=sampling,
             topn=topn, passes=passes)
-        arr = packed.cpu().numpy()   # [R, 3*kp1 + 3 + 2*kp1*topn, B]
         emitted = arr[:, 2 * kp1]                           # [R, B]
         if int((emitted.sum(axis=1) > 0).sum()) >= 8:
             acc = float(emitted.sum() / max((emitted > 0).sum(), 1))
@@ -903,7 +1173,7 @@ class TorchEngine:
                         hit_stop = sw
                         break
             if hit_stop and not finished:
-                S.set_finished(self.state, i)
+                self.fns.set_finished(self.state, i)
                 finished = True
             new_tokens = slot.seq.token_ids[slot.prompt_len:]
             # stop text never reaches the client; while running, withhold
@@ -939,9 +1209,8 @@ class TorchEngine:
         if self._rng_now is not None and slot.saw_round:
             slot.seq.rng_key = self._rng_now[slot_idx]
         else:
-            slot.seq.rng_key = self.state.sampling.rng_key[slot_idx] \
-                .cpu().numpy().view(np.uint32)
-        S.clear_slot(self.state, slot_idx)
+            slot.seq.rng_key = self.fns.slot_key(self.state, slot_idx)
+        self.fns.clear_slot(self.state, slot_idx)
         if self.ecfg.enable_prefix_caching:
             # unbound from the slot first, then its full pages go into the
             # prefix index (safe even though erase may free the rest)

@@ -14,15 +14,20 @@ the slot-surgery helpers update the state tensors in place.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import time
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..kvcache.paged import KVCache
+from ..kvcache.paged import KVCache, init_cache
 from ..models.llama import StepBatch, forward, mask_vocab_padding
 from ..ops import prng
+from ..ops.cuda.counts import LAUNCHES, PLAIN_CALLS
 from ..ops.sampling import (SamplingState, check_stop, greedy_tops,
                             sample_step)
 from ..ops.speculative import (ngram_propose, repeat_rows,
@@ -62,8 +67,13 @@ def init_decode_state(batch: int, max_pages: int, hist_len: int,
 
 def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
                 cfg: ModelConfig, *, sampling_mode: str = 'greedy',
-                topn: int = 0, passes: Optional[Tuple[bool, bool]] = None):
+                topn: int = 0, passes: Optional[Tuple[bool, bool]] = None,
+                group=None):
     """One generation step for every running slot.
+
+    Under a tensor-parallel ``group`` (``models/llama.py::forward``) every
+    rank samples from the gathered logits with the same keys, so the
+    ranks' states stay identical without another collective.
 
     ``sampling_mode`` ('greedy' / 'candidates' / 'full'), ``topn`` and
     ``passes`` are chosen by the host (ops/sampling.py::sample_step).
@@ -75,7 +85,7 @@ def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
                       valid=run[:, None],
                       context_len=state.context_len + 1,
                       page_table=state.page_table)
-    logits, _ = forward(params, cache, batch, cfg)
+    logits, _ = forward(params, cache, batch, cfg, group=group)
     logits = mask_vocab_padding(logits, cfg.vocab_size)
     smp = state.sampling
     sampled = sample_step(logits, smp, state.history, state.history_len,
@@ -109,7 +119,7 @@ def _f32_bits(x: torch.Tensor) -> torch.Tensor:
 def decode_steps(params, cache: KVCache, state: DecodeState,
                  cfg: ModelConfig, *, num_steps: int,
                  sampling_mode: str = 'greedy', topn: int = 0,
-                 passes: Optional[Tuple[bool, bool]] = None):
+                 passes: Optional[Tuple[bool, bool]] = None, group=None):
     """``num_steps`` generation steps; the host reads ONE packed tensor.
 
     Returns (state, packed int32 [5 + 2*topn, k, B], logprobs f32 [k, B]);
@@ -121,7 +131,7 @@ def decode_steps(params, cache: KVCache, state: DecodeState,
     for _ in range(num_steps):
         state, tok, fin, lp, top = decode_step(
             params, cache, state, cfg, sampling_mode=sampling_mode,
-            topn=topn, passes=passes)
+            topn=topn, passes=passes, group=group)
         toks.append(tok)
         fins.append(fin.to(torch.int32))
         lps.append(lp)
@@ -143,7 +153,8 @@ def spec_decode_round(params, cache: KVCache, state: DecodeState,
                       cfg: ModelConfig, *, k_draft: int, ngram: int = 3,
                       ngram_min: int = 0, sampling: str = 'greedy',
                       topn: int = 0,
-                      passes: Optional[Tuple[bool, bool]] = None):
+                      passes: Optional[Tuple[bool, bool]] = None,
+                      group=None):
     """One speculative round for every running slot: propose ``k_draft``
     tokens by prompt lookup, verify them and the model's own next token in
     ONE [B, K+1] forward (the paged prefill kernel at T = K+1), accept the
@@ -176,7 +187,7 @@ def spec_decode_round(params, cache: KVCache, state: DecodeState,
     batch = StepBatch(ids=ids, positions=pos, valid=valid,
                       context_len=ctx_end, page_table=state.page_table)
     logits, _ = forward(params, cache, batch, cfg, return_all_logits=True,
-                        logits_count=kp1)
+                        logits_count=kp1, group=group)
     logits = mask_vocab_padding(logits, cfg.vocab_size)       # [B,K+1,V]
 
     smp = state.sampling
@@ -237,7 +248,8 @@ def spec_decode_rounds(params, cache: KVCache, state: DecodeState,
                        cfg: ModelConfig, *, num_rounds: int, k_draft: int,
                        ngram: int = 3, ngram_min: int = 0,
                        sampling: str = 'greedy', topn: int = 0,
-                       passes: Optional[Tuple[bool, bool]] = None):
+                       passes: Optional[Tuple[bool, bool]] = None,
+                       group=None):
     """``num_rounds`` speculative rounds; the host reads ONE packed tensor.
 
     Returns (state, packed int32 [R, 3*(K+1)+3 + 2*(K+1)*topn, B]): per
@@ -251,7 +263,8 @@ def spec_decode_rounds(params, cache: KVCache, state: DecodeState,
     for _ in range(num_rounds):
         state, g, fin_emit, n, logp, tops = spec_decode_round(
             params, cache, state, cfg, k_draft=k_draft, ngram=ngram,
-            ngram_min=ngram_min, sampling=sampling, topn=topn, passes=passes)
+            ngram_min=ngram_min, sampling=sampling, topn=topn, passes=passes,
+            group=group)
         b = g.shape[0]
         planes = [g.T, fin_emit.to(torch.int32).T, n[None], _f32_bits(logp).T,
                   state.sampling.rng_key.to(torch.int32).T]
@@ -265,7 +278,7 @@ def spec_decode_rounds(params, cache: KVCache, state: DecodeState,
 
 
 def prefill_chunks(params, cache: KVCache, state: DecodeState, slots,
-                   ids, start_pos, lengths, cfg: ModelConfig):
+                   ids, start_pos, lengths, cfg: ModelConfig, group=None):
     """Append one chunk for every row in one pass (the reference's batched
     context decode).  slots int [Bp] (padding rows: any slot, length 0);
     ids int [Bp, T]; start_pos / lengths int [Bp].  Returns last-valid-
@@ -277,12 +290,12 @@ def prefill_chunks(params, cache: KVCache, state: DecodeState, slots,
     batch = StepBatch(ids=ids, positions=pos, valid=valid,
                       context_len=start_pos + lengths,
                       page_table=state.page_table[slots.long()])
-    logits, _ = forward(params, cache, batch, cfg)
+    logits, _ = forward(params, cache, batch, cfg, group=group)
     return logits
 
 
 def prefill_logits(params, cache: KVCache, page_row, ids, start_pos: int,
-                   length: int, cfg: ModelConfig):
+                   length: int, cfg: ModelConfig, group=None):
     """Like :func:`prefill_chunks` for one chunk, but the logits of ALL its
     positions (the reference's return-logits path): ids int [T] padded,
     ``length`` of them real, at ``start_pos``; page_row int32 [MAXP], a
@@ -295,7 +308,8 @@ def prefill_logits(params, cache: KVCache, page_row, ids, start_pos: int,
                       context_len=torch.full((1,), start_pos + length,
                                              dtype=torch.int32, device=dev),
                       page_table=page_row[None])
-    logits, _ = forward(params, cache, batch, cfg, return_all_logits=True)
+    logits, _ = forward(params, cache, batch, cfg, return_all_logits=True,
+                        group=group)
     return logits[0]
 
 
@@ -338,7 +352,221 @@ def set_page_row(state: DecodeState, slot: int, page_row) -> None:
     state.page_table[slot] = torch.as_tensor(page_row)
 
 
+# -- the engine's dispatch seam ----------------------------------------------
+
+class StepFns:
+    """The step functions of one rank, as the engine calls them.
+
+    The engine speaks in GLOBAL batch slots and host arrays; this object
+    maps them onto this rank's dp group (slots ``[g * b_local, (g+1) *
+    b_local)``, a pool of pool-local pages), passes the tensor-parallel
+    group down to the forward, and returns every readback as a host array
+    over all B slots (gathered from the groups over the host group).  With
+    one rank it is the module functions above.  Every method whose name is
+    in ``parallel/multihost.py::_DEV_IN`` takes host arguments only after
+    the device state, so that the leader can frame the call to the other
+    ranks before it issues it.
+
+    ``pool`` and ``state_shape``: this rank's :func:`init_cache` and
+    :func:`init_decode_state` arguments (local pages, KV heads, slots)."""
+
+    def __init__(self, cfg: ModelConfig, device, pool: Dict[str, Any],
+                 state_shape: Dict[str, Any], ranks=None):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.pool = pool
+        self.state_shape = state_shape
+        self.ranks = ranks
+        self.b_local = state_shape['batch']
+        self.dp = ranks.dp if ranks is not None else 1
+        self.group = ranks.device_group if ranks is not None \
+            and ranks.tp > 1 else None
+        self._hash = hashlib.sha256()
+        # host seconds of the rounds' dispatches: issuing them, then
+        # waiting for their readback (the device, and the other ranks)
+        self.host_s = {'issue': 0.0, 'wait': 0.0}
+
+    @property
+    def dp_rank(self) -> int:
+        return self.ranks.dp_rank if self.ranks is not None else 0
+
+    def _dev(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr)).to(self.device)
+
+    def _local(self, slot: int) -> Optional[int]:
+        """This rank's index of global slot ``slot``, or None when another
+        dp group holds it."""
+        g, i = divmod(int(slot), self.b_local)
+        return i if g == self.dp_rank else None
+
+    def _readback(self, packed: torch.Tensor, t0: float) -> np.ndarray:
+        """The packed readback, batch last, over every group's slots, of a
+        dispatch issued from ``t0`` (perf_counter) until now."""
+        t1 = time.perf_counter()
+        arr = packed.cpu().numpy()
+        self.host_s['issue'] += t1 - t0
+        self.host_s['wait'] += time.perf_counter() - t1
+        self._hash.update(arr.tobytes())
+        if self.dp == 1:
+            return arr
+        t = torch.from_numpy(arr)
+        r = self.ranks
+        parts = [torch.empty_like(t) for _ in range(r.world)] \
+            if r.rank == 0 else None
+        dist.gather(t, parts, dst=0, group=r.host_group)
+        if r.rank != 0:
+            return arr
+        return np.concatenate([parts[g * r.tp].numpy()
+                               for g in range(r.dp)], axis=-1)
+
+    def alloc_device_state(self):
+        """A fresh zeroed pool and decode state for this rank."""
+        cache = init_cache(**self.pool, device=self.device)
+        state = init_decode_state(**self.state_shape, device=self.device)
+        return cache, state
+
+    def decode_steps(self, params, cache, state, num_steps: int,
+                     sampling_mode: str = 'greedy', topn: int = 0,
+                     passes=None):
+        """:func:`decode_steps`; returns (state, packed [5 + 2*topn, k, B])
+        as a host array."""
+        t0 = time.perf_counter()
+        state, packed, _ = decode_steps(
+            params, cache, state, self.cfg, num_steps=num_steps,
+            sampling_mode=sampling_mode, topn=topn, passes=passes,
+            group=self.group)
+        return state, self._readback(packed, t0)
+
+    def spec_decode_rounds(self, params, cache, state, num_rounds: int,
+                           k_draft: int, ngram: int = 3, ngram_min: int = 0,
+                           sampling: str = 'greedy', topn: int = 0,
+                           passes=None):
+        """:func:`spec_decode_rounds`; returns (state, packed [R, rows, B])
+        as a host array."""
+        t0 = time.perf_counter()
+        state, packed = spec_decode_rounds(
+            params, cache, state, self.cfg, num_rounds=num_rounds,
+            k_draft=k_draft, ngram=ngram, ngram_min=ngram_min,
+            sampling=sampling, topn=topn, passes=passes, group=self.group)
+        return state, self._readback(packed, t0)
+
+    def prefill_chunks(self, params, cache, state, slots, ids, start_pos,
+                       lengths) -> None:
+        """:func:`prefill_chunks` over this group's rows of the pass (host
+        arrays; padding rows have length 0).  The JAX dp program runs every
+        row on every group with the other groups' rows masked; here a group
+        runs its own rows, and none when it has none."""
+        slots = np.asarray(slots)
+        mine = slots // self.b_local == self.dp_rank
+        if not mine.any():
+            return
+        if not mine.all():
+            slots, ids, start_pos, lengths = (
+                np.asarray(a)[mine] for a in (slots, ids, start_pos,
+                                              lengths))
+        prefill_chunks(params, cache, state, self._dev(slots % self.b_local),
+                       self._dev(ids), self._dev(start_pos),
+                       self._dev(lengths), self.cfg, group=self.group)
+
+    def prefill_logits(self, params, cache, page_row, ids, start_pos: int,
+                       length: int) -> Optional[torch.Tensor]:
+        """:func:`prefill_logits` on dp group 0, which holds the scratch
+        session's pages (the JAX dp program masks the other groups' writes
+        and selects group 0's logits); None on the other groups."""
+        if self.dp_rank != 0:
+            return None
+        return prefill_logits(params, cache, self._dev(page_row),
+                              self._dev(ids), int(start_pos), int(length),
+                              self.cfg, group=self.group)
+
+    def install_slot(self, state, slot: int, *args) -> None:
+        i = self._local(slot)
+        if i is not None:
+            install_slot(state, i, *args)
+
+    def clear_slot(self, state, slot: int) -> None:
+        i = self._local(slot)
+        if i is not None:
+            clear_slot(state, i)
+
+    def set_finished(self, state, slot: int) -> None:
+        i = self._local(slot)
+        if i is not None:
+            set_finished(state, i)
+
+    def set_active(self, state, slot: int, value: bool) -> None:
+        i = self._local(slot)
+        if i is not None:
+            set_active(state, i, value)
+
+    def set_page_row(self, state, slot: int, page_row) -> None:
+        i = self._local(slot)
+        if i is not None:
+            set_page_row(state, i, page_row)
+
+    def slot_key(self, state, slot: int) -> np.ndarray:
+        """The rng key (uint32 [2]) of global slot ``slot``, on rank 0 from
+        the first rank of the slot's dp group."""
+        i = self._local(slot)
+        key = state.sampling.rng_key[i].cpu() if i is not None \
+            else torch.zeros((2,), dtype=state.sampling.rng_key.dtype)
+        if self.dp > 1:
+            owner = int(slot) // self.b_local * self.ranks.tp
+            dist.broadcast(key, src=owner, group=self.ranks.host_group)
+        return key.numpy().view(np.uint32)
+
+    def collective_ms(self, iters: int = 64) -> Optional[float]:
+        """Wall ms per activation all-reduce on this rank's device group:
+        ``iters`` back-to-back calls on [b_local, hidden] in bf16 (f32 on
+        the CPU), as the forward issues them, then one synchronise.  None
+        with one tp rank."""
+        if self.group is None:
+            return None
+        dtype = torch.bfloat16 if self.device.type == 'cuda' \
+            else torch.float32
+        x = torch.ones((self.b_local, self.cfg.hidden_size), dtype=dtype,
+                       device=self.device)
+        dist.all_reduce(x, group=self.group)        # connects, warms up
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dist.all_reduce(x, group=self.group)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    def report(self) -> Dict[str, Any]:
+        """This rank's kernel counters, readback digest, host seconds of
+        the rounds (``host_s``) and peak memory."""
+        r = self.ranks
+        return {'rank': r.rank if r is not None else 0,
+                'device': str(self.device),
+                'backend': r.backend if r is not None else None,
+                'launches': dict(LAUNCHES), 'plain_calls': dict(PLAIN_CALLS),
+                'readback_sha256': self._hash.hexdigest(),
+                'host_s': dict(self.host_s),
+                'peak_bytes': torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == 'cuda' else 0}
+
+    def rank_report(self, reset: bool = False):
+        """Every rank's :meth:`report` on rank 0 (a list by rank; None on
+        the others); ``reset`` then sets each rank's counters and host
+        seconds to 0."""
+        mine = self.report()
+        if reset:
+            LAUNCHES.clear()
+            PLAIN_CALLS.clear()
+            self.host_s = dict.fromkeys(self.host_s, 0.0)
+        r = self.ranks
+        if r is None:
+            return [mine]
+        out = [None] * r.world if r.rank == 0 else None
+        dist.gather_object(mine, out, dst=0, group=r.host_group)
+        return out
+
+
 __all__ = ['DecodeState', 'init_decode_state', 'decode_step', 'decode_steps',
            'spec_decode_round', 'spec_decode_rounds', 'prefill_chunks',
            'prefill_logits', 'install_slot', 'clear_slot', 'set_finished',
-           'set_active', 'set_page_row']
+           'set_active', 'set_page_row', 'StepFns']

@@ -42,6 +42,7 @@ import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import ModelConfig
@@ -199,10 +200,10 @@ def pack_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig):
-    """[B, T, (H + 2KH) * Dh] -> q [B,T,H,Dh], k/v [B,T,KH,Dh]."""
+def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig, tp: int = 1):
+    """[B, T, (H + 2KH)/tp * Dh] -> q [B,T,H/tp,Dh], k/v [B,T,KH/tp,Dh]."""
     b, t, _ = qkv.shape
-    h, kh, dh = cfg.head_num, cfg.kv_head_num, cfg.size_per_head
+    h, kh, dh = cfg.head_num // tp, cfg.kv_head_num // tp, cfg.size_per_head
     qkv = qkv.reshape(b, t, h + 2 * kh, dh)
     return (qkv[:, :, :h].contiguous(), qkv[:, :, h:h + kh].contiguous(),
             qkv[:, :, h + kh:].contiguous())
@@ -238,9 +239,15 @@ def _layer_linear(x: torch.Tensor, w, layer: int,
 def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
                    h: torch.Tensor, cfg: ModelConfig,
                    hook: Optional[Callable[[int, str, torch.Tensor], None]]
-                   = None) -> torch.Tensor:
+                   = None, group=None) -> torch.Tensor:
     """The layer loop on an embedded activation [B, T, D]; returns the
     final hidden state.  The pool is updated in place.
+
+    ``group``: the tensor-parallel process group (None: one rank).  Each
+    rank holds its ``parallel/tp.py::shard_params`` block and KV heads
+    ``kv_head_num / tp`` of the pool; the outputs of wo and w2 are summed
+    over the group in the activation dtype before any bias, where the JAX
+    package calls ``psum``.
 
     ``hook(layer, name, x)``, when given, sees each projection's input
     (``'attn_in'``: the attention norm's output, the input of wqkv;
@@ -251,6 +258,7 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
     the decode kernel so that the hook sees it applied."""
     b, t = batch.ids.shape
     dh = cfg.size_per_head
+    tp = 1 if group is None else dist.get_world_size(group)
     tables = rope_tables(
         batch.positions, batch.context_len,
         rotary_dim=cfg.rotary_embedding, base=cfg.rope_theta,
@@ -281,7 +289,8 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         x = rms_norm(h, lw['attn_norm'][li], cfg.norm_eps)
         if hook is not None:
             hook(li, 'attn_in', x)
-        q, k, v = _split_qkv(_layer_linear(x, lw['wqkv'], li, bqkv), cfg)
+        q, k, v = _split_qkv(_layer_linear(x, lw['wqkv'], li, bqkv), cfg,
+                             tp)
         qp_l = None if qp is None else qp[li]
         if not fused_rope:
             q, k = apply_rope_qk(q, k, tables)
@@ -331,6 +340,8 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         if hook is not None:
             hook(li, 'attn_out', o)
         o = _layer_linear(o, lw['wo'], li)
+        if group is not None:
+            dist.all_reduce(o, group=group)
         if 'bo' in lw:
             o = o + lw['bo'][li]
         h = h + o
@@ -342,16 +353,34 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         act = F.silu(gate.float()).to(up.dtype) * up
         if hook is not None:
             hook(li, 'ffn_act', act)
-        h = h + _layer_linear(act, lw['w2'], li)
+        f = _layer_linear(act, lw['w2'], li)
+        if group is not None:
+            dist.all_reduce(f, group=group)
+        h = h + f
     return h
+
+
+def _gather_logits(logits: torch.Tensor, group) -> torch.Tensor:
+    """The vocab shards' logits, concatenated on every rank (reference:
+    LlamaV2.cc:360): each rank places its block in a zeroed full-vocab
+    buffer and the group sums them, exactly (x + 0 = x), over the one
+    collective that NCCL and gloo both take on CUDA tensors."""
+    tp, rank = dist.get_world_size(group), dist.get_rank(group)
+    v = logits.shape[-1]
+    full = logits.new_zeros((*logits.shape[:-1], v * tp))
+    full[..., rank * v:(rank + 1) * v] = logits
+    dist.all_reduce(full, group=group)
+    return full
 
 
 def lm_head_logits(params: Dict[str, Any], h_out: torch.Tensor,
                    batch: StepBatch, cfg: ModelConfig, *,
                    return_all_logits: bool = False,
-                   logits_count: Optional[int] = None) -> torch.Tensor:
+                   logits_count: Optional[int] = None,
+                   group=None) -> torch.Tensor:
     """Final norm + lm_head -> f32 logits: [B, V] at each row's last valid
-    token, or [B, T, V] with ``return_all_logits``."""
+    token, or [B, T, V] with ``return_all_logits``.  Under a tp ``group``
+    the lm_head is each rank's vocab block and the logits are gathered."""
     h_out = rms_norm(h_out, params['norm'], cfg.norm_eps)
     if return_all_logits and logits_count is not None:
         h_out = h_out[:, :logits_count]
@@ -371,21 +400,24 @@ def lm_head_logits(params: Dict[str, Any], h_out: torch.Tensor,
         # the CPU has no bf16 GEMM with an f32 output: the same bf16
         # values multiplied in f32 (each product exact), f32 logits
         logits = torch.mm(h2.float(), lm_head.float())
-    return logits.reshape(*lead, -1)
+    logits = logits.reshape(*lead, -1)
+    return logits if group is None else _gather_logits(logits, group)
 
 
 def forward(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
             cfg: ModelConfig, *, return_all_logits: bool = False,
-            logits_count: Optional[int] = None):
+            logits_count: Optional[int] = None, group=None):
     """One step: embed -> layers -> final norm -> lm_head.
 
     Returns (logits, cache): logits [B, V] (last valid position per row) or
-    [B, T, V]; ``cache`` is the same pool object, updated in place."""
+    [B, T, V]; ``cache`` is the same pool object, updated in place.
+    ``group``: the tensor-parallel process group (:func:`forward_layers`);
+    the logits are full-vocab on every rank."""
     h = embed_tokens(params, batch.ids)
-    h = forward_layers(params, cache, batch, h, cfg)
+    h = forward_layers(params, cache, batch, h, cfg, group=group)
     logits = lm_head_logits(params, h, batch, cfg,
                             return_all_logits=return_all_logits,
-                            logits_count=logits_count)
+                            logits_count=logits_count, group=group)
     return logits, cache
 
 

@@ -25,7 +25,8 @@ class AsyncEngine:
     Args:
         model_path: a converted workspace.
         instance_num: kept for reference API parity (handles are free).
-        tp: tensor-parallel degree (above 1 raises: not ported yet).
+        tp: tensor-parallel ranks (``build_engine``); ``dp`` and ``pp``
+            pass through ``kw`` (pp above 1 raises: not ported yet).
         device: where the engine runs, CUDA unless ``'cpu'``.
     """
 

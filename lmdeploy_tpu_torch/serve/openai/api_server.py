@@ -530,12 +530,16 @@ def parse_args(argv=None):
     ap.add_argument('--server-name', default='0.0.0.0')
     ap.add_argument('--server-port', '--port', type=int, default=23333)
     ap.add_argument('--instance-num', type=int, default=32)
-    ap.add_argument('--tp', type=int, default=1)
+    ap.add_argument('--tp', type=int, default=1,
+                    help='tensor-parallel ranks (one process each, spawned '
+                         'by the engine; a card each when there are enough, '
+                         'else they share the first)')
     ap.add_argument('--pp', type=int, default=1,
                     help='pipeline stages (not ported: above 1 raises)')
     ap.add_argument('--dp', type=int, default=1,
-                    help='data-parallel engine groups (not ported: above 1 '
-                         'raises)')
+                    help='data-parallel groups: independent batches of '
+                         'max_batch_size / dp slots, each with its own page '
+                         'pool')
     ap.add_argument('--quant-policy', type=int, default=None,
                     choices=(0, 4, 8),
                     help='KV cache: 0 bf16, 4 int8, 8 int4 (both with the '

@@ -534,3 +534,70 @@ def test_gather_route_forward_on_card_matches_cpu(cuda_device, kind):
     a, c = logits['cpu'], logits[str(cuda_device)]
     assert (a - c).abs().max() <= 0.05 * a.abs().max()
     assert torch.nn.functional.cosine_similarity(a, c, dim=-1).min() >= 0.999
+
+
+# one rank's shapes of Llama-2-7B at tp = 2: (K, N) of wqkv, wo, w1 / w3
+# and w2 (inter 11008 padded to 11264), attention at H = KH = 16
+TP2_GEMMS = ((4096, 6144), (2048, 4096), (4096, 5632), (5632, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [1, 8, 40, 512])
+@pytest.mark.parametrize('k,n', TP2_GEMMS)
+def test_w4a16_at_tp_rank_shapes_matches_plain_on_card(cuda_device, k, n,
+                                                       m):
+    """The GEMM at a tp = 2 rank's projections, in the regime the wrapper
+    picks for M (the decode kernel at M <= 8, wgmma above)."""
+    rng = np.random.default_rng(k + n + m)
+    args = _gemm_args(rng, m, k, n, cuda_device)
+    got = w4a16_gemm(*args)
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_decode_write_at_tp_rank_heads_matches_plain_on_card(cuda_device,
+                                                             kv_bits):
+    """Kernel 2 (append + attend) with a tp = 2 rank's 16 of Llama-2-7B's
+    32 heads, B = 8 with one valid = 0 slot, 64-token pages: the pool
+    bit-identical after the store, outputs within 1e-2."""
+    rng = np.random.default_rng(150 + kv_bits)
+    b, kh, page, maxp, p = 8, 16, 64, 16, 136
+    q, kn, vn, _, _, pt, ctx = _decode_case(rng, b, kh, 1, page, maxp, p)
+    bf = torch.bfloat16
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(a).to(cuda_device)
+        return x.to(dtype) if dtype else x
+    kc = _quant_pool(rng, (2, p, page, kh, 128), kv_bits, cuda_device)
+    vc = _quant_pool(rng, (2, p, page, kh, 128), kv_bits, cuda_device)
+    qp = (torch.tensor(QPARAMS[kv_bits], device=cuda_device)
+          if kv_bits else None)
+    valid = t(np.array([1, 1, 1, 0, 1, 1, 1, 1], np.int32))
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    q, kn, vn = t(q, bf), t(kn * 3, bf), t(vn * 3, bf)
+    got = PA.paged_decode_attention_write(q, kn, vn, k1, v1, 1, t(pt),
+                                          t(ctx), valid, qp)
+    want = PA.paged_decode_attention_write_plain(q, kn, vn, k2, v2, 1, t(pt),
+                                                 t(ctx), valid, qp)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    ok = valid.bool()
+    assert (got.float() - want.float())[ok].abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('t,histories', [(512, (0,)), (64, (300,)),
+                                         (5, tuple(507 - 7 * i
+                                                   for i in range(8)))],
+                         ids=['chunk512', 'chunk64-over-300', 'verify-B8'])
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_prefill_at_tp_rank_heads_matches_plain_on_card(cuda_device,
+                                                        kv_bits, t,
+                                                        histories):
+    """Kernel 3 with a tp = 2 rank's 16 heads: a 512-token chunk, a
+    64-token chunk over 300 tokens and the T = 5 verify of 8 slots."""
+    rng = np.random.default_rng(160 + kv_bits + t)
+    _check_prefill(rng, kv_bits, 16, 1, 64, t, histories, cuda_device)

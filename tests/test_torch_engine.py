@@ -201,12 +201,14 @@ def test_cancel_ends_the_stream(port_engine):
     assert len(last.token_ids) < 100
 
 
-@pytest.mark.parametrize('kw', [dict(tp=2), dict(pp=2), dict(dp=2),
-                                dict(quant_policy=8)])
+@pytest.mark.parametrize('kw', [dict(tp=2, pp=2), dict(pp=2),
+                                dict(dp=2, pp=2), dict(quant_policy=8)])
 def test_unported_engine_options_raise(kw):
-    """tp / pp / dp > 1 raise, naming their ROADMAP.md item.  quant_policy
-    8 without kv_scales, which raised before dynamic int4 KV was ported,
-    now allocates the dynamic pool."""
+    """pp > 1 raises, naming its ROADMAP.md item, alone and beside tp or
+    dp (which serve since parallel/ was ported, tests/test_torch_parallel.py
+    and test_torch_dp.py), before any rank starts.  quant_policy 8 without
+    kv_scales, which raised before dynamic int4 KV was ported, now
+    allocates the dynamic pool."""
     if kw.get('quant_policy') == 8:
         eng = TorchEngine(ModelConfig(**CFG),
                           EngineConfig(**dict(ECFG, **kw)), {},

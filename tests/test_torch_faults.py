@@ -63,8 +63,11 @@ def test_build_engine_takes_speculative_k(workspace):
         eng.shutdown()
 
 
-@pytest.mark.parametrize('kw', [dict(tp=2), dict(pp=2), dict(dp=2)])
+@pytest.mark.parametrize('kw', [dict(tp=2, pp=2), dict(pp=2),
+                                dict(dp=2, pp=2)])
 def test_build_engine_parallelism_raises_not_implemented(workspace, kw):
+    """pp > 1 raises through build_engine, alone and beside tp or dp
+    (which serve since parallel/ was ported)."""
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 '
                                                   'item 7'):
         build_engine(workspace, device='cpu', **kw)
