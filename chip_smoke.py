@@ -19,7 +19,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                rows, B=1 at ctx 80 / 512 / 2048); and kernels 1-3 at one
                tp = 2 rank's shapes (the GEMM at K x N 4096 x 6144, 2048 x
                4096, 4096 x 5632, 5632 x 4096 and M = 1 / 8 / 40 / 512,
-               attention at H = KH = 16)
+               attention at H = KH = 16); kernels 1 and 2 at the pp = 2
+               ring's microbatch (the kernels line's pp2 key: the GEMM at
+               M = 4 and 2 over one layer and one tp = 2 rank's, decode
+               attention at B = 4, H = KH = 32 / 16, and B = 2, 16)
   4. model   — a 2-layer full-width W4A16 model: one 64-token prefill chunk
                + 4 decode steps + one T=5 speculative verify forward (every
                row's logits) through the kernels on the card against the
@@ -121,6 +124,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                prints start / serve / stop seconds, tok/s of ranks sharing
                one card (not a tp speed), peak memory per rank and the
                device group's backend.
+  9. pipeline — phase 8's model and requests at pp = 2 (two ranks, gloo
+               stage and vocab groups on one card) against phase 8's tp = 1
+               run (its own when phase 8 did not run): bs1 on relay rounds
+               (pp_ring_decode off), verify rounds (k = SPEC_K) and ring
+               rounds, 4 concurrent and a seeded pair on the ring, prompt
+               logits (the relay).  Greedy streams equal tp = 1's up to
+               near-ties, logits within 5% (cosine >= 0.999), the pair
+               identical, ring rounds ran, digests equal, each rank launches
+               5L/pp GEMM + L/pp decode attention a relay step, 5L + L a ring
+               round, 5L/pp GEMM + L/pp prefill attention a verify round and
+               a GPipe job (the kernels line's pp2_launches), ranks exit in
+               30 s.  Then pp x tp = 2 x 2 (bs1, 4 concurrent) against tp = 1
+               and dp x pp x tp = 2 x 2 x 2 at 4 layers against 1 x 1 x 1;
+               rates of ranks sharing one card are not a pp speed.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -141,7 +158,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant',
-          'parallel')
+          'parallel', 'pipeline')
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
@@ -782,24 +799,20 @@ def check_verify(torch, ctx, timer):
 TP2_GEMMS = (('wqkv', 4096, 6144), ('wo', 2048, 4096), ('w1', 4096, 5632),
              ('w2', 5632, 4096))
 TP2_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 512)
+# the pp = 2 ring's microbatch, ceil(B / pp) rows: of the engine's 8 slots
+# (pp = 2, pp x tp = 2 x 2) and of a dp group's 4 (dp x pp x tp = 2 x 2 x 2)
+PP2_ROWS = (ENGINE_SLOTS // 2, ENGINE_SLOTS // 4)
 
 
-def check_rank_shapes(torch, ctx, timer):
-    """Kernels 1-3 at the shapes one rank of a tp = 2 Llama-2-7B engine
-    gives them: the GEMM at TP2_GEMMS x TP2_ROWS (the regime the wrapper
-    picks), decode attention (mode 1) and prefill attention (a 512-token
-    chunk, the T = 5 verify) at H = KH = 16, each KV width, against the
-    plain versions, with times, SDPA / torch.matmul and the bound."""
-    from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
-    from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
-    from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
-        paged_prefill_attention, paged_prefill_attention_plain)
+def check_gemm_rows(torch, gen, timer, gemms, m_rows, label):
+    """The W4A16 GEMM at ``gemms`` x ``m_rows`` (the regime the wrapper
+    picks) against its plain version, with torch.matmul on the
+    dequantised weight and the bound; a row each, keyed by shape."""
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
         unpack_nibbles, w4a16_gemm, w4a16_gemm_plain)
-    gen = torch.Generator(device='cuda').manual_seed(11)
     n_layers = 4
     rows = {}
-    for name, k, n in TP2_GEMMS:
+    for name, k, n in gemms:
         g = k // 128
         packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
         scales = (torch.rand((n_layers, g, 1, n), generator=gen,
@@ -807,7 +820,7 @@ def check_rank_shapes(torch, ctx, timer):
         deq = [(unpack_nibbles(packed[i]).float().reshape(g, 128, n)
                 * scales[i].float()).reshape(k, n).to(torch.bfloat16)
                for i in range(n_layers)]
-        for m in TP2_ROWS:
+        for m in m_rows:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
             want = w4a16_gemm_plain(x, packed, scales, 1)
@@ -816,7 +829,7 @@ def check_rank_shapes(torch, ctx, timer):
             tol = 1e-3 * want.abs().max().item() + 1e-3
             err = (got - want).abs().max().item()
             if not err <= tol:
-                raise AssertionError(f'w4a16_gemm tp=2 {name} M={m}: max '
+                raise AssertionError(f'w4a16_gemm {label} {name} M={m}: max '
                                      f'abs err {err} > {tol}')
             ms = timer.graph(lambda i: w4a16_gemm(x, packed, scales,
                                                   i % n_layers), 16)
@@ -829,59 +842,88 @@ def check_rank_shapes(torch, ctx, timer):
             rows[f'{name} K={k} N={n} M={m}'] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                 bound_by=by, max_abs_err=err)
-            log(f'  w4a16_gemm tp=2 rank {name:4s} M={m:3d} K={k:5d} '
+            log(f'  w4a16_gemm {label} rank {name:4s} M={m:3d} K={k:5d} '
                 f'N={n:5d}: kernel {ms:.4f} ms, plain {plain:.3f} ms, '
                 f'torch.matmul {lib:.4f} ms, bound {bms:.4f} ms ({by}), max '
                 f'abs err {err:.2e} (tol {tol:.2e})')
         del deq, packed, scales
         torch.cuda.empty_cache()
-    ctx['kernels'].setdefault('w4a16_gemm', {})['tp2'] = rows
+    return rows
+
+
+def check_decode_write(torch, gen, timer, kh, ctxs, masked, kv_bits, label):
+    """Kernel 2 (mode 1) at H = KH = ``kh`` over slots of contexts
+    ``ctxs`` (``masked`` at valid = 0) against its plain version (pool
+    bit-identical, valid rows within 1e-2), with SDPA on the live slots
+    and the bound; returns its row."""
+    from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
+    from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
+    width, _, elem_bytes = KV_WIDTHS[kv_bits]
+    h, dh, page, n_layers = kh, 128, 64, 4
+    mode = 'paged_decode_attention_write'
+    qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
+          if kv_bits else None)
+    d = _decode_inputs(torch, gen, ctxs, masked, kh, h, dh, n_layers,
+                       kv_bits)
+    k1, v1, k2, v2 = (x.clone() for x in (d['kc'], d['vc'], d['kc'],
+                                          d['vc']))
+    got = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
+    want = _decode_call(PA, mode, mode + '_plain', d, k2, v2, 2, qp)
+    torch.cuda.synchronize()
+    ok = d['valid'].bool()
+    err = (got.float() - want.float())[ok].abs().max().item()
+    if not (torch.equal(k1, k2) and torch.equal(v1, v2) and err <= 1e-2):
+        raise AssertionError(f'{mode}[{width}] {label}: err {err} or the '
+                             'pool differs')
+    ms = timer.graph(lambda i: _decode_call(
+        PA, mode, mode, d, d['kc'], d['vc'], i % n_layers, qp), 32)
+    plain = timer.events(lambda i: _decode_call(
+        PA, mode, mode + '_plain', d, k2, v2, i % n_layers, qp), 2,
+        warmup=1)
+    live = [i for i in range(len(ctxs)) if i not in masked]
+    n_kv = max(ctxs[i] for i in live)
+    kvg = [(kk[live, :, :n_kv], vv[live, :, :n_kv]) for kk, vv in
+           _dequant_gather(torch, d['kc'], d['vc'], d['pt'],
+                           -(-n_kv // page) * page, qp)]
+    q4 = d['q'][live][:, :, None]
+    lib = timer.graph(lambda i: torch.nn.functional
+                      .scaled_dot_product_attention(
+                          q4, *kvg[i % n_layers]), 32)
+    tok = sum(ctxs[i] for i in live)
+    b = len(ctxs)
+    bms, by = bound_ms(2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
+                       + 2 * b * kh * dh * 2
+                       + 2 * len(live) * kh * dh * elem_bytes,
+                       4.0 * tok * h * dh)
+    log(f'  {mode}[{width}] {label}: kernel {ms:.4f} ms, plain {plain:.3f} '
+        f'ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}), max abs err '
+        f'{err:.2e} (tol 1e-2), pool identical')
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, max_abs_err=err, shape=label)
+
+
+def check_rank_shapes(torch, ctx, timer):
+    """Kernels 1-3 at the shapes one rank of a tp = 2 Llama-2-7B engine
+    gives them: the GEMM at TP2_GEMMS x TP2_ROWS (the regime the wrapper
+    picks), decode attention (mode 1) and prefill attention (a 512-token
+    chunk, the T = 5 verify) at H = KH = 16, each KV width, against the
+    plain versions, with times, SDPA / torch.matmul and the bound."""
+    from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
+    from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    n_layers = 4
+    ctx['kernels'].setdefault('w4a16_gemm', {})['tp2'] = check_gemm_rows(
+        torch, gen, timer, TP2_GEMMS, TP2_ROWS, 'tp=2')
     kh = h = 16
     dh, page, mode = 128, 64, 'paged_decode_attention_write'
     label, ctxs, masked = DECODE_CASES[0]
     for kv_bits, (width, _, elem_bytes) in KV_WIDTHS.items():
         qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
               if kv_bits else None)
-        d = _decode_inputs(torch, gen, ctxs, masked, kh, h, dh, n_layers,
-                           kv_bits)
-        k1, v1, k2, v2 = (x.clone() for x in (d['kc'], d['vc'], d['kc'],
-                                              d['vc']))
-        got = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
-        want = _decode_call(PA, mode, mode + '_plain', d, k2, v2, 2, qp)
-        torch.cuda.synchronize()
-        ok = d['valid'].bool()
-        err = (got.float() - want.float())[ok].abs().max().item()
-        if not (torch.equal(k1, k2) and torch.equal(v1, v2)
-                and err <= 1e-2):
-            raise AssertionError(f'{mode}[{width}] tp=2 {label}: err {err}'
-                                 ' or the pool differs')
-        ms = timer.graph(lambda i: _decode_call(
-            PA, mode, mode, d, d['kc'], d['vc'], i % n_layers, qp), 32)
-        plain = timer.events(lambda i: _decode_call(
-            PA, mode, mode + '_plain', d, k2, v2, i % n_layers, qp), 2,
-            warmup=1)
-        live = [i for i in range(len(ctxs)) if i not in masked]
-        n_kv = max(ctxs[i] for i in live)
-        kvg = [(kk[live, :, :n_kv], vv[live, :, :n_kv]) for kk, vv in
-               _dequant_gather(torch, d['kc'], d['vc'], d['pt'],
-                               -(-n_kv // page) * page, qp)]
-        q4 = d['q'][live][:, :, None]
-        lib = timer.graph(lambda i: torch.nn.functional
-                          .scaled_dot_product_attention(
-                              q4, *kvg[i % n_layers]), 32)
-        tok = sum(ctxs[i] for i in live)
-        b = len(ctxs)
-        bms, by = bound_ms(2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
-                           + 2 * b * kh * dh * 2
-                           + 2 * len(live) * kh * dh * elem_bytes,
-                           4.0 * tok * h * dh)
-        ctx['kernels'].setdefault(f'{mode}[{width}]', {})['tp2'] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-            bound_by=by, max_abs_err=err, shape=f'H=KH=16, {label}')
-        log(f'  {mode}[{width}] tp=2 rank H=KH=16 {label}: kernel {ms:.4f} '
-            f'ms, plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} '
-            f'ms ({by}), max abs err {err:.2e} (tol 1e-2), pool identical')
-        del d, k1, v1, k2, v2, kvg
+        ctx['kernels'].setdefault(f'{mode}[{width}]', {})['tp2'] = \
+            check_decode_write(torch, gen, timer, kh, ctxs, masked, kv_bits,
+                               f'tp=2 rank H=KH=16, {label}')
         pre = {}
         for plabel, starts, ends, t in (
                 ('512-token chunk from 0', [0], [512], 512),
@@ -937,6 +979,34 @@ def check_rank_shapes(torch, ctx, timer):
         torch.cuda.empty_cache()
 
 
+def check_pp_shapes(torch, ctx, timer):
+    """Kernels 1 and 2 at the shapes the pp = 2 ring's microbatch gives
+    them (PP2_ROWS rows): the GEMM over LLAMA2_7B_GEMMS (a stage of pp =
+    2) and TP2_GEMMS (a rank of pp x tp = 2 x 2 and of 2 x 2 x 2), and
+    decode attention (mode 1) on a microbatch of 4 slots at H = KH = 32
+    and 16 and of 2 slots at 16 (the engine's B = 8 decode shape cut in
+    microbatches, its last slot at valid = 0), each KV width, against the
+    plain versions, under the kernels line's ``pp2`` key."""
+    from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    gemm = {f'tp=1 {k}': v for k, v in check_gemm_rows(
+        torch, gen, timer, LLAMA2_7B_GEMMS, PP2_ROWS, 'pp=2').items()}
+    gemm.update({f'tp=2 {k}': v for k, v in check_gemm_rows(
+        torch, gen, timer, TP2_GEMMS, PP2_ROWS, 'pp=2 x tp=2').items()})
+    ctx['kernels'].setdefault('w4a16_gemm', {})['pp2'] = gemm
+    _, ctxs, _ = DECODE_CASES[0]
+    for kv_bits, (width, _, _) in KV_WIDTHS.items():
+        rows = {}
+        for kh, b in ((32, 4), (16, 4), (16, 2)):
+            label = (f'pp=2 microbatch B={b} H=KH={kh} ctx~512, slot '
+                     f'{b - 1} valid=0')
+            rows[label] = check_decode_write(torch, gen, timer, kh, ctxs[:b],
+                                             (b - 1,), kv_bits, label)
+        ctx['kernels'].setdefault(
+            f'paged_decode_attention_write[{width}]', {})['pp2'] = rows
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, ctx):
     timer = Timer(torch)
     check_gemm(torch, ctx, timer)
@@ -944,6 +1014,7 @@ def phase_kernels(torch, ctx):
     check_prefill(torch, ctx, timer)
     check_verify(torch, ctx, timer)
     check_rank_shapes(torch, ctx, timer)
+    check_pp_shapes(torch, ctx, timer)
 
 
 def llama2_7b(num_layer: int = 32):
@@ -1203,12 +1274,16 @@ def profile_bs1(torch, ctx, run_request, eng, passes_of, width='bf16'):
 # and the verify rounds its speculative dispatches run on the device
 # (``stats['spec_rounds']`` counts, as the JAX engine does, only rounds up
 # to the one in which the last running slot finished)
-PASS_KINDS = ('decode_steps', 'spec_rounds', 'prefill_passes')
+PASS_KINDS = ('decode_steps', 'spec_rounds', 'prefill_passes', 'ring_rounds')
 
 
 class DevicePasses:
     """Forward passes by kind so far: wraps ``step.spec_decode_rounds`` to
-    count the rounds each dispatch runs (restored by :meth:`close`)."""
+    count the rounds each dispatch runs (restored by :meth:`close`).  On a
+    pipeline engine a prefill pass counts its jobs (rank 0's
+    ``StepFns.prefill_jobs``, cleared with the launch counts by
+    ``rank_report(reset=True)``), since each job runs every layer once; a
+    ring round runs every layer on every microbatch."""
 
     def __init__(self):
         from lmdeploy_tpu_torch.engine import step as S
@@ -1222,7 +1297,9 @@ class DevicePasses:
     def __call__(self, eng) -> dict:
         return {'decode_steps': eng.stats['decode_steps'],
                 'spec_rounds': self.rounds,
-                'prefill_passes': eng.stats['prefill_passes']}
+                'prefill_passes': sum(eng.fns.prefill_jobs) if eng.pp > 1
+                else eng.stats['prefill_passes'],
+                'ring_rounds': eng.stats['ring_rounds']}
 
     def close(self):
         self.step.spec_decode_rounds = self.real
@@ -1236,7 +1313,8 @@ def launches_per_kind(marks, skip=()):
     every kind that ran, and every kernel's launches (but those in
     ``skip``) must fit exactly."""
     kinds = [k for k in PASS_KINDS
-             if any(b[1][k] != a[1][k] for a, b in zip(marks, marks[1:]))]
+             if any(b[1].get(k, 0) != a[1].get(k, 0)
+                    for a, b in zip(marks, marks[1:]))]
     m = np.array([[b[1][k] - a[1][k] for k in kinds]
                   for a, b in zip(marks, marks[1:])], dtype=np.float64)
     if not kinds or np.linalg.matrix_rank(m) < len(kinds):
@@ -3062,16 +3140,192 @@ def quant(torch, ctx, cfg, device, deep_cfg=None, samples=16, seqlen=512,
 
 
 # ---------------------------------------------------------------------------
-# phase parallel: tensor and data parallelism over ranks sharing the card
+# phases parallel and pipeline: ranks sharing the card
 # ---------------------------------------------------------------------------
+
+RANK_ECFG = dict(max_batch_size=8, session_len=2048, page_size=64,
+                 num_pages=88, max_context_token_num=512,
+                 prefill_buckets=(64, 512), step_length=16, speculative_k=0,
+                 enable_prefix_caching=False)
+
+
+class Rig:
+    """What the phases parallel and pipeline share: one model config, one
+    EngineConfig (``ecfg_kw``, else RANK_ECFG) and its requests (seeded
+    prompts of ``lens`` tokens, a ``bs1_len``-token bs1 prompt, a
+    ``logits_len``-token logits prompt, a seeded sampled config of
+    ``n_new``), engines started and stopped with their ranks, streams
+    timed, launches solved per rank from windows between marks."""
+
+    def __init__(self, torch, ctx, cfg, device, lens=(16, 100, 300, 500),
+                 n_new=32, bs1_len=100, logits_len=300, ecfg_kw=None,
+                 timeout=300.0):
+        from lmdeploy_tpu_torch.config import EngineConfig
+        from lmdeploy_tpu_torch.messages import GenerationConfig
+        from lmdeploy_tpu_torch.ops import cuda as K
+        self.torch, self.cfg, self.device = torch, cfg, device
+        self.on_card = device == 'cuda'
+        self.card = ctx.get('card', '?')
+        self.timeout = timeout
+        self.ecfg = EngineConfig(**(ecfg_kw or RANK_ECFG))
+        rng = np.random.default_rng(9)
+        v = cfg.vocab_size
+        self.prompts = [rng.integers(3, v, size=n).tolist() for n in lens]
+        self.bs1_prompt = rng.integers(3, v, size=bs1_len).tolist()
+        self.logits_prompt = rng.integers(3, v, size=logits_len).tolist()
+        self.n_new = n_new
+        self.sampled = GenerationConfig(
+            max_new_tokens=n_new, top_k=40, top_p=0.9, temperature=0.8,
+            repetition_penalty=1.1, random_seed=7, ignore_eos=True)
+        self.sid = iter(range(1, 10 ** 6))
+        self.names = K.KERNEL_NAMES + K.REGIME_NAMES
+        self.passes_of = DevicePasses()
+        self.summary = {}
+
+    @staticmethod
+    def greedy(n):
+        from lmdeploy_tpu_torch.messages import GenerationConfig
+        return GenerationConfig(max_new_tokens=n, top_k=1, ignore_eos=True)
+
+    def stream(self, inst, prompt, gen, session=None, **kw):
+        from lmdeploy_tpu_torch.messages import ResponseType
+        t0, first, last = time.monotonic(), None, None
+        for last in inst.stream_infer(session or next(self.sid), prompt, gen,
+                                      **kw):
+            if last.num_generated and first is None:
+                first = time.monotonic()
+        if last.status != ResponseType.FINISH \
+                or last.num_generated != gen.max_new_tokens:
+            raise AssertionError(f'request of {len(prompt)} tokens: '
+                                 f'{last.num_generated}, {last.status}')
+        end = time.monotonic()
+        return dict(tokens=list(last.token_ids), ttft=first - t0,
+                    tok_s=(last.num_generated - 1) / max(end - first, 1e-9))
+
+    def concurrent(self, inst, prompts, n, **kw):
+        out = [None] * len(prompts)
+        sids = [next(self.sid) for _ in prompts]
+
+        def one(i):
+            out[i] = self.stream(inst, prompts[i], self.greedy(n),
+                                 session=sids[i], **kw)
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(o is None for o in out):
+            raise AssertionError('a concurrent request failed')
+        rate = len(prompts) * (n - 1) / (time.monotonic() - t0)
+        return [o['tokens'] for o in out], rate, sids
+
+    def mark(self, eng):
+        """Every rank's (launch counts, passes so far), and the reports."""
+        reports = eng.fns.rank_report()
+        passes = self.passes_of(eng)
+        return [({n: r['launches'].get(n, 0) for n in self.names}, passes)
+                for r in reports], reports
+
+    def check_ranks(self, label, marks, reports, want, need):
+        """Each rank's launches per pass of each kind, solved from the
+        windows between marks, equal ``want`` ({kind: {name: launches}}),
+        the kinds in ``need`` ran, and no plain version ran (on the card).
+        Returns each rank's solved launches."""
+        from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
+        per_rank = []
+        for rank, rep in enumerate(reports):
+            rank_marks = [m[rank] for m in marks]
+            solved = launches_per_kind(rank_marks, skip=(WGMMA,))
+            counts = {n: (rep['launches'].get(n, 0),
+                          rep['plain_calls'].get(n, 0)) for n in self.names}
+            if self.on_card:
+                check_route(counts, solved, want, f'{label} rank {rank}',
+                            need=need)
+            per_rank.append({k: {n: x for n, x in solved[0][k].items() if x}
+                             for k in solved[1]})
+        return per_rank
+
+    def agree(self, params, mcfg, prompt, ref, got, label):
+        """``got`` equals the one-rank stream ``ref``, or parts from it
+        first at a step whose top-2 gap in the teacher-forced one-rank
+        forward is under 1% of max|logit|.  Returns the steps that
+        agree."""
+        same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                    None)
+        if same is None:
+            return len(ref)
+        lg = teacher_forced_logits(self.torch, params, mcfg, prompt, ref,
+                                   self.device)[same]
+        top2 = lg.topk(2).values
+        if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
+            raise AssertionError(f'{label}: streams part at step {same} '
+                                 'with no near-tie there')
+        log(f'  {label}: parts at step {same} of {len(ref)}, a near-tie')
+        return same
+
+    def logits_gate(self, ref, got, label):
+        """Prompt logits within 5% of max|logit| with cosine >= 0.999."""
+        torch = self.torch
+        rel = float((ref - got).abs().max() / ref.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(
+            ref.flatten().double(), got.flatten().double(), dim=0))
+        if not (rel <= 0.05 and cos >= 0.999):
+            raise AssertionError(f'{label} prompt logits: {rel:.3e} of '
+                                 f'max|logit|, cosine {cos:.6f}')
+        return rel, cos
+
+    def start(self, mcfg, params, **kw):
+        """A started engine and its start time; rank 0's peak memory while
+        it prepares the ranks' blocks goes to ``summary``, and the peak is
+        reset for the serving that follows."""
+        import dataclasses
+
+        from lmdeploy_tpu_torch.engine.engine import TorchEngine
+        torch = self.torch
+        t0 = time.monotonic()
+        if self.on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        eng = TorchEngine(mcfg, dataclasses.replace(self.ecfg, **kw), params,
+                          device=self.device, rank_timeout=self.timeout)
+        if self.on_card:
+            self.summary.setdefault('start_peak_gib_rank0', {})[str(kw)] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+        return eng, time.monotonic() - t0
+
+    def stop(self, eng, label):
+        t0 = time.monotonic()
+        eng.shutdown()
+        took = time.monotonic() - t0
+        if eng.rank_exitcodes != [0] * len(eng.rank_exitcodes) \
+                or took > 30.0:
+            raise AssertionError(f'{label}: ranks exited '
+                                 f'{eng.rank_exitcodes} in {took:.1f} s')
+        return took
+
+    def placement(self, world):
+        """How ``world`` ranks sit on this machine's cards; rates of ranks
+        that share one card are not a tp / pp speed."""
+        if self.on_card and self.torch.cuda.device_count() >= world:
+            return 'a card per rank'
+        return 'ranks sharing one card: not a tp / pp speed'
+
+    def close(self):
+        self.passes_of.close()
+
 
 def phase_parallel(torch, ctx):
     parallel(torch, ctx, llama2_7b(), 'cuda')
 
 
-def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
-             n_new=32, bs1_new=64, bs1_len=100, logits_len=300,
-             ecfg_kw=None, timeout=300.0):
+def ms_or_dash(ms):
+    return '-' if ms is None else f'{ms:.4f}'
+
+
+def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     """Tensor and data parallelism at ``cfg``'s width on ``device``: a
     tp = 1 engine, then tp = 2 (two ranks, the second a spawned process),
     each serving
@@ -3087,120 +3341,27 @@ def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
     session stays in its group) against tp = 1, and dp x tp = 2 x 2 (four
     ranks) at ``shallow`` layers against 1 x 1.  Ranks get a card each when
     the machine has enough, else they share the first over gloo, and then
-    their rates are not a tp speed."""
+    their rates are not a tp speed.  The tp = 1 and the shallow 1 x 1 runs
+    stay in ``ctx`` for phase pipeline."""
     import dataclasses
 
-    from lmdeploy_tpu_torch.config import EngineConfig
-    from lmdeploy_tpu_torch.engine.engine import TorchEngine
-    from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
     from lmdeploy_tpu_torch.models.llama import random_packed_params
-    from lmdeploy_tpu_torch.ops import cuda as K
-    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
-    on_card = device == 'cuda'
-    card = ctx.get('card', '?')
-    ecfg = EngineConfig(**(ecfg_kw or dict(
-        max_batch_size=8, session_len=2048, page_size=64, num_pages=88,
-        max_context_token_num=512, prefill_buckets=(64, 512),
-        step_length=16, speculative_k=0, enable_prefix_caching=False)))
-    rng = np.random.default_rng(9)
-    v = cfg.vocab_size
-    prompts = [rng.integers(3, v, size=n).tolist() for n in lens]
-    bs1_prompt = rng.integers(3, v, size=bs1_len).tolist()
-    logits_prompt = rng.integers(3, v, size=logits_len).tolist()
-    sampled = GenerationConfig(max_new_tokens=n_new, top_k=40, top_p=0.9,
-                               temperature=0.8, repetition_penalty=1.1,
-                               random_seed=7, ignore_eos=True)
-    sid = iter(range(1, 10 ** 6))
-    names = K.KERNEL_NAMES + K.REGIME_NAMES
-    passes_of = DevicePasses()
-    summary = {}
-
-    def greedy(n):
-        return GenerationConfig(max_new_tokens=n, top_k=1, ignore_eos=True)
-
-    def stream(inst, prompt, gen, session=None, **kw):
-        t0, first, last = time.monotonic(), None, None
-        for last in inst.stream_infer(session or next(sid), prompt, gen,
-                                      **kw):
-            if last.num_generated and first is None:
-                first = time.monotonic()
-        if last.status != ResponseType.FINISH \
-                or last.num_generated != gen.max_new_tokens:
-            raise AssertionError(f'request of {len(prompt)} tokens: '
-                                 f'{last.num_generated}, {last.status}')
-        end = time.monotonic()
-        return dict(tokens=list(last.token_ids), ttft=first - t0,
-                    tok_s=(last.num_generated - 1) / max(end - first, 1e-9))
-
-    def concurrent(inst, prompts, n, **kw):
-        out = [None] * len(prompts)
-        sids = [next(sid) for _ in prompts]
-
-        def one(i):
-            out[i] = stream(inst, prompts[i], greedy(n), session=sids[i],
-                            **kw)
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        t0 = time.monotonic()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(o is None for o in out):
-            raise AssertionError('a concurrent request failed')
-        rate = len(prompts) * (n - 1) / (time.monotonic() - t0)
-        return [o['tokens'] for o in out], rate, sids
-
-    def mark(eng):
-        """Every rank's (launch counts, passes so far), and the reports."""
-        reports = eng.fns.rank_report()
-        passes = passes_of(eng)
-        return [({n: r['launches'].get(n, 0) for n in names}, passes)
-                for r in reports], reports
-
-    def check_ranks(label, marks, reports):
-        """Each rank's launches per decode step, verify round and prefill
-        pass from the windows between marks: 5L GEMM, L decode attention
-        (decode steps), L prefill attention (verify rounds and prefill
-        passes), and no plain call."""
-        nl = cfg.num_layer
-        gemm = {'w4a16_gemm': 5 * nl}
-        want = {'decode_steps': dict(
-                    gemm, **{'paged_decode_attention_write[bf16]': nl}),
-                'spec_rounds': dict(
-                    gemm, **{'paged_prefill_attention[bf16]': nl}),
-                'prefill_passes': dict(
-                    gemm, **{'paged_prefill_attention[bf16]': nl})}
-        per_rank = []
-        for rank, rep in enumerate(reports):
-            rank_marks = [m[rank] for m in marks]
-            solved = launches_per_kind(rank_marks, skip=(WGMMA,))
-            counts = {n: (rep['launches'].get(n, 0),
-                          rep['plain_calls'].get(n, 0)) for n in names}
-            if on_card:
-                check_route(counts, solved, want, f'{label} rank {rank}',
-                            need=('decode_steps', 'spec_rounds',
-                                  'prefill_passes'))
-            per_rank.append({k: {n: x for n, x in solved[0][k].items() if x}
-                             for k in solved[1]})
-        return per_rank
-
-    def agree(params, mcfg, prompt, ref, got, label):
-        """``got`` equals the tp = 1 stream ``ref``, or parts from it first
-        at a step whose top-2 gap in the teacher-forced tp = 1 forward is
-        under 1% of max|logit|.  Returns the steps that agree."""
-        same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
-                    None)
-        if same is None:
-            return len(ref)
-        lg = teacher_forced_logits(torch, params, mcfg, prompt, ref,
-                                   device)[same]
-        top2 = lg.topk(2).values
-        if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
-            raise AssertionError(f'{label}: streams part at step {same} '
-                                 'with no near-tie there')
-        log(f'  {label}: parts at step {same} of {len(ref)}, a near-tie')
-        return same
+    rig = Rig(torch, ctx, cfg, device, **rig_kw)
+    on_card, card, ecfg, summary = rig.on_card, rig.card, rig.ecfg, \
+        rig.summary
+    prompts, bs1_prompt, n_new = rig.prompts, rig.bs1_prompt, rig.n_new
+    greedy, stream, concurrent, mark = (rig.greedy, rig.stream,
+                                        rig.concurrent, rig.mark)
+    agree, start, stop, placement = (rig.agree, rig.start, rig.stop,
+                                     rig.placement)
+    nl = cfg.num_layer
+    gemm = {'w4a16_gemm': 5 * nl}
+    want_launches = {
+        'decode_steps': dict(gemm,
+                             **{'paged_decode_attention_write[bf16]': nl}),
+        'spec_rounds': dict(gemm, **{'paged_prefill_attention[bf16]': nl}),
+        'prefill_passes': dict(gemm,
+                               **{'paged_prefill_attention[bf16]': nl})}
 
     def serve(eng, label):
         """The tp script on one engine: windows for the launch solve, then
@@ -3235,53 +3396,19 @@ def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
             inst, prompts, n_new, sequence_end=True)
         m, reports = mark(eng)
         marks.append(m)
-        out['launches'] = check_ranks(label, marks, reports)
+        out['launches'] = rig.check_ranks(
+            label, marks, reports, want_launches,
+            need=('decode_steps', 'spec_rounds', 'prefill_passes'))
         out['rank_launches'] = [
             {n: c for n, c in r['launches'].items() if c} for r in reports]
-        out['logits'] = torch.from_numpy(inst.decode(logits_prompt))
-        out['sampled'] = [stream(inst, prompts[0], sampled,
+        out['logits'] = torch.from_numpy(inst.decode(rig.logits_prompt))
+        out['sampled'] = [stream(inst, prompts[0], rig.sampled,
                                  sequence_end=True)['tokens']
                           for _ in range(2)]
         out['wall'] = time.monotonic() - t0
         out['reports'] = eng.fns.rank_report()
         out['collective_ms'] = eng.fns.collective_ms()
         return out
-
-    def start(mcfg, params, **kw):
-        """A started engine and its start time; rank 0's peak memory while
-        it prepares the ranks' blocks goes to ``summary``, and the peak is
-        reset for the serving that follows."""
-        t0 = time.monotonic()
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        eng = TorchEngine(mcfg, dataclasses.replace(ecfg, **kw), params,
-                          device=device, rank_timeout=timeout)
-        if on_card:
-            summary.setdefault('start_peak_gib_rank0', {})[str(kw)] = \
-                torch.cuda.max_memory_allocated() / 2 ** 30
-            torch.cuda.reset_peak_memory_stats()
-        return eng, time.monotonic() - t0
-
-    def stop(eng, label):
-        t0 = time.monotonic()
-        eng.shutdown()
-        took = time.monotonic() - t0
-        if eng.rank_exitcodes != [0] * len(eng.rank_exitcodes) \
-                or took > 30.0:
-            raise AssertionError(f'{label}: ranks exited '
-                                 f'{eng.rank_exitcodes} in {took:.1f} s')
-        return took
-
-    def ms_or_dash(ms):
-        return '-' if ms is None else f'{ms:.4f}'
-
-    def placement(world):
-        """How ``world`` ranks sit on this machine's cards; rates of ranks
-        that share one card are not a tp speed."""
-        if on_card and torch.cuda.device_count() >= world:
-            return 'a card per rank'
-        return 'ranks sharing one card: not a tp speed'
 
     def describe(label, eng, res, start_s, stop_s):
         peaks = [round(r['peak_bytes'] / 2 ** 30, 2)
@@ -3346,18 +3473,13 @@ def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
                                   two['concurrent'])]
     if two['sampled'][0] != two['sampled'][1]:
         raise AssertionError('tp=2: the seeded sampled runs differ')
-    a, b = one['logits'], two['logits']
-    rel = float((a - b).abs().max() / a.abs().max())
-    cos = float(torch.nn.functional.cosine_similarity(
-        a.flatten().double(), b.flatten().double(), dim=0))
-    if not (rel <= 0.05 and cos >= 0.999):
-        raise AssertionError(f'tp=2 prompt logits: {rel:.3e} of max|logit|,'
-                             f' cosine {cos:.6f}')
+    rel, cos = rig.logits_gate(one['logits'], two['logits'], 'tp=2')
     log(f'  tp=2 against tp=1: greedy steps agreeing {agreed} (of '
         f'{[len(one["bs1"]["tokens"]), len(one["bs1_spec"]["tokens"])]} + '
-        f'{n_new} each); prompt logits ({logits_len}) {rel:.3e} of '
-        f'max|logit|, cosine {cos:.6f}; seeded sampled pair identical; '
-        f'readback digests equal; follower replayed {frames} frames')
+        f'{n_new} each); prompt logits ({len(rig.logits_prompt)}) '
+        f'{rel:.3e} of max|logit|, cosine {cos:.6f}; seeded sampled pair '
+        f'identical; readback digests equal; follower replayed {frames} '
+        'frames')
     summary['tp2_vs_tp1'] = dict(agreed=agreed, logits_rel=rel,
                                  logits_cos=cos, frames=frames)
     for name in ('w4a16_gemm', 'paged_decode_attention_write[bf16]',
@@ -3396,6 +3518,8 @@ def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
     summary['dp=2'] = dict(start_s=t_start, serve_s=wall, stop_s=t_stop,
                            tok_s_4_concurrent=rate, groups=groups,
                            agreed=dp_agreed)
+    ctx['tp1_ref'] = dict(key=(cfg, ecfg, bs1_new, rig_kw), params=params,
+                          run=one)
     del params
     if on_card:
         torch.cuda.empty_cache()
@@ -3426,11 +3550,282 @@ def parallel(torch, ctx, cfg, device, shallow=4, lens=(16, 100, 300, 500),
     summary['2x2'] = dict(start_s=res['2x2'][3], serve_s=res['2x2'][2],
                           tok_s_4_concurrent=res['2x2'][1],
                           tok_s_1x1=res['1x1'][1], agreed=agreed4)
-    passes_of.close()
+    ctx['shallow_ref'] = dict(key=(cfg4, ecfg, rig_kw), params=params4,
+                              toks=res['1x1'][0], rate=res['1x1'][1])
+    rig.close()
     ctx['parallel'] = summary
     log(f'  rank 0 peak memory while starting (GiB, by config): '
         f'{summary.get("start_peak_gib_rank0")}')
     log(f'  parallel: {time.monotonic() - t_phase:.1f} s')
+
+
+# ---------------------------------------------------------------------------
+# phase pipeline: pipeline stages over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def phase_pipeline(torch, ctx):
+    pipeline(torch, ctx, llama2_7b(), 'cuda')
+
+
+def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
+    """Pipeline parallelism at ``cfg``'s width on ``device`` against tp = 1
+    (phase parallel's run in this call when there is one, else its own).
+    pp = 2 (two ranks, the second a spawned process) serves a bs1 greedy
+    request of ``bs1_new`` on relay rounds (``pp_ring_decode`` off), the
+    same on speculative rounds (k = SPEC_K, the relay verify) and on ring
+    rounds, 4 concurrent requests on the ring, prompt logits (the relay)
+    and a seeded sampled pair on the ring.  Its greedy streams equal
+    tp = 1's up to near-ties, its prompt logits lie within 5% of
+    max|logit| (cosine >= 0.999), the seeded pair is identical, ring
+    rounds ran, every rank launches 5L/pp GEMMs and L/pp decode attentions
+    per relay decode step, 5L and L per ring round (pp microbatch
+    iterations of its L/pp layers), 5L/pp GEMMs and L/pp prefill
+    attentions per verify round and per GPipe prefill job, with no plain
+    call, the ranks' readback digests are equal and every rank exits 0
+    within 30 s.  Then pp x tp = 2 x 2 (four ranks; bs1 and 4 concurrent)
+    against tp = 1, and dp x pp x tp = 2 x 2 x 2 (eight ranks) at
+    ``shallow`` layers against 1 x 1 x 1.  Rates of ranks that share one
+    card are recorded, not a pp speed."""
+    import dataclasses
+
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
+    rig = Rig(torch, ctx, cfg, device, **rig_kw)
+    card, summary, ecfg = rig.card, rig.summary, rig.ecfg
+    prompts, bs1_prompt, n_new = rig.prompts, rig.bs1_prompt, rig.n_new
+    greedy, stream, mark = rig.greedy, rig.stream, rig.mark
+    t_phase = time.monotonic()
+    nl, pp = cfg.num_layer, 2
+
+    ref = ctx.get('tp1_ref')
+    if ref is not None and ref['key'] == (cfg, ecfg, bs1_new, rig_kw):
+        params, one = ref['params'], ref['run']
+        log('  tp=1 reference: phase parallel\'s run in this call')
+    else:
+        params = random_packed_params(cfg, 5, device)
+        eng, t_start = rig.start(cfg, params)
+        try:
+            inst = eng.create_instance()
+            t0 = time.monotonic()
+            one = {'bs1': stream(inst, bs1_prompt, greedy(bs1_new),
+                                 sequence_end=True)}
+            eng.ecfg.speculative_k = SPEC_K
+            one['bs1_spec'] = stream(inst, bs1_prompt, greedy(bs1_new),
+                                     sequence_end=True)
+            eng.ecfg.speculative_k = 0
+            one['concurrent'], one['conc_tok_s'], _ = rig.concurrent(
+                inst, prompts, n_new, sequence_end=True)
+            one['logits'] = torch.from_numpy(inst.decode(
+                rig.logits_prompt))
+            log(f'  tp=1 reference [{card}]: start {t_start:.1f} s, serve '
+                f'{time.monotonic() - t0:.1f} s; bs1 '
+                f'{one["bs1"]["tok_s"]:.1f} tok/s plain, '
+                f'{one["bs1_spec"]["tok_s"]:.1f} on verify rounds, 4 '
+                f'concurrent {one["conc_tok_s"]:.1f} tok/s')
+        finally:
+            rig.stop(eng, 'tp=1')
+        del eng
+
+    def launches_want(p, with_ring=True):
+        """Per rank at p stages: GEMM / decode attention per relay decode
+        step and per ring round, GEMM / prefill attention per verify
+        round and per GPipe prefill job."""
+        g, a = 5 * nl // p, nl // p
+        dec, pre = ('paged_decode_attention_write[bf16]',
+                    'paged_prefill_attention[bf16]')
+        want = {'decode_steps': {'w4a16_gemm': g, dec: a},
+                'spec_rounds': {'w4a16_gemm': g, pre: a},
+                'prefill_passes': {'w4a16_gemm': g, pre: a}}
+        if with_ring:
+            want['ring_rounds'] = {'w4a16_gemm': 5 * nl, dec: nl}
+        return want
+
+    # ---- pp = 2: relay, speculative and ring rounds ----
+    eng, t_start = rig.start(cfg, params, pp=pp)
+    try:
+        inst = eng.create_instance()
+        eng.fns.rank_report(reset=True)
+        t0 = time.monotonic()
+        marks = [mark(eng)[0]]
+        two = {}
+        eng.ecfg.pp_ring_decode = False
+        two['bs1_relay'] = stream(inst, bs1_prompt, greedy(bs1_new),
+                                  sequence_end=True)
+        marks.append(mark(eng)[0])
+        eng.ecfg.speculative_k = SPEC_K
+        before = dict(eng.stats)
+        try:
+            two['bs1_spec'] = stream(inst, bs1_prompt, greedy(bs1_new),
+                                     sequence_end=True)
+        finally:
+            eng.ecfg.speculative_k = 0
+            eng.ecfg.pp_ring_decode = True
+        two['spec_rounds'] = eng.stats['spec_rounds'] \
+            - before['spec_rounds']
+        marks.append(mark(eng)[0])
+        rings0 = eng.stats['ring_rounds']
+        two['bs1'] = stream(inst, bs1_prompt, greedy(bs1_new),
+                            sequence_end=True)
+        marks.append(mark(eng)[0])
+        two['concurrent'], two['conc_tok_s'], _ = rig.concurrent(
+            inst, prompts, n_new, sequence_end=True)
+        m, reports = mark(eng)
+        marks.append(m)
+        two['ring_rounds'] = eng.stats['ring_rounds'] - rings0
+        two['launches'] = rig.check_ranks(
+            'pp=2', marks, reports, launches_want(pp),
+            need=('decode_steps', 'spec_rounds', 'prefill_passes',
+                  'ring_rounds'))
+        two['rank_launches'] = [
+            {n: c for n, c in r['launches'].items() if c} for r in reports]
+        two['logits'] = torch.from_numpy(inst.decode(rig.logits_prompt))
+        two['sampled'] = [stream(inst, prompts[0], rig.sampled,
+                                 sequence_end=True)['tokens']
+                          for _ in range(2)]
+        two['wall'] = time.monotonic() - t0
+        two['reports'] = eng.fns.rank_report()
+        two['backend'] = eng.ranks.backend
+        if eng.stats['ring_rounds'] - rings0 <= two['ring_rounds']:
+            raise AssertionError('pp=2: the sampled pair rode no ring round')
+    finally:
+        t_stop = rig.stop(eng, 'pp=2')
+    digests = {r['readback_sha256'] for r in two['reports']}
+    if len(digests) != 1 or len(eng.rank_reports) != 1:
+        raise AssertionError(f'pp=2 readback digests {digests}, final '
+                             f'reports {len(eng.rank_reports)}')
+    frames = eng.rank_reports[0]['frames']
+    del eng
+    if two['ring_rounds'] <= 0:
+        raise AssertionError('pp=2: no ring round')
+    agreed = [rig.agree(params, cfg, bs1_prompt, one['bs1']['tokens'],
+                        two[k]['tokens'], f'pp=2 {k}')
+              for k in ('bs1_relay', 'bs1')]
+    agreed.append(rig.agree(params, cfg, bs1_prompt,
+                            one['bs1_spec']['tokens'],
+                            two['bs1_spec']['tokens'], 'pp=2 bs1_spec'))
+    agreed += [rig.agree(params, cfg, p, a, b, f'pp=2 concurrent {len(p)}')
+               for p, a, b in zip(prompts, one['concurrent'],
+                                  two['concurrent'])]
+    if two['sampled'][0] != two['sampled'][1]:
+        raise AssertionError('pp=2: the seeded sampled runs differ')
+    rel, cos = rig.logits_gate(one['logits'], two['logits'], 'pp=2')
+    peaks = [round(r['peak_bytes'] / 2 ** 30, 2) for r in two['reports']]
+    log(f'  pp=2 [{card}]: start {t_start:.1f} s, serve {two["wall"]:.1f} '
+        f's, stop {t_stop:.1f} s; bs1 {two["bs1_relay"]["tok_s"]:.1f} tok/s '
+        f'on relay rounds, {two["bs1"]["tok_s"]:.1f} on ring rounds, '
+        f'{two["bs1_spec"]["tok_s"]:.1f} on verify rounds '
+        f'({two["spec_rounds"]} rounds); 4 concurrent on the ring '
+        f'{two["conc_tok_s"]:.1f} tok/s ({rig.placement(pp)}; stage '
+        f'hops over {two["backend"]}); {two["ring_rounds"]} ring rounds; '
+        f'TTFT bs1 {two["bs1"]["ttft"]:.3f} s; peak memory per rank while '
+        f'serving {peaks} GiB; launches per pass, rank 0: '
+        f'{two["launches"][0]}')
+    log(f'  pp=2 against tp=1: greedy steps agreeing {agreed} (relay, '
+        f'ring, verify of {bs1_new}; concurrent {n_new} each); prompt '
+        f'logits ({len(rig.logits_prompt)}) {rel:.3e} of max|logit|, cosine '
+        f'{cos:.6f}; seeded sampled pair identical; readback digests equal; '
+        f'follower replayed {frames} frames')
+    summary['pp=2'] = dict(
+        start_s=t_start, serve_s=two['wall'], stop_s=t_stop,
+        tok_s_bs1_relay=two['bs1_relay']['tok_s'],
+        tok_s_bs1_ring=two['bs1']['tok_s'],
+        tok_s_bs1_spec=two['bs1_spec']['tok_s'],
+        tok_s_4_concurrent_ring=two['conc_tok_s'],
+        ttft_bs1_s=two['bs1']['ttft'], ring_rounds=two['ring_rounds'],
+        spec_rounds=two['spec_rounds'], peak_gib_per_rank=peaks,
+        backend=two['backend'],
+        launches_per_pass=two['launches'], agreed=agreed, logits_rel=rel,
+        logits_cos=cos, frames=frames)
+    if rig.on_card:
+        for name in ('w4a16_gemm', 'paged_decode_attention_write[bf16]',
+                     'paged_prefill_attention[bf16]'):
+            ctx['kernels'].setdefault(name, {})['pp2_launches'] = [
+                r.get(name, 0) for r in two['rank_launches']]
+
+    # ---- pp x tp = 2 x 2: four ranks, on the ring ----
+    eng, t_start = rig.start(cfg, params, pp=pp, tp=2)
+    try:
+        inst = eng.create_instance()
+        t0 = time.monotonic()
+        res = {'bs1': stream(inst, bs1_prompt, greedy(bs1_new),
+                             sequence_end=True)}
+        res['concurrent'], res['conc_tok_s'], _ = rig.concurrent(
+            inst, prompts, n_new, sequence_end=True)
+        wall = time.monotonic() - t0
+        reports = eng.fns.rank_report()
+        rings = eng.stats['ring_rounds']
+    finally:
+        t_stop = rig.stop(eng, 'pp=2 x tp=2')
+    del eng
+    if len({r['readback_sha256'] for r in reports}) != 1 or rings <= 0:
+        raise AssertionError(f'pp=2 x tp=2: digests differ or {rings} ring '
+                             'rounds')
+    agreed22 = [rig.agree(params, cfg, bs1_prompt, one['bs1']['tokens'],
+                          res['bs1']['tokens'], 'pp=2 x tp=2 bs1')]
+    agreed22 += [rig.agree(params, cfg, p, a, b,
+                           f'pp=2 x tp=2 concurrent {len(p)}')
+                 for p, a, b in zip(prompts, one['concurrent'],
+                                    res['concurrent'])]
+    peaks22 = [round(r['peak_bytes'] / 2 ** 30, 2) for r in reports]
+    log(f'  pp x tp = 2 x 2 [{card}]: start {t_start:.1f} s, serve '
+        f'{wall:.1f} s, stop {t_stop:.1f} s; bs1 {res["bs1"]["tok_s"]:.1f} '
+        f'tok/s, 4 concurrent {res["conc_tok_s"]:.1f} tok/s '
+        f'({rig.placement(4)}); peak memory per rank {peaks22} GiB; steps '
+        f'agreeing with tp=1 {agreed22}')
+    summary['pp2xtp2'] = dict(start_s=t_start, serve_s=wall, stop_s=t_stop,
+                              tok_s_bs1=res['bs1']['tok_s'],
+                              tok_s_4_concurrent=res['conc_tok_s'],
+                              peak_gib_per_rank=peaks22, agreed=agreed22)
+    del params
+    ctx.pop('tp1_ref', None)
+    if rig.on_card:
+        torch.cuda.empty_cache()
+
+    # ---- dp x pp x tp = 2 x 2 x 2 (eight ranks) at `shallow` layers ----
+    cfg4 = dataclasses.replace(cfg, num_layer=shallow)
+    ref = ctx.get('shallow_ref')
+    if ref is not None and ref['key'] == (cfg4, ecfg, rig_kw):
+        params4, want4, rate1 = ref['params'], ref['toks'], ref['rate']
+    else:
+        params4 = random_packed_params(cfg4, 6, device)
+        eng, _ = rig.start(cfg4, params4)
+        try:
+            want4, rate1, _ = rig.concurrent(eng.create_instance(), prompts,
+                                             n_new, sequence_end=True)
+        finally:
+            rig.stop(eng, '1x1x1')
+        del eng
+    eng, t_start = rig.start(cfg4, params4, dp=2, pp=pp, tp=2)
+    try:
+        t0 = time.monotonic()
+        toks, rate, _ = rig.concurrent(eng.create_instance(), prompts,
+                                       n_new, sequence_end=True)
+        wall = time.monotonic() - t0
+        reports = eng.fns.rank_report()
+        rings = eng.stats['ring_rounds']
+    finally:
+        t_stop = rig.stop(eng, '2x2x2')
+    del eng
+    # one readback digest in each dp group, whose ranks are g*4 .. g*4+3
+    digests = [{r['readback_sha256'] for r in reports[g * 4:(g + 1) * 4]}
+               for g in range(2)]
+    if [len(d) for d in digests] != [1, 1] or rings <= 0:
+        raise AssertionError(f'2x2x2: readback digests by group {digests},'
+                             f' {rings} ring rounds')
+    agreed8 = [rig.agree(params4, cfg4, p, a, b, f'2x2x2 concurrent {len(p)}')
+               for p, a, b in zip(prompts, want4, toks)]
+    log(f'  dp x pp x tp = 2 x 2 x 2 at {shallow} layers [{card}]: start '
+        f'{t_start:.1f} s, 4 concurrent {rate:.1f} tok/s ({rig.placement(8)})'
+        f' against {rate1:.1f} at 1 x 1 x 1, {wall:.1f} s, stop '
+        f'{t_stop:.1f} s; steps agreeing {agreed8}')
+    summary['2x2x2'] = dict(start_s=t_start, serve_s=wall, stop_s=t_stop,
+                            tok_s_4_concurrent=rate, tok_s_1x1x1=rate1,
+                            agreed=agreed8)
+    ctx.pop('shallow_ref', None)
+    rig.close()
+    ctx['pipeline'] = summary
+    log(f'  rank 0 peak memory while starting (GiB, by config): '
+        f'{summary.get("start_peak_gib_rank0")}')
+    log(f'  pipeline: {time.monotonic() - t_phase:.1f} s')
 
 
 def main(argv=None) -> int:
@@ -3487,7 +3882,8 @@ def main(argv=None) -> int:
             layer_by_m=k.get('layer_by_m'), crossover=k.get('crossover'),
             cases=k.get('cases'), verify=k.get('verify'),
             verify_m40=k.get('verify_m40'), tp2=k.get('tp2'),
-            tp2_launches=k.get('tp2_launches'),
+            tp2_launches=k.get('tp2_launches'), pp2=k.get('pp2'),
+            pp2_launches=k.get('pp2_launches'),
             card=ctx.get('card')))
     log(f'total {time.monotonic() - t_all:.1f} s')
     log(ctx.get('card', '?'))       # nvidia-smi name, power.limit

@@ -48,12 +48,13 @@ def build_engine(model_path: str,
     else one sized by the model's session_len.
     ``quant_policy`` (0 bf16, 4 int8, 8 int4 with calibrated scales) and
     ``speculative_k`` (0 turns speculation off) override the resolved
-    config.  ``tp`` shards the model over tp ranks and ``dp`` runs dp
-    independent batches (``TorchEngine``: the engine spawns a process per
-    extra rank, a card each when there are enough, else on the first; with
-    ``torch.distributed`` already initialised at world tp * dp it joins
-    that group instead, ``parallel/multihost.py``); ``pp`` above 1 raises
-    NotImplementedError.  The template comes from ``model_name``, the
+    config.  ``tp`` shards the model over tp ranks, ``pp`` cuts its layers
+    into pp pipeline stages (``parallel/pp.py``; ``num_layer`` must divide
+    by it) and ``dp`` runs dp independent batches (``TorchEngine``: the
+    engine spawns a process per extra rank, a card each when there are
+    enough, else on the first; with ``torch.distributed`` already
+    initialised at world dp * pp * tp it joins that group instead,
+    ``parallel/multihost.py``).  The template comes from ``model_name``, the
     config's ``model_name`` or the path; its stop words become the
     engine's defaults."""
     dev = resolve_device(device)

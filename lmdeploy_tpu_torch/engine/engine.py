@@ -35,21 +35,26 @@ the top of every loop turn instead of ending the engine thread.
 
 Parallelism (``parallel/``): ``EngineConfig.tp`` shards the weights and
 the KV heads over tp ranks (an all-reduce after wo and w2, the vocab
-gathered after lm_head); ``dp`` runs dp independent continuous batches,
-each with ``max_batch_size / dp`` slots, its own page pool (pool-local
-ids) and its own session store, sessions sticky to their group.  Rank 0
-is this engine: it runs the scheduler and frames every device dispatch to
-the other ranks (``parallel/multihost.py``), which it spawns as processes
-unless ``torch.distributed`` is already initialised at world tp * dp (one
+gathered after lm_head); ``pp`` cuts the layers into pipeline stages
+(``parallel/pp.py``): decode rounds ride the microbatch ring
+(``pp_ring_decode``, on by default: every running slot advances up to
+``step_length`` tokens in one dispatch, the stop criteria applied on the
+host, :meth:`TorchEngine._ring_round`), speculative rounds keep priority
+and relay through the stages, prefill passes ride the GPipe ring; ``dp``
+runs dp independent continuous batches, each with ``max_batch_size / dp``
+slots, its own page pool (pool-local ids) and its own session store,
+sessions sticky to their group.  Rank 0 is this engine: it runs the
+scheduler and frames every device dispatch to the other ranks
+(``parallel/multihost.py``), which it spawns as processes unless
+``torch.distributed`` is already initialised at world dp * pp * tp (one
 process per rank, then rank 0 calls ``serve_leader`` and the others
 ``serve_follower``).  Under several ranks a failed dispatch is fatal: the
 engine answers its requests with INTERNAL_ERROR, logs the ranks' exit
 codes and stops; it never serves on with fewer ranks.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-pp > 1.  The JAX engine's fallback that turns speculation off after a
-failed speculative dispatch (a TPU runtime workaround) is not ported: such
-a failure takes the error path of any failed round.
+The JAX engine's fallback that turns speculation off after a failed
+speculative dispatch (a TPU runtime workaround) is not ported: such a
+failure takes the error path of any failed round.
 """
 from __future__ import annotations
 
@@ -76,9 +81,9 @@ from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
 from ..ops import prng
 from ..ops.sampling import MAX_STOP_BAD_WORDS
 from ..parallel import multihost
+from ..parallel import pp as PP
 from ..parallel import tp as TP
 from ..utils.logger import get_logger
-from .step import StepFns
 
 log = get_logger()
 
@@ -164,14 +169,14 @@ class TorchEngine:
                  kv_scales=None, tokenizer=None, stop_words=None,
                  rank_timeout: float = multihost.DEFAULT_TIMEOUT_S):
         """``rank_timeout``: seconds any collective among the ranks may
-        wait (tp * dp > 1) before the engine stops with RankFailure."""
+        wait (dp * pp * tp > 1) before the engine stops with
+        RankFailure."""
         self.device = resolve_device(device)
-        if engine_cfg.pp > 1:
-            raise NotImplementedError(
-                'pp > 1: pipeline parallelism with the ring decode '
-                '(parallel/pp.py) is not ported yet (ROADMAP.md Queue 1 '
-                'item 7)')
         self.tp, self.dp = max(1, engine_cfg.tp), max(1, engine_cfg.dp)
+        self.pp = max(1, engine_cfg.pp)
+        if model_cfg.num_layer % self.pp:
+            raise ValueError(f'num_layer {model_cfg.num_layer} not '
+                             f'divisible by pp={self.pp}')
         b = engine_cfg.max_batch_size
         if b % self.dp:
             raise ValueError(f'max_batch_size {b} not divisible by '
@@ -210,10 +215,10 @@ class TorchEngine:
         self.fns = None
         self._own_group = False
         self._rank_timeout = rank_timeout
-        world = self.tp * self.dp
+        world = self.tp * self.pp * self.dp
         shards = self._prepare_shards(params) if world > 1 else [params]
         rank = dist.get_rank() if world > 1 and dist.is_initialized() else 0
-        self.params = shards[rank % self.tp]
+        self.params = shards[rank % (self.tp * self.pp)]
         num_pages = engine_cfg.num_pages or self._derive_num_pages(shards)
         num_pages -= num_pages % self.dp   # one pool of pages per dp group
         if num_pages // self.dp < self.max_pages_per_seq:
@@ -226,9 +231,9 @@ class TorchEngine:
         del shards
         try:
             pool, state_shape = self._rank_shapes(
-                self.ranks.tp_rank if self.ranks is not None else 0)
-            fns = StepFns(model_cfg, self.device, pool, state_shape,
-                          self.ranks)
+                self.ranks.rank if self.ranks is not None else 0)
+            fns = multihost.step_fns_class(self.pp)(
+                model_cfg, self.device, pool, state_shape, self.ranks)
             self.cache, self.state = fns.alloc_device_state()
         except BaseException:
             self._stop_ranks()
@@ -266,7 +271,8 @@ class TorchEngine:
                       'generated_tokens': 0, 'interleaved_rounds': 0,
                       'decode_steps': 0, 'prefill_passes': 0,
                       'spec_rounds': 0, 'spec_emitted': 0,
-                      'spec_fallbacks': 0, 'prefix_hit_tokens': 0}
+                      'spec_fallbacks': 0, 'prefix_hit_tokens': 0,
+                      'ring_rounds': 0}
         # adaptive speculative gating: an EMA of accepted tokens per round;
         # below break-even the engine runs plain rounds and re-probes after
         # a cooloff (the JAX engine's constants)
@@ -297,18 +303,25 @@ class TorchEngine:
         if not self._thread.is_alive():
             self._thread.start()
 
+    @property
+    def _ring_ok(self) -> bool:
+        """Decode rounds ride the pipeline's microbatch ring."""
+        return self.pp > 1 and self.ecfg.pp_ring_decode
+
     # -- construction helpers -------------------------------------------------
-    def _rank_shapes(self, tp_rank: int):
-        """One rank's ``init_cache`` / ``init_decode_state`` arguments: its
-        dp group's pages and slots, its KV heads and their qparams."""
-        pool = dict(num_layers=self.cfg.num_layer,
+    def _rank_shapes(self, rank: int):
+        """Global rank ``rank``'s ``init_cache`` / ``init_decode_state``
+        arguments: its stage's layers, its dp group's pages and slots, its
+        KV heads and their qparams."""
+        tp_rank, stage = rank % self.tp, rank // self.tp % self.pp
+        pool = dict(num_layers=self.cfg.num_layer // self.pp,
                     num_pages=self.num_pages // self.dp,
                     page_size=self.ecfg.page_size,
                     kv_heads=self.cfg.kv_head_num // self.tp,
                     head_dim=self.cfg.size_per_head,
                     dtype=self._kv_width.dtype,
                     kv_scales=TP.shard_kv_scales(self._kv_scales, self.tp,
-                                                 tp_rank),
+                                                 tp_rank, self.pp, stage),
                     dynamic_scales=self._dyn_kv)
         state_shape = dict(batch=self.b_local,
                            max_pages=self.max_pages_per_seq,
@@ -316,15 +329,10 @@ class TorchEngine:
         return pool, state_shape
 
     def _prepare_shards(self, params) -> List[Dict[str, Any]]:
-        """The tp ranks' weight blocks (``parallel/tp.py``), each checked
+        """The weight blocks of one dp group's ranks, indexed by ``stage *
+        tp + tp_rank`` (``parallel/pp.py::rank_shards``), each checked
         against the card's kernels when the engine runs on CUDA."""
-        if self.tp == 1:
-            shards = [params]
-        else:
-            prepared = TP.pack_params_for_tp(
-                TP.prepare_params_for_tp(params, self.cfg, self.tp), self.tp)
-            shards = [TP.shard_params(prepared, self.tp, r)
-                      for r in range(self.tp)]
+        shards = PP.rank_shards(params, self.cfg, self.tp, self.pp)
         if self.device.type == 'cuda':
             for r, shard in enumerate(shards):
                 TP.check_kernel_shapes(shard, r)
@@ -333,7 +341,7 @@ class TorchEngine:
     def _rank_devices(self) -> List[torch.device]:
         """Rank r on card r when there is a card per rank, else every rank
         on the engine's device (ranks sharing one card, or the CPU)."""
-        world = self.tp * self.dp
+        world = self.tp * self.pp * self.dp
         if self.device.type == 'cuda' and torch.cuda.device_count() >= world:
             return [torch.device('cuda', r) for r in range(world)]
         dev = self.device
@@ -343,17 +351,18 @@ class TorchEngine:
 
     def _start_ranks(self, shards) -> None:
         """Join the ranks: the caller's ``torch.distributed`` group of
-        world tp * dp, or follower processes spawned here, each handed its
-        weight block as CPU shared-memory tensors.  A rank that does not
+        world dp * pp * tp, or follower processes spawned here, each handed
+        its weight block as CPU shared-memory tensors.  A rank that does not
         come up raises, with the exit codes of those that died."""
-        world = self.tp * self.dp
+        world = self.tp * self.pp * self.dp
+        blocks = self.tp * self.pp
         if dist.is_initialized():
             if dist.get_world_size() != world:
                 raise ValueError(
                     f'torch.distributed world {dist.get_world_size()} != '
-                    f'tp {self.tp} x dp {self.dp}')
+                    f'dp {self.dp} x pp {self.pp} x tp {self.tp}')
             self.ranks = TP.make_ranks(self.tp, self.dp, self.device,
-                                       self._rank_timeout)
+                                       self._rank_timeout, self.pp)
             # every rank sized its pool from its own device: take the least
             pages = torch.tensor([self.num_pages])
             dist.all_reduce(pages, dist.ReduceOp.MIN,
@@ -373,7 +382,7 @@ class TorchEngine:
         ctx = mp.get_context('spawn')
         try:
             for rank in range(1, world):
-                pool, state_shape = self._rank_shapes(rank % self.tp)
+                pool, state_shape = self._rank_shapes(rank)
                 p = ctx.Process(
                     target=multihost.run_rank, daemon=True,
                     name=f'lmdeploy-rank{rank}',
@@ -381,8 +390,9 @@ class TorchEngine:
                           self._rank_timeout, str(devices[rank]),
                           torch.get_num_threads(), self.cfg, pool,
                           state_shape,
-                          multihost.to_device(shards[rank % self.tp],
-                                               torch.device('cpu'))))
+                          multihost.to_device(shards[rank % blocks],
+                                               torch.device('cpu')),
+                          self.pp))
                 p.start()
                 self._procs.append(p)
             deadline = time.monotonic() + self._rank_timeout
@@ -398,7 +408,7 @@ class TorchEngine:
                                     world_size=world, timeout=timeout)
             self._own_group = True
             self.ranks = TP.make_ranks(self.tp, self.dp, self.device,
-                                       self._rank_timeout)
+                                       self._rank_timeout, self.pp)
         except BaseException:
             self._stop_ranks()
             raise
@@ -455,23 +465,24 @@ class TorchEngine:
     def _derive_num_pages(self, shards) -> int:
         """Pool size from free device memory (CUDA) or enough pages for
         max_batch_size full sessions (CPU).  A rank holds kv_head_num / tp
-        heads; ranks that share the card split its budget, after the
-        weights of the followers still to come."""
+        heads of num_layer / pp layers; ranks that share the card split its
+        budget, after the weights of the followers still to come."""
         if self.device.type != 'cuda':
             return self.ecfg.max_batch_size * self.max_pages_per_seq
+        blocks = self.tp * self.pp
         bytes_per_tok = int(self.cfg.num_layer * 2 * self.cfg.kv_head_num
                             * self.cfg.size_per_head
-                            * self._kv_width.elem_bytes) // self.tp
+                            * self._kv_width.elem_bytes) // blocks
         if self._dyn_kv:
             # the dynamic qparams: 4 f32 per token-head-group and layer
             bytes_per_tok += (self.cfg.num_layer * 4 * 4 * self.cfg.kv_head_num
                               * kv_dyn_groups(self.cfg.size_per_head)
-                              ) // self.tp
-        world = self.tp * self.dp
+                              ) // blocks
+        world = blocks * self.dp
         sharing = world if len(set(self._rank_devices())) == 1 else 1
         to_come = 0
         if sharing > 1 and not dist.is_initialized():
-            to_come = sum(_tree_bytes(shards[r % self.tp])
+            to_come = sum(_tree_bytes(shards[r % blocks])
                           for r in range(1, world))
         free, _ = torch.cuda.mem_get_info(self.device)
         budget = (free - to_come) * self.ecfg.hbm_utilization / sharing
@@ -518,7 +529,7 @@ class TorchEngine:
         for g in range(self.dp):
             out[f'free_pages_group{g}'] = self.seqs.free_count(g)
         out['native_cache_manager'] = int(self.native_cache_manager)
-        out['tp'], out['dp'] = self.tp, self.dp
+        out['tp'], out['pp'], out['dp'] = self.tp, self.pp, self.dp
         out['device_group_nccl'] = int(self.ranks is not None
                                        and self.ranks.backend == 'nccl')
         return out
@@ -1061,12 +1072,16 @@ class TorchEngine:
             if self._spec_cooloff == 0:
                 self._spec_accept_ema = None
         # Deliberate difference: the JAX engine sends plain greedy rounds
-        # through its 'candidates' mode with top_k 1 (a TPU schedule
-        # choice), whose token is the same argmax; the port calls
-        # 'greedy'.  Keys split alike in both.
+        # (and ring rounds) through its 'candidates' mode with top_k 1 (a
+        # TPU schedule choice), whose token is the same argmax; the port
+        # calls 'greedy'.  Keys split alike in both.
+        mode = 'greedy' if greedy else sampled
+        if self._ring_ok:
+            self._ring_round(k, mode, topn, passes)
+            return
         self.state, arr = self.fns.decode_steps(
             self.params, self.cache, self.state, num_steps=k,
-            sampling_mode='greedy' if greedy else sampled, topn=topn,
+            sampling_mode=mode, topn=topn,
             passes=passes)                # arr: [5 + 2*topn, k, B]
         self.stats['decode_steps'] += k
         logprobs = np.ascontiguousarray(arr[2]).view(np.float32)
@@ -1079,6 +1094,52 @@ class TorchEngine:
                 tops = (arr[5:5 + topn, t].T, np.ascontiguousarray(
                     arr[5 + topn:5 + 2 * topn, t].T).view(np.float32))
             self._emit(arr[0, t], arr[1, t], logprobs[t], tops=tops)
+            if not any(s is not None and not s.done for s in self.slots):
+                return
+
+    def _ring_round(self, k: int, mode: str, topn: int, passes):
+        """One dispatch of up to ``k`` rounds on the pipeline's microbatch
+        ring (``parallel/pp.py::pp_decode_sampled``), every running slot
+        advancing one token a round.  The ring runs ungated, so ``k`` is
+        clamped to every running slot's remaining allowance (max_new
+        already folds in the session cap, so no slot writes past its
+        pages) and rounded down to a power of two, the pages for ``k``
+        tokens are grown first, and the stop criteria (EOS, a single-token
+        stop word, the length) apply here to the [k, B] readback.  A slot
+        that stops mid-dispatch retires on the spot; its device state
+        overshoots by the rest of the dispatch, dead until the next
+        install_slot (the host counts emitted tokens only)."""
+        run = [(i, s) for i, s in enumerate(self.slots)
+               if s is not None and not s.done and not s.prefilling]
+        k = max(1, min([k] + [s.max_new - s.generated for _, s in run]))
+        k = 1 << (k.bit_length() - 1)
+        self._grow_pages(k)
+        self.state, pk = self.fns.decode_rounds_sampled(
+            self.params, self.cache, self.state, rounds=k,
+            sampling_mode=mode, topn=topn, passes=passes)
+        # pk: [4 + 2*topn, k, B]
+        lps = np.ascontiguousarray(pk[1]).view(np.float32)
+        self.stats['ring_rounds'] += k
+        fin = np.zeros((pk.shape[2],), np.int32)
+        eos = self.cfg.end_id
+        for t in range(k):
+            # the key as of round t: a slot retired at t saves it
+            self._rng_now = np.ascontiguousarray(pk[2:4, t].T).view(
+                np.uint32)
+            fin[:] = 0
+            for i, s in run:
+                if s.done:
+                    continue
+                tok = int(pk[0, t, i])
+                if (tok == eos and not s.request.gen_config.ignore_eos) \
+                        or tok in s.single_stops \
+                        or s.generated + 1 >= s.max_new:
+                    fin[i] = 1
+            tops = None
+            if topn:
+                tops = (pk[4:4 + topn, t].T, np.ascontiguousarray(
+                    pk[4 + topn:4 + 2 * topn, t].T).view(np.float32))
+            self._emit(pk[0, t], fin, lps[t], tops=tops)
             if not any(s is not None and not s.done for s in self.slots):
                 return
 

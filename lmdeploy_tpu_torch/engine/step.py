@@ -14,9 +14,10 @@ the slot-surgery helpers update the state tensors in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,12 +69,14 @@ def init_decode_state(batch: int, max_pages: int, hist_len: int,
 def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
                 cfg: ModelConfig, *, sampling_mode: str = 'greedy',
                 topn: int = 0, passes: Optional[Tuple[bool, bool]] = None,
-                group=None):
+                forward_fn: Callable = forward):
     """One generation step for every running slot.
 
-    Under a tensor-parallel ``group`` (``models/llama.py::forward``) every
-    rank samples from the gathered logits with the same keys, so the
-    ranks' states stay identical without another collective.
+    ``forward_fn`` has the signature of ``models/llama.py::forward`` and
+    gives full-vocab logits on every rank (``forward`` over a
+    tensor-parallel group, or the pipeline relay), so every rank samples
+    from the same logits with the same keys and the ranks' states stay
+    identical without another collective.
 
     ``sampling_mode`` ('greedy' / 'candidates' / 'full'), ``topn`` and
     ``passes`` are chosen by the host (ops/sampling.py::sample_step).
@@ -85,7 +88,7 @@ def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
                       valid=run[:, None],
                       context_len=state.context_len + 1,
                       page_table=state.page_table)
-    logits, _ = forward(params, cache, batch, cfg, group=group)
+    logits, _ = forward_fn(params, cache, batch, cfg)
     logits = mask_vocab_padding(logits, cfg.vocab_size)
     smp = state.sampling
     sampled = sample_step(logits, smp, state.history, state.history_len,
@@ -119,7 +122,8 @@ def _f32_bits(x: torch.Tensor) -> torch.Tensor:
 def decode_steps(params, cache: KVCache, state: DecodeState,
                  cfg: ModelConfig, *, num_steps: int,
                  sampling_mode: str = 'greedy', topn: int = 0,
-                 passes: Optional[Tuple[bool, bool]] = None, group=None):
+                 passes: Optional[Tuple[bool, bool]] = None,
+                 forward_fn: Callable = forward):
     """``num_steps`` generation steps; the host reads ONE packed tensor.
 
     Returns (state, packed int32 [5 + 2*topn, k, B], logprobs f32 [k, B]);
@@ -131,7 +135,7 @@ def decode_steps(params, cache: KVCache, state: DecodeState,
     for _ in range(num_steps):
         state, tok, fin, lp, top = decode_step(
             params, cache, state, cfg, sampling_mode=sampling_mode,
-            topn=topn, passes=passes, group=group)
+            topn=topn, passes=passes, forward_fn=forward_fn)
         toks.append(tok)
         fins.append(fin.to(torch.int32))
         lps.append(lp)
@@ -154,7 +158,7 @@ def spec_decode_round(params, cache: KVCache, state: DecodeState,
                       ngram_min: int = 0, sampling: str = 'greedy',
                       topn: int = 0,
                       passes: Optional[Tuple[bool, bool]] = None,
-                      group=None):
+                      forward_fn: Callable = forward):
     """One speculative round for every running slot: propose ``k_draft``
     tokens by prompt lookup, verify them and the model's own next token in
     ONE [B, K+1] forward (the paged prefill kernel at T = K+1), accept the
@@ -186,8 +190,8 @@ def spec_decode_round(params, cache: KVCache, state: DecodeState,
                                            max=cap), state.context_len)
     batch = StepBatch(ids=ids, positions=pos, valid=valid,
                       context_len=ctx_end, page_table=state.page_table)
-    logits, _ = forward(params, cache, batch, cfg, return_all_logits=True,
-                        logits_count=kp1, group=group)
+    logits, _ = forward_fn(
+        params, cache, batch, cfg, return_all_logits=True, logits_count=kp1)
     logits = mask_vocab_padding(logits, cfg.vocab_size)       # [B,K+1,V]
 
     smp = state.sampling
@@ -249,7 +253,7 @@ def spec_decode_rounds(params, cache: KVCache, state: DecodeState,
                        ngram: int = 3, ngram_min: int = 0,
                        sampling: str = 'greedy', topn: int = 0,
                        passes: Optional[Tuple[bool, bool]] = None,
-                       group=None):
+                       forward_fn: Callable = forward):
     """``num_rounds`` speculative rounds; the host reads ONE packed tensor.
 
     Returns (state, packed int32 [R, 3*(K+1)+3 + 2*(K+1)*topn, B]): per
@@ -264,7 +268,7 @@ def spec_decode_rounds(params, cache: KVCache, state: DecodeState,
         state, g, fin_emit, n, logp, tops = spec_decode_round(
             params, cache, state, cfg, k_draft=k_draft, ngram=ngram,
             ngram_min=ngram_min, sampling=sampling, topn=topn, passes=passes,
-            group=group)
+            forward_fn=forward_fn)
         b = g.shape[0]
         planes = [g.T, fin_emit.to(torch.int32).T, n[None], _f32_bits(logp).T,
                   state.sampling.rng_key.to(torch.int32).T]
@@ -278,7 +282,8 @@ def spec_decode_rounds(params, cache: KVCache, state: DecodeState,
 
 
 def prefill_chunks(params, cache: KVCache, state: DecodeState, slots,
-                   ids, start_pos, lengths, cfg: ModelConfig, group=None):
+                   ids, start_pos, lengths, cfg: ModelConfig,
+                   forward_fn: Callable = forward):
     """Append one chunk for every row in one pass (the reference's batched
     context decode).  slots int [Bp] (padding rows: any slot, length 0);
     ids int [Bp, T]; start_pos / lengths int [Bp].  Returns last-valid-
@@ -290,12 +295,13 @@ def prefill_chunks(params, cache: KVCache, state: DecodeState, slots,
     batch = StepBatch(ids=ids, positions=pos, valid=valid,
                       context_len=start_pos + lengths,
                       page_table=state.page_table[slots.long()])
-    logits, _ = forward(params, cache, batch, cfg, group=group)
+    logits, _ = forward_fn(params, cache, batch, cfg)
     return logits
 
 
 def prefill_logits(params, cache: KVCache, page_row, ids, start_pos: int,
-                   length: int, cfg: ModelConfig, group=None):
+                   length: int, cfg: ModelConfig,
+                   forward_fn: Callable = forward):
     """Like :func:`prefill_chunks` for one chunk, but the logits of ALL its
     positions (the reference's return-logits path): ids int [T] padded,
     ``length`` of them real, at ``start_pos``; page_row int32 [MAXP], a
@@ -308,8 +314,8 @@ def prefill_logits(params, cache: KVCache, page_row, ids, start_pos: int,
                       context_len=torch.full((1,), start_pos + length,
                                              dtype=torch.int32, device=dev),
                       page_table=page_row[None])
-    logits, _ = forward(params, cache, batch, cfg, return_all_logits=True,
-                        group=group)
+    logits, _ = forward_fn(params, cache, batch, cfg,
+                                               return_all_logits=True)
     return logits[0]
 
 
@@ -359,13 +365,15 @@ class StepFns:
 
     The engine speaks in GLOBAL batch slots and host arrays; this object
     maps them onto this rank's dp group (slots ``[g * b_local, (g+1) *
-    b_local)``, a pool of pool-local pages), passes the tensor-parallel
-    group down to the forward, and returns every readback as a host array
+    b_local)``, a pool of pool-local pages), runs its ``forward_fn``
+    (``forward`` over the tensor-parallel group), and returns every readback as a host array
     over all B slots (gathered from the groups over the host group).  With
-    one rank it is the module functions above.  Every method whose name is
-    in ``parallel/multihost.py::_DEV_IN`` takes host arguments only after
-    the device state, so that the leader can frame the call to the other
-    ranks before it issues it.
+    one rank it is the module functions above.  ``parallel/pp.py::
+    PPStepFns`` is the pipeline-parallel variant: the same methods over
+    its ``forward_fn``, a GPipe prefill and the ring decode.  Every method
+    whose name is in ``parallel/multihost.py::_DEV_IN`` takes host
+    arguments only after the device state, so that the leader can frame
+    the call to the other ranks before it issues it.
 
     ``pool`` and ``state_shape``: this rank's :func:`init_cache` and
     :func:`init_decode_state` arguments (local pages, KV heads, slots)."""
@@ -381,7 +389,11 @@ class StepFns:
         self.dp = ranks.dp if ranks is not None else 1
         self.group = ranks.device_group if ranks is not None \
             and ranks.tp > 1 else None
+        self.forward_fn: Callable = functools.partial(forward,
+                                                      group=self.group)
         self._hash = hashlib.sha256()
+        # the jobs of each GPipe prefill pass this rank ran (PPStepFns)
+        self.prefill_jobs: List[int] = []
         # host seconds of the rounds' dispatches: issuing them, then
         # waiting for their readback (the device, and the other ranks)
         self.host_s = {'issue': 0.0, 'wait': 0.0}
@@ -416,7 +428,7 @@ class StepFns:
         dist.gather(t, parts, dst=0, group=r.host_group)
         if r.rank != 0:
             return arr
-        return np.concatenate([parts[g * r.tp].numpy()
+        return np.concatenate([parts[r.global_rank(g, 0, 0)].numpy()
                                for g in range(r.dp)], axis=-1)
 
     def alloc_device_state(self):
@@ -434,7 +446,7 @@ class StepFns:
         state, packed, _ = decode_steps(
             params, cache, state, self.cfg, num_steps=num_steps,
             sampling_mode=sampling_mode, topn=topn, passes=passes,
-            group=self.group)
+            forward_fn=self.forward_fn)
         return state, self._readback(packed, t0)
 
     def spec_decode_rounds(self, params, cache, state, num_rounds: int,
@@ -447,26 +459,35 @@ class StepFns:
         state, packed = spec_decode_rounds(
             params, cache, state, self.cfg, num_rounds=num_rounds,
             k_draft=k_draft, ngram=ngram, ngram_min=ngram_min,
-            sampling=sampling, topn=topn, passes=passes, group=self.group)
+            sampling=sampling, topn=topn, passes=passes,
+            forward_fn=self.forward_fn)
         return state, self._readback(packed, t0)
 
-    def prefill_chunks(self, params, cache, state, slots, ids, start_pos,
-                       lengths) -> None:
-        """:func:`prefill_chunks` over this group's rows of the pass (host
-        arrays; padding rows have length 0).  The JAX dp program runs every
-        row on every group with the other groups' rows masked; here a group
-        runs its own rows, and none when it has none."""
+    def _group_rows(self, slots, ids, start_pos, lengths):
+        """This dp group's rows of a prefill pass (host arrays), as device
+        tensors with group-local slots, or None when it has none.  The JAX
+        dp program runs every row on every group with the other groups'
+        rows masked; here a group runs its own rows, and none when it has
+        none."""
         slots = np.asarray(slots)
         mine = slots // self.b_local == self.dp_rank
         if not mine.any():
-            return
+            return None
         if not mine.all():
             slots, ids, start_pos, lengths = (
                 np.asarray(a)[mine] for a in (slots, ids, start_pos,
                                               lengths))
-        prefill_chunks(params, cache, state, self._dev(slots % self.b_local),
-                       self._dev(ids), self._dev(start_pos),
-                       self._dev(lengths), self.cfg, group=self.group)
+        return (self._dev(slots % self.b_local), self._dev(ids),
+                self._dev(start_pos), self._dev(lengths))
+
+    def prefill_chunks(self, params, cache, state, slots, ids, start_pos,
+                       lengths) -> None:
+        """:func:`prefill_chunks` over this group's rows of the pass (host
+        arrays; padding rows have length 0)."""
+        rows = self._group_rows(slots, ids, start_pos, lengths)
+        if rows is not None:
+            prefill_chunks(params, cache, state, *rows, self.cfg,
+                           forward_fn=self.forward_fn)
 
     def prefill_logits(self, params, cache, page_row, ids, start_pos: int,
                        length: int) -> Optional[torch.Tensor]:
@@ -477,7 +498,7 @@ class StepFns:
             return None
         return prefill_logits(params, cache, self._dev(page_row),
                               self._dev(ids), int(start_pos), int(length),
-                              self.cfg, group=self.group)
+                              self.cfg, forward_fn=self.forward_fn)
 
     def install_slot(self, state, slot: int, *args) -> None:
         i = self._local(slot)
@@ -511,7 +532,7 @@ class StepFns:
         key = state.sampling.rng_key[i].cpu() if i is not None \
             else torch.zeros((2,), dtype=state.sampling.rng_key.dtype)
         if self.dp > 1:
-            owner = int(slot) // self.b_local * self.ranks.tp
+            owner = self.ranks.global_rank(int(slot) // self.b_local, 0, 0)
             dist.broadcast(key, src=owner, group=self.ranks.host_group)
         return key.numpy().view(np.uint32)
 
@@ -538,7 +559,8 @@ class StepFns:
 
     def report(self) -> Dict[str, Any]:
         """This rank's kernel counters, readback digest, host seconds of
-        the rounds (``host_s``) and peak memory."""
+        the rounds (``host_s``), the jobs of each GPipe prefill pass
+        (``prefill_jobs``) and peak memory."""
         r = self.ranks
         return {'rank': r.rank if r is not None else 0,
                 'device': str(self.device),
@@ -546,18 +568,20 @@ class StepFns:
                 'launches': dict(LAUNCHES), 'plain_calls': dict(PLAIN_CALLS),
                 'readback_sha256': self._hash.hexdigest(),
                 'host_s': dict(self.host_s),
+                'prefill_jobs': list(self.prefill_jobs),
                 'peak_bytes': torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == 'cuda' else 0}
 
     def rank_report(self, reset: bool = False):
         """Every rank's :meth:`report` on rank 0 (a list by rank; None on
-        the others); ``reset`` then sets each rank's counters and host
-        seconds to 0."""
+        the others); ``reset`` then sets each rank's counters, host
+        seconds and prefill jobs to 0."""
         mine = self.report()
         if reset:
             LAUNCHES.clear()
             PLAIN_CALLS.clear()
             self.host_s = dict.fromkeys(self.host_s, 0.0)
+            self.prefill_jobs = []
         r = self.ranks
         if r is None:
             return [mine]

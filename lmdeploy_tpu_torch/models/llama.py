@@ -284,7 +284,10 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         qscale = (tables[2][:, 0].float() if tables[2] is not None
                   else torch.ones((b,), dtype=torch.float32, device=h.device))
     lw = params['layers']
-    for li in range(cfg.num_layer):
+    # the layers this rank holds: all of them, or a pipeline stage's
+    # (parallel/pp.py); layer indices into the weights and the pool are
+    # local to the stage
+    for li in range(lw['attn_norm'].shape[0]):
         bqkv = lw['bqkv'][li] if 'bqkv' in lw else None
         x = rms_norm(h, lw['attn_norm'][li], cfg.norm_eps)
         if hook is not None:
@@ -379,8 +382,10 @@ def lm_head_logits(params: Dict[str, Any], h_out: torch.Tensor,
                    logits_count: Optional[int] = None,
                    group=None) -> torch.Tensor:
     """Final norm + lm_head -> f32 logits: [B, V] at each row's last valid
-    token, or [B, T, V] with ``return_all_logits``.  Under a tp ``group``
-    the lm_head is each rank's vocab block and the logits are gathered."""
+    token, or [B, T, V] with ``return_all_logits``.  Under a ``group`` the
+    lm_head is each rank's vocab block, in the group's rank order, and the
+    logits are gathered: the tp group, or under pp the vocab group of
+    every stage's tp ranks (``parallel/pp.py``)."""
     h_out = rms_norm(h_out, params['norm'], cfg.norm_eps)
     if return_all_logits and logits_count is not None:
         h_out = h_out[:, :logits_count]

@@ -13,14 +13,15 @@ tensor; the port updates the pool and the state in place, and
 
 Two launches:
 
-- One process: ``TorchEngine(cfg, EngineConfig(tp=2))`` spawns the
-  followers itself (:func:`run_rank`) and stops them at ``shutdown()``.
+- One process: ``TorchEngine(cfg, EngineConfig(tp=2))`` (or ``pp=``,
+  ``dp=``) spawns the followers itself (:func:`run_rank`) and stops them at
+  ``shutdown()``.
 - One process per rank, on one host or several: every process calls
   :func:`init_multihost` (``env://``: ``MASTER_ADDR``, ``MASTER_PORT``,
   ``WORLD_SIZE``, ``RANK``) and builds the engine from the same checkpoint
   with ``start=False``; rank 0 calls :func:`serve_leader`, the others
   :func:`serve_follower`.  ``python -m lmdeploy_tpu_torch.parallel.multihost
-  <workspace> --tp 2`` is such a follower.
+  <workspace> --tp 2 [--pp 2] [--dp 2]`` is such a follower.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from ..engine.step import StepFns
+from .pp import PPStepFns
 from .tp import make_ranks
 
 # seconds every process group waits in a collective before it raises; a
@@ -114,6 +116,7 @@ class FrameChannel:
 _DEV_IN = {
     'decode_steps': 'PCS', 'spec_decode_rounds': 'PCS',
     'prefill_chunks': 'PCS', 'prefill_logits': 'PC',
+    'decode_rounds_sampled': 'PCS',
     'install_slot': 'S', 'clear_slot': 'S', 'set_finished': 'S',
     'set_active': 'S', 'set_page_row': 'S', 'slot_key': 'S',
     'alloc_device_state': '', 'rank_report': '', 'collective_ms': '',
@@ -122,6 +125,7 @@ _DEV_IN = {
 _DEV_OUT = {
     'decode_steps': ('S', None), 'spec_decode_rounds': ('S', None),
     'prefill_chunks': (), 'prefill_logits': (None,),
+    'decode_rounds_sampled': ('S', None),
     'install_slot': (), 'clear_slot': (), 'set_finished': (),
     'set_active': (), 'set_page_row': (), 'slot_key': (None,),
     'alloc_device_state': ('C', 'S'), 'rank_report': (None,),
@@ -194,7 +198,7 @@ def serve_leader(engine) -> 'RecordingFns':
     the recording step functions (pass them to :func:`stop_followers`)."""
     if not isinstance(engine.fns, RecordingFns):
         raise ValueError('serve_leader: the engine is not rank 0 of a '
-                         'tp * dp > 1 group of ranks')
+                         'dp * pp * tp > 1 group of ranks')
     engine.start()
     return engine.fns
 
@@ -255,9 +259,15 @@ class _Replica:
         self.cache, self.state = fns.alloc_device_state()
 
 
+def step_fns_class(pp: int):
+    """The step functions of a rank: :class:`PPStepFns` over pipeline
+    stages, else ``StepFns``."""
+    return PPStepFns if pp > 1 else StepFns
+
+
 def run_rank(rank: int, tp: int, dp: int, host: str, port: int,
              timeout_s: float, device: str, threads: int, cfg, pool,
-             state_shape, params) -> None:
+             state_shape, params, pp: int = 1) -> None:
     """Body of one follower rank that ``TorchEngine`` spawns: join the
     leader's store, take this rank's weight shard (CPU shared memory) onto
     its device, and replay frames until the stop frame.  It runs as many
@@ -270,14 +280,15 @@ def run_rank(rank: int, tp: int, dp: int, host: str, port: int,
         torch.cuda.set_device(dev)
     params = to_device(params, dev)
     timeout = datetime.timedelta(seconds=timeout_s)
-    store = dist.TCPStore(host, port, tp * dp, False, timeout=timeout)
+    world = tp * dp * pp
+    store = dist.TCPStore(host, port, world, False, timeout=timeout)
     store.set(f'ready/{rank}', '1')
     dist.init_process_group('gloo', store=store, rank=rank,
-                            world_size=tp * dp, timeout=timeout)
+                            world_size=world, timeout=timeout)
     try:
-        ranks = make_ranks(tp, dp, dev, timeout_s)
-        replica = _Replica(params, StepFns(cfg, dev, pool, state_shape,
-                                           ranks))
+        ranks = make_ranks(tp, dp, dev, timeout_s, pp)
+        replica = _Replica(params, step_fns_class(pp)(
+            cfg, dev, pool, state_shape, ranks))
         serve_follower(replica, FrameChannel(ranks.host_group))
     finally:
         dist.destroy_process_group()
@@ -305,6 +316,7 @@ def main(argv=None) -> int:
     ap.add_argument('model_path', help='workspace, HF or meta-llama dir '
                     '(the leader\'s)')
     ap.add_argument('--tp', type=int, default=1)
+    ap.add_argument('--pp', type=int, default=1)
     ap.add_argument('--dp', type=int, default=1)
     ap.add_argument('--quant-policy', type=int, default=None)
     ap.add_argument('--device', default=None,
@@ -318,7 +330,7 @@ def main(argv=None) -> int:
         raise SystemExit('rank 0 is the leader: build the engine there '
                          'and call serve_leader')
     from ..api import build_engine
-    eng = build_engine(args.model_path, tp=args.tp, dp=args.dp,
+    eng = build_engine(args.model_path, tp=args.tp, pp=args.pp, dp=args.dp,
                        quant_policy=args.quant_policy, device=device,
                        start=False, rank_timeout=args.timeout)
     try:
@@ -331,7 +343,8 @@ def main(argv=None) -> int:
 
 __all__ = ['init_multihost', 'broadcast_control', 'sync_hosts',
            'FrameChannel', 'RankFailure', 'RecordingFns', 'serve_leader',
-           'stop_followers', 'serve_follower', 'run_rank', 'to_device',
+           'stop_followers', 'serve_follower', 'step_fns_class', 'run_rank',
+           'to_device',
            'DEFAULT_TIMEOUT_S']
 
 if __name__ == '__main__':

@@ -19,8 +19,10 @@ the same bytes.
 
 dp groups (``EngineConfig.dp``) are independent continuous batches: group
 g's ranks hold slots ``[g * B/dp, (g+1) * B/dp)`` and a pool of
-``num_pages / dp`` pages addressed by pool-local ids.  Rank ``g * tp + r``
-is tp rank r of group g.
+``num_pages / dp`` pages addressed by pool-local ids.  Pipeline stages
+(``EngineConfig.pp``, ``parallel/pp.py``) cut the stacked layers: rank
+``(g * pp + s) * tp + r`` is tp rank r of stage s of group g, the JAX
+package's ``make_mesh_3d`` device order (dp outermost, tp innermost).
 """
 from __future__ import annotations
 
@@ -296,53 +298,63 @@ def _shard_leaf(x, dim: int, tp: int, rank: int):
     return _block(x, dim, tp, rank)
 
 
-def shard_params(params: Dict[str, Any], tp: int,
-                 rank: int) -> Dict[str, Any]:
-    """One tp rank's block of prepared (and packed) parameters.
+def shard_params(params: Dict[str, Any], tp: int, rank: int, pp: int = 1,
+                 stage: int = 0) -> Dict[str, Any]:
+    """One rank's block of prepared (and packed) parameters: tp rank
+    ``rank`` of pipeline stage ``stage``.
 
-    Column-split tensors shard their last dim (wqkv, w1, w3, bqkv,
-    lm_head's vocab); row-split ones dim 1 (wo, w2: K rows, K/2 packed
-    rows, K/group scale groups).  Norms, bo and tok_embedding are
+    Column-split tensors shard their last dim (wqkv, w1, w3, bqkv);
+    row-split ones dim 1 (wo, w2: K rows, K/2 packed rows, K/group scale
+    groups).  Under pp every per-layer leaf keeps its stage's layers
+    ``[stage * L/pp, (stage+1) * L/pp)`` (``pp_param_pspecs``' ``P(pp,
+    ...)``), and lm_head's vocab splits over (pp, tp), block ``stage * tp
+    + rank`` (``P(None, (pp, tp))``).  The final norm and tok_embedding are
     replicated (shared, not copied)."""
-    if tp == 1:
+    if tp == 1 and pp == 1:
         return params
     layers = {}
     for name, w in params['layers'].items():
-        if name in _COL_SPLIT or name == 'bqkv':
-            layers[name] = _shard_leaf(w, -1, tp, rank)
-        elif name in _ROW_SPLIT:
-            layers[name] = _shard_leaf(w, 1, tp, rank)
-        else:
-            layers[name] = w
+        if pp > 1:
+            w = _shard_leaf(w, 0, pp, stage)
+        if tp > 1 and (name in _COL_SPLIT or name == 'bqkv'):
+            w = _shard_leaf(w, -1, tp, rank)
+        elif tp > 1 and name in _ROW_SPLIT:
+            w = _shard_leaf(w, 1, tp, rank)
+        layers[name] = w
     out = dict(params)
     out['layers'] = layers
     if 'lm_head' in out:
-        out['lm_head'] = _block(out['lm_head'], -1, tp, rank)
+        out['lm_head'] = _block(out['lm_head'], -1, tp * pp,
+                                stage * tp + rank)
     return out
 
 
-def shard_kv_scales(kv_scales, tp: int, rank: int):
-    """A rank's calibrated KV qparams: per-head ``[L, KH]`` arrays keep
-    their KV heads' columns, per-layer ``[L]`` arrays are replicated."""
-    if kv_scales is None or tp == 1:
+def shard_kv_scales(kv_scales, tp: int, rank: int, pp: int = 1,
+                    stage: int = 0):
+    """A rank's calibrated KV qparams: its stage's layers, and of per-head
+    ``[L, KH]`` arrays its KV heads' columns (``pp_cache_pspecs``: ``P(pp)``
+    per layer, ``P(pp, tp)`` per head)."""
+    if kv_scales is None or (tp == 1 and pp == 1):
         return kv_scales
     out = []
     for x in kv_scales:
-        t = torch.as_tensor(x, dtype=torch.float32)
+        t = _block(torch.as_tensor(x, dtype=torch.float32), 0, pp, stage)
         out.append(_block(t, 1, tp, rank) if t.dim() == 2 else t)
     return out
 
 
 def shard_cache(cache: KVCache, tp: int, rank: int, dp: int = 1,
-                group: int = 0) -> KVCache:
-    """One rank's block of a full KV pool: dp group ``group``'s pages and
-    tp rank ``rank``'s KV heads.  Per-head ``[L, 4, KH]`` qparams and the
-    dynamic ``[L, P, page, KH, 4, G]`` qparam pool shard like the payload;
-    per-layer ``[L, 4]`` qparams are replicated.  (The engine allocates
-    each rank's block directly at these shapes.)"""
+                group: int = 0, pp: int = 1, stage: int = 0) -> KVCache:
+    """One rank's block of a full KV pool: stage ``stage``'s layers, dp
+    group ``group``'s pages and tp rank ``rank``'s KV heads.  Per-head
+    ``[L, 4, KH]`` qparams and the dynamic ``[L, P, page, KH, 4, G]``
+    qparam pool shard like the payload; per-layer ``[L, 4]`` qparams keep
+    their stage's layers.  (The engine allocates each rank's block
+    directly at these shapes.)"""
     def pool(x):
-        return _block(_block(x, 1, dp, group), 3, tp, rank)
-    qp = cache.qparams
+        return _block(_block(_block(x, 0, pp, stage), 1, dp, group), 3, tp,
+                      rank)
+    qp = _block(cache.qparams, 0, pp, stage)
     return KVCache(k=pool(cache.k), v=pool(cache.v),
                    qparams=_block(qp, 2, tp, rank) if qp.dim() == 3 else qp,
                    dyn=None if cache.dyn is None else pool(cache.dyn))
@@ -354,31 +366,45 @@ def shard_cache(cache: KVCache, tp: int, rank: int, dp: int = 1,
 
 @dataclasses.dataclass
 class Ranks:
-    """This process's place among ``tp * dp`` ranks, and its groups.
+    """This process's place among ``dp * pp * tp`` ranks, and its groups.
 
-    ``device_group``: the tp ranks of this rank's dp group, for the
-    activation all-reduce and the logits gather (NCCL when every rank has
-    a card of its own, gloo when ranks share a device or run on the CPU).
-    ``host_group``: every rank, gloo, for the control frames and the
-    readback."""
+    ``device_group``: the tp ranks of this rank's dp group and stage, for
+    the activation all-reduce (NCCL when every rank has a card of its own,
+    gloo when ranks share a device or run on the CPU).  ``stage_group``:
+    the pp ranks of this rank's dp group and tp rank, for the stage hops;
+    ``vocab_group``: the pp * tp ranks of this rank's dp group, for the
+    logits gather (the device group when pp is 1).  ``host_group``: every
+    rank, gloo, for the control frames and the readback."""
     tp: int
     dp: int
     rank: int
     device_group: Any
     host_group: Any
     backend: str
+    pp: int = 1
+    stage_group: Any = None
+    vocab_group: Any = None
 
     @property
     def world(self) -> int:
-        return self.tp * self.dp
+        return self.tp * self.pp * self.dp
 
     @property
     def tp_rank(self) -> int:
         return self.rank % self.tp
 
     @property
+    def pp_rank(self) -> int:
+        return self.rank // self.tp % self.pp
+
+    @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp
+        return self.rank // (self.tp * self.pp)
+
+    def global_rank(self, group: int, stage: int, tp_rank: int) -> int:
+        """The rank of tp rank ``tp_rank`` of stage ``stage`` of dp group
+        ``group``."""
+        return (group * self.pp + stage) * self.tp + tp_rank
 
 
 def _device_key(device: torch.device) -> str:
@@ -387,15 +413,37 @@ def _device_key(device: torch.device) -> str:
     return str(torch.cuda.get_device_properties(device).uuid)
 
 
-def make_ranks(tp: int, dp: int, device: torch.device,
-               timeout_s: float) -> Ranks:
+def rank_layout(tp: int, dp: int,
+                pp: int = 1) -> Dict[str, List[List[int]]]:
+    """The member ranks of every device-side group, in creation order:
+    ``tp`` (one group per dp group and stage), ``stage`` (one per dp group
+    and tp rank; none when pp is 1) and ``vocab`` (one per dp group, its
+    ranks in the (pp, tp) block order of lm_head's vocab split; none when
+    pp is 1)."""
+    def rank(g, s, r):
+        return (g * pp + s) * tp + r
+    out = {'tp': [[rank(g, s, r) for r in range(tp)]
+                  for g in range(dp) for s in range(pp)],
+           'stage': [], 'vocab': []}
+    if pp > 1:
+        out['stage'] = [[rank(g, s, r) for s in range(pp)]
+                        for g in range(dp) for r in range(tp)]
+        out['vocab'] = [[rank(g, s, r) for s in range(pp) for r in range(tp)]
+                        for g in range(dp)]
+    return out
+
+
+def make_ranks(tp: int, dp: int, device: torch.device, timeout_s: float,
+               pp: int = 1) -> Ranks:
     """The groups of this rank, on an initialised default (gloo) group of
-    world ``tp * dp``.  Every rank must call this, in the same order of
-    calls.  The device group's backend follows from the ranks' devices:
+    world ``dp * pp * tp``.  Every rank must call this, in the same order
+    of calls, and creates every group (:func:`rank_layout`), its own or
+    not.  The device-side groups' backend follows from the ranks' devices:
     NCCL when they are distinct cards, gloo otherwise."""
     world = dist.get_world_size()
-    if world != tp * dp:
-        raise ValueError(f'world size {world} != tp {tp} x dp {dp}')
+    if world != tp * dp * pp:
+        raise ValueError(f'world size {world} != dp {dp} x pp {pp} x '
+                         f'tp {tp}')
     timeout = datetime.timedelta(seconds=timeout_s)
     host = dist.new_group(list(range(world)), backend='gloo',
                           timeout=timeout)
@@ -404,16 +452,18 @@ def make_ranks(tp: int, dp: int, device: torch.device,
     backend = 'nccl' if ('cpu' not in keys and len(set(keys)) == world) \
         else 'gloo'
     rank = dist.get_rank()
-    mine = None
-    for g in range(dp):
-        grp = dist.new_group(list(range(g * tp, (g + 1) * tp)),
-                             backend=backend, timeout=timeout)
-        if rank // tp == g:
-            mine = grp
-    return Ranks(tp=tp, dp=dp, rank=rank, device_group=mine,
-                 host_group=host, backend=backend)
+    mine = {}
+    for kind, groups in rank_layout(tp, dp, pp).items():
+        for members in groups:
+            grp = dist.new_group(members, backend=backend, timeout=timeout)
+            if rank in members:
+                mine[kind] = grp
+    return Ranks(tp=tp, dp=dp, rank=rank, device_group=mine['tp'],
+                 host_group=host, backend=backend, pp=pp,
+                 stage_group=mine.get('stage'),
+                 vocab_group=mine.get('vocab', mine['tp']))
 
 
 __all__ = ['prepare_params_for_tp', 'pack_params_for_tp',
            'check_kernel_shapes', 'shard_params', 'shard_kv_scales',
-           'shard_cache', 'Ranks', 'make_ranks']
+           'shard_cache', 'Ranks', 'rank_layout', 'make_ranks']

@@ -26,7 +26,7 @@ class AsyncEngine:
         model_path: a converted workspace.
         instance_num: kept for reference API parity (handles are free).
         tp: tensor-parallel ranks (``build_engine``); ``dp`` and ``pp``
-            pass through ``kw`` (pp above 1 raises: not ported yet).
+            (pipeline stages) pass through ``kw``.
         device: where the engine runs, CUDA unless ``'cpu'``.
     """
 

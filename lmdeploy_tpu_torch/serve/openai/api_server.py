@@ -535,7 +535,9 @@ def parse_args(argv=None):
                          'by the engine; a card each when there are enough, '
                          'else they share the first)')
     ap.add_argument('--pp', type=int, default=1,
-                    help='pipeline stages (not ported: above 1 raises)')
+                    help='pipeline stages (one process each, spawned '
+                         'by the engine, layers cut evenly; decode rides '
+                         'the microbatch ring)')
     ap.add_argument('--dp', type=int, default=1,
                     help='data-parallel groups: independent batches of '
                          'max_batch_size / dp slots, each with its own page '

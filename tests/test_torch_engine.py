@@ -28,6 +28,7 @@ from lmdeploy_tpu_torch.convert.workspace import (load_workspace,
                                                   params_from_numpy)
 from lmdeploy_tpu_torch.engine.engine import TorchEngine
 from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+from lmdeploy_tpu_torch.models.llama import init_params
 from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
 
 torch.set_num_threads(1)
@@ -204,20 +205,35 @@ def test_cancel_ends_the_stream(port_engine):
 @pytest.mark.parametrize('kw', [dict(tp=2, pp=2), dict(pp=2),
                                 dict(dp=2, pp=2), dict(quant_policy=8)])
 def test_unported_engine_options_raise(kw):
-    """pp > 1 raises, naming its ROADMAP.md item, alone and beside tp or
-    dp (which serve since parallel/ was ported, tests/test_torch_parallel.py
-    and test_torch_dp.py), before any rank starts.  quant_policy 8 without
-    kv_scales, which raised before dynamic int4 KV was ported, now
-    allocates the dynamic pool."""
+    """Options that raised before their slice was ported now build: pp = 2,
+    alone and beside tp or dp (parallel/pp.py; served in
+    tests/test_torch_pp_engine.py), builds at start=False with its ranks
+    up, each holding a pool and weights of L/pp layers, and stops them
+    cleanly.  quant_policy 8 without kv_scales allocates the dynamic int4
+    pool."""
     if kw.get('quant_policy') == 8:
         eng = TorchEngine(ModelConfig(**CFG),
                           EngineConfig(**dict(ECFG, **kw)), {},
                           device='cpu', start=False)
         assert eng.cache.dynamic_scales and eng.cache.quant_bits == 4
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(ECFG, **kw)),
-                    {}, device='cpu', start=False)
+    # two KV heads, so that tp = 2 splits them; dense weights
+    cfg = ModelConfig(**dict(CFG, head_num=4, kv_head_num=2))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, 'cpu')
+    eng = TorchEngine(cfg, EngineConfig(**dict(ECFG, **kw)), params,
+                      device='cpu', start=False, rank_timeout=60)
+    try:
+        assert eng.metrics()['pp'] == 2
+        assert eng.ranks.world == 2 * kw.get('tp', 1) * kw.get('dp', 1)
+        assert eng.cache.k.shape[0] == CFG['num_layer'] // 2
+        assert eng.params['layers']['attn_norm'].shape[0] == \
+            CFG['num_layer'] // 2
+        assert all(eng._rank_shapes(r)[0]['num_layers'] == 1
+                   for r in range(eng.ranks.world))
+    finally:
+        eng.shutdown()
+    assert eng.rank_exitcodes == [0] * (eng.ranks.world - 1)
 
 
 REPEAT = [3, 4, 5, 3, 4, 5, 3, 4, 5, 3, 4]

@@ -63,14 +63,29 @@ def test_build_engine_takes_speculative_k(workspace):
         eng.shutdown()
 
 
-@pytest.mark.parametrize('kw', [dict(tp=2, pp=2), dict(pp=2),
+@pytest.mark.parametrize('kw', [dict(pp=3), dict(pp=2),
                                 dict(dp=2, pp=2)])
 def test_build_engine_parallelism_raises_not_implemented(workspace, kw):
-    """pp > 1 raises through build_engine, alone and beside tp or dp
-    (which serve since parallel/ was ported)."""
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 '
-                                                  'item 7'):
-        build_engine(workspace, device='cpu', **kw)
+    """pp through build_engine, which raised NotImplementedError before
+    parallel/pp.py was ported: pp = 2, alone and beside dp, builds at
+    start=False with a pool of L/pp layers on every rank and stops its
+    ranks cleanly; pp = 3 does not divide the workspace's 2 layers and
+    raises ValueError before any rank starts, as the JAX engine does."""
+    if kw['pp'] == 3:
+        with pytest.raises(ValueError, match='num_layer 2 not divisible '
+                                             'by pp=3'):
+            build_engine(workspace, device='cpu', start=False, **kw)
+        return
+    eng = build_engine(workspace, device='cpu', start=False,
+                       rank_timeout=60, **kw)
+    try:
+        assert eng.ecfg.pp == 2 and eng.metrics()['pp'] == 2
+        assert eng.cache.k.shape[0] == 1
+        assert all(eng._rank_shapes(r)[0]['num_layers'] == 1
+                   for r in range(eng.ranks.world))
+    finally:
+        eng.shutdown()
+    assert eng.rank_exitcodes == [0] * (2 * kw.get('dp', 1) - 1)
 
 
 @pytest.mark.parametrize('n_new', [9, 13, 17, 30])

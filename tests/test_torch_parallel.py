@@ -218,6 +218,7 @@ def _free_port() -> int:
 
 LEADER = '''
 import json, sys
+import torch.distributed as dist
 from lmdeploy_tpu_torch import build_engine
 from lmdeploy_tpu_torch.messages import GenerationConfig
 from lmdeploy_tpu_torch.parallel.multihost import (init_multihost,
@@ -233,6 +234,8 @@ out = [inst.infer(10 + i, p, gen_config=GenerationConfig(
     for i, p in enumerate(json.loads(sys.argv[2]))]
 eng.shutdown()
 reports = stop_followers(fns)
+# the caller made the group: it ends it, as the follower does
+dist.destroy_process_group()
 print(json.dumps({'greedy': out, 'frames': [r['frames'] for r in reports]}))
 '''
 
