@@ -138,6 +138,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                30 s.  Then pp x tp = 2 x 2 (bs1, 4 concurrent) against tp = 1
                and dp x pp x tp = 2 x 2 x 2 at 4 layers against 1 x 1 x 1;
                rates of ranks sharing one card are not a pp speed.
+ 10. tools   — the last modules of the port at Llama-2-7B width: W4A8
+               (quant_matmul_a8) at the five projections and M = 1 / 8 /
+               40 / 512 on the card against the CPU (1e-3 of max|ref|),
+               timed beside the byte form's product and kernel 1; phase
+               5's 32-layer weights served packed, byte-per-int4
+               (LMDEPLOY_TPU_PACKED_INT4=0) and byte + LMDEPLOY_TPU_W4A8=1
+               (bs1 32 new from 100 tokens, prompt logits of 300; the byte
+               stream equals the packed one up to near-ties, logits within
+               5% / cosine 0.999; the byte and W4A8 engines launch no GEMM,
+               32 decode attention a step and 32 prefill attention a pass;
+               tok/s, device ms a step, peak memory); W4A8 prompt logits of
+               a 2-layer cut, card against CPU (5% / 0.999); the debugger
+               (LMDEPLOY_TPU_DEBUG=dump, then cmp on the card, then cmp of
+               the CPU's run) on that cut; trace() and annotate() around a
+               bs1 request.  Alone: --phases probe,build,tools.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -158,7 +173,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant',
-          'parallel', 'pipeline')
+          'parallel', 'pipeline', 'tools')
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
@@ -1357,6 +1372,26 @@ def teacher_forced_logits(torch, params, cfg, prompt, tokens, dev='cuda'):
     return logits[0, len(prompt) - 1:, :cfg.vocab_size].float()
 
 
+def agree_up_to_near_tie(torch, params, cfg, prompt, ref, got, label,
+                         dev='cuda'):
+    """``got`` equals ``ref`` (a greedy stream of ``prompt``), or parts
+    from it first at a step whose top-2 logit gap in the teacher-forced
+    forward of ``ref`` is below 1% of that step's max|logit| (the
+    criterion of test_greedy_streams_match_jax_engine); after such a part
+    the streams may differ.  Returns the steps that agree."""
+    same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                None)
+    if same is None:
+        return min(len(ref), len(got))
+    lg = teacher_forced_logits(torch, params, cfg, prompt, ref, dev)[same]
+    top2 = lg.topk(2).values
+    if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
+        raise AssertionError(f'{label}: streams part at step {same} '
+                             'with no near-tie there')
+    log(f'  {label}: parts at step {same} of {len(ref)}, a near-tie')
+    return same
+
+
 def device_kernels(torch, fn):
     """The kernels one call of ``fn`` runs, by name: [(device ms, launches,
     name)], most time first (torch.profiler, CUDA activity only, which
@@ -1763,23 +1798,6 @@ def phase_engine(torch, ctx):
         result.update(tok_s_4_concurrent_spec=conc, concurrent_stats=d)
         return result
 
-    def agree_up_to_near_tie(prompt, ref, got, label):
-        """``got`` equals ``ref`` (a greedy stream of ``prompt``), or parts
-        from it first at a step whose top-2 logit gap in the teacher-forced
-        forward of ``ref`` is below 1% of that step's max|logit| (the
-        criterion of test_greedy_streams_match_jax_engine); after such a
-        part the streams may differ.  Returns the steps that agree."""
-        same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
-                    None)
-        if same is None:
-            return min(len(ref), len(got))
-        lg = teacher_forced_logits(torch, params, cfg, prompt, ref)[same]
-        top2 = lg.topk(2).values
-        if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
-            raise AssertionError(f'{label}: streams part at step {same} '
-                                 'with no near-tie there')
-        return same
-
     def prefix_hit(width, quant_policy, kv_scales, ref):
         """Cross-session prefix caching at full depth: a bs1 greedy leader
         of long_prompt (300 tokens, 32 new) and then a follower sharing it
@@ -1822,8 +1840,9 @@ def phase_engine(torch, ctx):
                                           [((1, 64), [43])]]:
             raise AssertionError(f'{width} prefix hit: hits {hits}, prefill '
                                  f'passes (ids shape, lengths) {passes}')
-        agree = [agree_up_to_near_tie(long_prompt, ref[:len(r['tokens'])],
-                                      r['tokens'], f'{width} prefix hit')
+        agree = [agree_up_to_near_tie(torch, params, cfg, long_prompt,
+                                      ref[:len(r['tokens'])], r['tokens'],
+                                      f'{width} prefix hit')
                  for r in out]
         log(f'  {width} prefix caching, 300-token prompt [{card}]: leader '
             f'(32 new) hit {hits[0]} tokens, prefill {passes[0]}, TTFT '
@@ -3247,24 +3266,6 @@ class Rig:
                              for k in solved[1]})
         return per_rank
 
-    def agree(self, params, mcfg, prompt, ref, got, label):
-        """``got`` equals the one-rank stream ``ref``, or parts from it
-        first at a step whose top-2 gap in the teacher-forced one-rank
-        forward is under 1% of max|logit|.  Returns the steps that
-        agree."""
-        same = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
-                    None)
-        if same is None:
-            return len(ref)
-        lg = teacher_forced_logits(self.torch, params, mcfg, prompt, ref,
-                                   self.device)[same]
-        top2 = lg.topk(2).values
-        if not float(top2[0] - top2[1]) < 0.01 * float(lg.abs().max()):
-            raise AssertionError(f'{label}: streams part at step {same} '
-                                 'with no near-tie there')
-        log(f'  {label}: parts at step {same} of {len(ref)}, a near-tie')
-        return same
-
     def logits_gate(self, ref, got, label):
         """Prompt logits within 5% of max|logit| with cosine >= 0.999."""
         torch = self.torch
@@ -3352,8 +3353,7 @@ def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     prompts, bs1_prompt, n_new = rig.prompts, rig.bs1_prompt, rig.n_new
     greedy, stream, concurrent, mark = (rig.greedy, rig.stream,
                                         rig.concurrent, rig.mark)
-    agree, start, stop, placement = (rig.agree, rig.start, rig.stop,
-                                     rig.placement)
+    start, stop, placement = rig.start, rig.stop, rig.placement
     nl = cfg.num_layer
     gemm = {'w4a16_gemm': 5 * nl}
     want_launches = {
@@ -3464,11 +3464,15 @@ def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
                              f'reports {len(eng.rank_reports)}')
     frames = eng.rank_reports[0]['frames']
     del eng
-    agreed = [agree(params, cfg, bs1_prompt, one['bs1']['tokens'],
-                    two['bs1']['tokens'], 'tp=2 bs1'),
-              agree(params, cfg, bs1_prompt, one['bs1_spec']['tokens'],
-                    two['bs1_spec']['tokens'], 'tp=2 bs1 speculative')]
-    agreed += [agree(params, cfg, p, a, b, f'tp=2 concurrent {len(p)}')
+    agreed = [agree_up_to_near_tie(torch, params, cfg, bs1_prompt,
+                                   one['bs1']['tokens'], two['bs1']['tokens'],
+                                   'tp=2 bs1', device),
+              agree_up_to_near_tie(torch, params, cfg, bs1_prompt,
+                                   one['bs1_spec']['tokens'],
+                                   two['bs1_spec']['tokens'],
+                                   'tp=2 bs1 speculative', device)]
+    agreed += [agree_up_to_near_tie(torch, params, cfg, p, a, b,
+                                    f'tp=2 concurrent {len(p)}', device)
                for p, a, b in zip(prompts, one['concurrent'],
                                   two['concurrent'])]
     if two['sampled'][0] != two['sampled'][1]:
@@ -3507,7 +3511,8 @@ def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     if sorted(set(groups)) != [0, 1] or kept != groups[0] \
             or len(cont['tokens']) != 8:
         raise AssertionError(f'dp=2 groups {groups}, continued in {kept}')
-    dp_agreed = [agree(params, cfg, p, a, b, f'dp=2 concurrent {len(p)}')
+    dp_agreed = [agree_up_to_near_tie(torch, params, cfg, p, a, b,
+                                      f'dp=2 concurrent {len(p)}', device)
                  for p, a, b in zip(prompts, one['concurrent'], toks)]
     del eng
     log(f'  dp=2 [{card}]: start {t_start:.1f} s, 4 concurrent '
@@ -3539,7 +3544,8 @@ def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
         finally:
             t_stop = stop(eng, label)
         del eng
-    agreed4 = [agree(params4, cfg4, p, a, b, f'2x2 concurrent {len(p)}')
+    agreed4 = [agree_up_to_near_tie(torch, params4, cfg4, p, a, b,
+                                    f'2x2 concurrent {len(p)}', device)
                for p, a, b in zip(prompts, res['1x1'][0], res['2x2'][0])]
     log(f'  dp x tp = 2 x 2 at {shallow} layers [{card}]: start '
         f'{res["2x2"][3]:.1f} s, 4 concurrent {res["2x2"][1]:.1f} tok/s '
@@ -3696,13 +3702,15 @@ def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     del eng
     if two['ring_rounds'] <= 0:
         raise AssertionError('pp=2: no ring round')
-    agreed = [rig.agree(params, cfg, bs1_prompt, one['bs1']['tokens'],
-                        two[k]['tokens'], f'pp=2 {k}')
+    agreed = [agree_up_to_near_tie(torch, params, cfg, bs1_prompt,
+                                   one['bs1']['tokens'], two[k]['tokens'],
+                                   f'pp=2 {k}', device)
               for k in ('bs1_relay', 'bs1')]
-    agreed.append(rig.agree(params, cfg, bs1_prompt,
-                            one['bs1_spec']['tokens'],
-                            two['bs1_spec']['tokens'], 'pp=2 bs1_spec'))
-    agreed += [rig.agree(params, cfg, p, a, b, f'pp=2 concurrent {len(p)}')
+    agreed.append(agree_up_to_near_tie(
+        torch, params, cfg, bs1_prompt, one['bs1_spec']['tokens'],
+        two['bs1_spec']['tokens'], 'pp=2 bs1_spec', device))
+    agreed += [agree_up_to_near_tie(torch, params, cfg, p, a, b,
+                                    f'pp=2 concurrent {len(p)}', device)
                for p, a, b in zip(prompts, one['concurrent'],
                                   two['concurrent'])]
     if two['sampled'][0] != two['sampled'][1]:
@@ -3759,10 +3767,13 @@ def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     if len({r['readback_sha256'] for r in reports}) != 1 or rings <= 0:
         raise AssertionError(f'pp=2 x tp=2: digests differ or {rings} ring '
                              'rounds')
-    agreed22 = [rig.agree(params, cfg, bs1_prompt, one['bs1']['tokens'],
-                          res['bs1']['tokens'], 'pp=2 x tp=2 bs1')]
-    agreed22 += [rig.agree(params, cfg, p, a, b,
-                           f'pp=2 x tp=2 concurrent {len(p)}')
+    agreed22 = [agree_up_to_near_tie(torch, params, cfg, bs1_prompt,
+                                     one['bs1']['tokens'],
+                                     res['bs1']['tokens'], 'pp=2 x tp=2 bs1',
+                                     device)]
+    agreed22 += [agree_up_to_near_tie(torch, params, cfg, p, a, b,
+                                      f'pp=2 x tp=2 concurrent {len(p)}',
+                                      device)
                  for p, a, b in zip(prompts, one['concurrent'],
                                     res['concurrent'])]
     peaks22 = [round(r['peak_bytes'] / 2 ** 30, 2) for r in reports]
@@ -3811,7 +3822,8 @@ def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     if [len(d) for d in digests] != [1, 1] or rings <= 0:
         raise AssertionError(f'2x2x2: readback digests by group {digests},'
                              f' {rings} ring rounds')
-    agreed8 = [rig.agree(params4, cfg4, p, a, b, f'2x2x2 concurrent {len(p)}')
+    agreed8 = [agree_up_to_near_tie(torch, params4, cfg4, p, a, b,
+                                    f'2x2x2 concurrent {len(p)}', device)
                for p, a, b in zip(prompts, want4, toks)]
     log(f'  dp x pp x tp = 2 x 2 x 2 at {shallow} layers [{card}]: start '
         f'{t_start:.1f} s, 4 concurrent {rate:.1f} tok/s ({rig.placement(8)})'
@@ -3826,6 +3838,509 @@ def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
     log(f'  rank 0 peak memory while starting (GiB, by config): '
         f'{summary.get("start_peak_gib_rank0")}')
     log(f'  pipeline: {time.monotonic() - t_phase:.1f} s')
+
+
+# ---------------------------------------------------------------------------
+# phase tools: the byte-per-int4 form, W4A8, the debugger and the profiler
+# ---------------------------------------------------------------------------
+
+def phase_tools(torch, ctx):
+    """The last modules of the port at Llama-2-7B width (see
+    :func:`tools`)."""
+    tools(torch, ctx, llama2_7b(), llama2_7b(num_layer=2), 'cuda')
+
+
+def byte_form(torch, params):
+    """``random_packed_params``' W4A16 layers as byte-per-int4
+    QuantizedWeight (zero point sz / scale, 8 there): the same function in
+    the form ``LMDEPLOY_TPU_PACKED_INT4=0`` serves."""
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import unpack_nibbles
+    from lmdeploy_tpu_torch.ops.linear import (PackedInt4Weight,
+                                               QuantizedWeight)
+    layers = dict(params['layers'])
+    for name, w in layers.items():
+        if isinstance(w, PackedInt4Weight):
+            s = w.scales[:, :, 0]
+            layers[name] = QuantizedWeight(
+                qvals=unpack_nibbles(w.packed), scales=s,
+                zeros=(w.sz.float() / s.float()).round().to(s.dtype))
+    return dict(params, layers=layers)
+
+
+def depth_cut(torch, params, n):
+    """The first ``n`` layers of a parameter tree (copies)."""
+    import dataclasses
+
+    def cut(w):
+        if dataclasses.is_dataclass(w):
+            return type(w)(**{f.name: getattr(w, f.name)[:n].clone()
+                              for f in dataclasses.fields(w)})
+        return w[:n].clone()
+    return dict(params, layers={k: cut(w)
+                                for k, w in params['layers'].items()})
+
+
+def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
+          gemms=LLAMA2_7B_GEMMS, rows=(1, ENGINE_SLOTS, 40, 512),
+          lens=(100, 300), trace_new=8, ecfg_kw=None):
+    """On ``device`` (the card; the CPU for a rehearsal, where the card's
+    side runs on the CPU too and nothing is timed):
+
+    1. W4A8 per product: ``quant_matmul_a8`` at each of ``gemms`` and M in
+       ``rows`` against the same function on the CPU on identical inputs
+       (within 1e-3 of max|ref|), timed beside the byte form's group /
+       dequant product and kernel 1 (not a main-path run).
+    2. Engines on ``cfg`` (phase 5's weights, seed 5): packed (the
+       reference), byte-per-int4 (``LMDEPLOY_TPU_PACKED_INT4=0``) and byte
+       + ``LMDEPLOY_TPU_W4A8=1``, each serving bs1 greedy ``n_new`` and
+       then ``short_new`` from a ``lens[0]``-token prompt, whose two
+       windows solve launches (packed: 5L GEMM + L decode attention a step,
+       5L + L prefill attention a pass; byte and W4A8: no GEMM, L and L),
+       and the prompt logits of a ``lens[1]``-token prompt (one pass of
+       the same bucket); device ms a decode step is the profiled short
+       request's less its pass, over its steps.  The byte stream equals the packed one up
+       to near-ties and its logits are within 5% / cosine 0.999; W4A8's
+       logits must be finite and its tokens in the vocabulary.
+    3. W4A8 model gate: the weights of 2 cut to ``cut_cfg``'s depth (2
+       layers), byte-form engines with W4A8 on ``device`` and on the CPU:
+       prompt logits of the ``lens[1]``-token prompt within 5% / cosine
+       0.999.  For the first 64 tokens of the ``lens[0]``-token prompt
+       every W4A8 product of the card's run is held against the CPU's on
+       the card's own inputs (1e-3 of max|ref|); its end-to-end gap is
+       recorded row by row beside the byte form's (W4A8 turns last-bit
+       differences into jumps).
+    4. The debugger on that cut, packed: ``dump`` of a 16-token prompt
+       and 2 decode steps (every layer_out and logits file, counts and
+       shapes), ``cmp`` of the same run (every line OK), ``cmp`` of the
+       CPU's run (rel recorded).
+    5. The profiler: ``trace`` around a bs1 request of ``trace_new``
+       tokens under ``annotate('tools.decode')``; the trace names it.
+
+    Launch counters are set to 0 before each run of 2, 4 and 5 and read
+    after it (kernels line: ``tools_launches``)."""
+    import contextlib as cl
+    import dataclasses
+    import importlib
+    import io
+    import shutil
+    import tempfile
+
+    from lmdeploy_tpu_torch.config import EngineConfig
+    from lmdeploy_tpu_torch.engine.engine import TorchEngine
+    from lmdeploy_tpu_torch.kvcache.paged import init_cache
+    from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+    from lmdeploy_tpu_torch.models.llama import (StepBatch, forward,
+                                                 random_packed_params)
+    from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops import linear as L
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA, w4a16_gemm
+    from lmdeploy_tpu_torch.utils import debug, profiler
+    on_card = device == 'cuda'
+    card = ctx.get('card', '?')
+    nl, vocab = cfg.num_layer, cfg.vocab_size
+    t_phase = time.monotonic()
+    torch.set_num_threads(8)
+    ecfg = EngineConfig(**(ecfg_kw or dict(
+        max_batch_size=ENGINE_SLOTS, session_len=2048, page_size=64,
+        num_pages=88, max_context_token_num=512, prefill_buckets=(64, 512),
+        step_length=16, speculative_k=0, enable_prefix_caching=False)))
+    rng = np.random.default_rng(5)
+    prompt, long_prompt = (rng.integers(3, vocab, size=n).tolist()
+                           for n in lens)
+    sid = iter(range(1, 10 ** 6))
+    summary, timer = {}, Timer(torch) if on_card else None
+    decode_k = 'paged_decode_attention_write[bf16]'
+    prefill_k = 'paged_prefill_attention[bf16]'
+    tmp = tempfile.mkdtemp(prefix='lmdeploy-tools-')
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def add_launches():
+        """Add this run's launches to the kernels line's tools_launches
+        (the run began with the counters at 0)."""
+        for name, (n, _) in K.launch_counts(True).items():
+            if n:
+                k = ctx['kernels'].setdefault(name, {})
+                k['tools_launches'] = k.get('tools_launches', 0) + n
+
+    # 1. W4A8 per product, card against CPU, with the byte form's and
+    # kernel 1's times at the same M
+    gen = torch.Generator(device=device).manual_seed(11)
+    per_product, worst = [], 0.0
+    for name, k, n in gemms:
+        g = k // 128
+        qw = L.QuantizedWeight(
+            qvals=torch.randint(0, 16, (k, n), generator=gen,
+                                dtype=torch.uint8, device=device),
+            scales=(torch.rand((g, n), generator=gen, device=device) * 0.003
+                    + 0.001).to(torch.bfloat16),
+            zeros=torch.randint(6, 10, (g, n), generator=gen, device=device
+                                ).to(torch.bfloat16))
+        host = L.QuantizedWeight(qw.qvals.cpu(), qw.scales.cpu(),
+                                 qw.zeros.cpu())
+        # kernel 1 cycles over 4 copies of the layer, so that its weight
+        # is not L2-resident from the previous call (as phase 3 times it)
+        pw = L.pack_quantized(qw)
+        pk, ps = (t.expand(4, *t.shape[1:]).contiguous()
+                  for t in (pw.packed, pw.scales))
+        for m in rows:
+            x = torch.randn((m, k), generator=gen, device=device
+                            ).to(torch.bfloat16)
+            got = L.quant_matmul_a8(x, qw).cpu()
+            want = L.quant_matmul_a8(x.cpu(), host)
+            err = float((got - want).abs().max() / want.abs().max())
+            worst = max(worst, err)
+            row = dict(proj=name, m=m, err=err)
+            if on_card:
+                byte = (L.quant_matmul if m < L._dequant_min_m()
+                        else L.quant_matmul_dequant)
+                row.update(
+                    a8_ms=timer.events(lambda i: L.quant_matmul_a8(x, qw),
+                                       5),
+                    byte_ms=timer.events(lambda i: byte(x, qw), 5),
+                    kernel1_ms=timer.graph(
+                        lambda i: w4a16_gemm(x, pk, ps, i % 4), 20))
+            per_product.append(row)
+        del qw, host, pw, pk, ps
+    if worst > 1e-3:
+        raise AssertionError(f'W4A8 card vs CPU: max err / max|ref| '
+                             f'{worst:.3e} (tol 1e-3): {per_product}')
+    by_m = {}
+    for r in per_product:
+        t = by_m.setdefault(r['m'], {'a8_ms': 0.0, 'byte_ms': 0.0,
+                                     'kernel1_ms': 0.0})
+        for key in t:
+            t[key] += r.get(key, 0.0)
+    log(f'  W4A8 card vs CPU, the {len(gemms)} projections at M = {rows}: '
+        f'worst max err / max|ref| {worst:.3e} (tol 1e-3) '
+        f'({time.monotonic() - t_phase:.1f} s)')
+    if on_card:
+        for r in per_product:
+            log(f'    {r["proj"]} M={r["m"]}: W4A8 {r["a8_ms"]:.4f} ms, '
+                f'byte form {r["byte_ms"]:.4f} ms, kernel 1 '
+                f'{r["kernel1_ms"]:.4f} ms [{card}]')
+        log(f'    one layer (sum of the projections) by M: {by_m}')
+    summary['per_product'] = per_product
+    summary['layer_ms_by_m'] = by_m
+    K.reset_launch_counts()
+
+    # 2. the 32-layer engines: packed, byte form, byte form + W4A8
+    params = random_packed_params(cfg, 5, device)
+    byte_params = byte_form(torch, params)
+    sync()
+
+    def request(inst, ids, n):
+        """One bs1 greedy request of exactly ``n`` tokens: (tokens, tok/s
+        after the first)."""
+        t0, first = time.monotonic(), None
+        for last in inst.stream_infer(next(sid), ids, GenerationConfig(
+                max_new_tokens=n, top_k=1, ignore_eos=True),
+                sequence_end=True):
+            if last.num_generated and first is None:
+                first = time.monotonic()
+        if last.num_generated != n or last.status != ResponseType.FINISH:
+            raise AssertionError(f'request: {last.num_generated} of {n} '
+                                 f'tokens, {last.status}')
+        t1 = time.monotonic()
+        return list(last.token_ids), (n - 1) / max(t1 - (first or t1), 1e-9)
+
+    def serve(label, tree, env, form):
+        """One engine under ``env``: the stream, tok/s, launches and
+        device ms per pass kind, prompt logits, peak memory."""
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with env_vars(env):
+            eng = TorchEngine(cfg, ecfg, tree, device=device)
+            try:
+                if not all(isinstance(eng.params['layers'][p], form)
+                           for p, _, _ in gemms):
+                    raise AssertionError(f'{label}: weights not {form}')
+                inst = eng.create_instance()
+                marks, dev_ms, held = [], [], []
+
+                def mark():
+                    marks.append((
+                        {n: c[0] for n, c in K.launch_counts(True).items()},
+                        {'decode_steps': eng.stats['decode_steps'],
+                         'prefill_passes': eng.stats['prefill_passes']}))
+
+                def profiled(fn):
+                    """fn's result; its device ms appended to dev_ms."""
+                    if not on_card:
+                        return fn()
+                    dev_ms.append(sum(ms for ms, _, _ in device_kernels(
+                        torch, lambda: held.append(fn()))))
+                    return held.pop()
+                K.reset_launch_counts()
+                mark()
+                tokens, tps = request(inst, prompt, n_new)
+                mark()
+                profiled(lambda: request(inst, prompt, short_new))
+                mark()
+                t0 = time.monotonic()
+                logits = profiled(lambda: inst.decode(long_prompt))
+                logits_s = time.monotonic() - t0
+                counts = K.launch_counts(True)
+                add_launches()
+                if label == 'packed' and trace_new:
+                    summary['trace'] = trace_request(inst)
+            finally:
+                eng.shutdown()
+        passes = np.array([[b[1][k] - a[1][k] for k in ('decode_steps',
+                                                        'prefill_passes')]
+                           for a, b in zip(marks, marks[1:])], np.float64)
+        res = dict(tokens=tokens, tok_s=tps, logits=logits,
+                   logits_s=logits_s, windows=passes.tolist(),
+                   peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None))
+        if dev_ms:
+            (steps, passes_), (req_ms, pass_ms) = passes[1], dev_ms
+            res.update(device_ms_per_step=(req_ms - passes_ * pass_ms)
+                       / steps, device_ms_per_pass=pass_ms)
+        if on_card:
+            gemm = 5 * nl if label == 'packed' else 0
+            check_route(counts, launches_per_kind(marks, skip=(WGMMA,)),
+                        {'decode_steps': {'w4a16_gemm': gemm, decode_k: nl},
+                         'prefill_passes': {'w4a16_gemm': gemm,
+                                            prefill_k: nl}},
+                        f'tools, {label} engine',
+                        need=('decode_steps', 'prefill_passes'))
+        res['launches'] = {n: c[0] for n, c in counts.items() if c[0]}
+        log(f'  {label} engine [{card}]: bs1 {tps:.1f} tok/s ({n_new} new '
+            f'from {len(prompt)}), device ms a decode step '
+            f'{res.get("device_ms_per_step")}, a prefill pass '
+            f'{res.get("device_ms_per_pass")}, prompt logits of '
+            f'{len(long_prompt)} in {logits_s:.3f} s, peak '
+            f'{res["peak_gib"]} GiB; launches {res["launches"]} over '
+            f'windows (decode steps, prefill passes) {res["windows"]}')
+        return res
+
+    def trace_request(inst):
+        """A bs1 request of ``trace_new`` tokens under trace() and
+        annotate('tools.decode'): the trace file names the annotation."""
+        t0 = time.monotonic()
+        log_dir = os.path.join(tmp, 'trace')
+        with profiler.trace(log_dir):
+            with profiler.annotate('tools.decode'):
+                request(inst, prompt, trace_new)
+        files = os.listdir(log_dir)
+        size = os.path.getsize(os.path.join(log_dir, files[0]))
+        with open(os.path.join(log_dir, files[0])) as f:
+            named = '"tools.decode"' in f.read()
+        if len(files) != 1 or not named:
+            raise AssertionError(f'profiler trace: files {files}, names '
+                                 f'the annotation: {named}')
+        dt = time.monotonic() - t0
+        log(f'  profiler: trace() of a bs1 request of {trace_new} tokens '
+            f'under annotate("tools.decode"): {files[0]}, {size} bytes, '
+            f'names the annotation; {dt:.1f} s with the write')
+        return dict(bytes=size, seconds=dt)
+
+    try:
+        packed = serve('packed', params, {}, L.PackedInt4Weight)
+        byte = serve('byte form', byte_params,
+                     {'LMDEPLOY_TPU_PACKED_INT4': '0'}, L.QuantizedWeight)
+        a8 = serve('W4A8', byte_params, {'LMDEPLOY_TPU_PACKED_INT4': '0',
+                                         'LMDEPLOY_TPU_W4A8': '1'},
+                   L.QuantizedWeight)
+        same = agree_up_to_near_tie(torch, params, cfg, prompt,
+                                    packed['tokens'], byte['tokens'],
+                                    'byte form vs packed', device)
+        rel, cos = logits_gate(torch, byte['logits'], packed['logits'],
+                               'byte form vs packed prompt logits')
+        lg = torch.from_numpy(a8['logits'])
+        if not (bool(torch.isfinite(lg).all()) and all(
+                0 <= t < vocab for t in a8['tokens'])):
+            raise AssertionError(f'W4A8 engine: finite logits '
+                                 f'{bool(torch.isfinite(lg).all())}, '
+                                 f'tokens {a8["tokens"]}')
+        ref = torch.from_numpy(packed['logits'])
+        a8_rel = float((lg - ref).abs().max() / ref.abs().max())
+        a8_cos = float(torch.nn.functional.cosine_similarity(
+            lg, ref, dim=-1).min())
+        a8_same = next((i for i, (a, b) in enumerate(
+            zip(packed['tokens'], a8['tokens'])) if a != b), n_new)
+        log(f'  byte form vs packed: {same} of {n_new} greedy steps equal '
+            f'(the rest after a near-tie), prompt logits max err / '
+            f'max|logit| {rel:.3e}, min cosine {cos:.6f}; W4A8 vs packed '
+            f'(not gated): first {a8_same} steps equal, logits {a8_rel:.3e}'
+            f', min cosine {a8_cos:.6f}')
+        for key, res in (('packed', packed), ('byte', byte), ('w4a8', a8)):
+            summary[key] = {k: v for k, v in res.items()
+                            if k not in ('logits', 'tokens')}
+        summary.update(byte_vs_packed=dict(steps_equal=same, rel=rel,
+                                           cos=cos),
+                       w4a8_vs_packed=dict(steps_equal=a8_same, rel=a8_rel,
+                                           cos=a8_cos))
+        cut = depth_cut(torch, params, cut_cfg.num_layer)
+        del params, byte_params, packed, byte, a8, lg, ref
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f'    ({time.monotonic() - t_phase:.1f} s into the phase)')
+
+        # 3. the W4A8 model gate: the 2-layer cut, card against CPU
+        cut_bytes = byte_form(torch, cut)
+        cut_host = _to(cut_bytes, 'cpu')
+        short_ids = prompt[:64]
+        got, byte_short, forced = {}, {}, []
+        a8 = L.quant_matmul_a8
+
+        def a8_forced(x2, qw):
+            """The card's W4A8 product, held against the CPU's on the
+            card's own inputs (teacher-forced: no drift between them)."""
+            out = a8(x2, qw)
+            want = a8(x2.cpu(), L.QuantizedWeight(
+                *(t.cpu() for t in (qw.qvals, qw.scales, qw.zeros))))
+            forced.append(float((out.cpu() - want).abs().max()
+                                / want.abs().max()))
+            return out
+
+        for dev, tree in ((device, cut_bytes), ('cpu', cut_host)):
+            with env_vars({'LMDEPLOY_TPU_PACKED_INT4': '0'}):
+                eng = TorchEngine(cut_cfg, ecfg, tree, device=dev)
+                try:
+                    inst = eng.create_instance()
+                    byte_short[dev] = torch.from_numpy(inst.decode(short_ids))
+                    with env_vars({'LMDEPLOY_TPU_W4A8': '1'}):
+                        got[dev] = [torch.from_numpy(inst.decode(long_prompt))]
+                        if dev == device:
+                            L.quant_matmul_a8 = a8_forced
+                        try:
+                            got[dev].append(torch.from_numpy(
+                                inst.decode(short_ids)))
+                        finally:
+                            L.quant_matmul_a8 = a8
+                finally:
+                    eng.shutdown()
+        rel8, cos8 = logits_gate(torch, got[device][0], got['cpu'][0],
+                                 'W4A8 2-layer prompt logits, card vs CPU')
+        # the short prompt: W4A8 is not continuous in its input, so the
+        # card's last-bit differences (the byte form's logits differ by
+        # ~1-2% there) can move a code or a rounded group dot, and the
+        # logits jump.  Its gate is every W4A8 product the card ran for
+        # it, against the CPU's on the card's inputs; the end-to-end gap
+        # is recorded row by row beside the byte form's
+        if not forced or max(forced) > 1e-3:
+            raise AssertionError(
+                f'W4A8 2-layer, first 64 tokens: {len(forced)} products, '
+                f'card vs CPU on the card\'s inputs max err / max|ref| '
+                f'{max(forced, default=None)} (tol 1e-3)')
+
+        def rows_rel(a, b):
+            return (a - b).abs().amax(-1) / b.abs().amax()
+        a8_rows = rows_rel(got[device][1], got['cpu'][1])
+        byte_rows = rows_rel(byte_short[device], byte_short['cpu'])
+        over = (a8_rows > 0.05).nonzero().flatten().tolist()
+        short = dict(
+            rel=float(a8_rows.max()), cos=float(
+                torch.nn.functional.cosine_similarity(
+                    got[device][1], got['cpu'][1], dim=-1).min()),
+            byte_rel=float(byte_rows.max()),
+            rows_over_5pct={r: [float(a8_rows[r]), float(byte_rows[r])]
+                            for r in over},
+            forced_products=len(forced), forced_worst=max(forced))
+        log(f'  W4A8 model gate, {cut_cfg.num_layer} layers, prompt logits '
+            f'of {len(long_prompt)} tokens, card vs CPU: max err / '
+            f'max|logit| {rel8:.3e} (tol 0.05), min cosine {cos8:.6f} (tol '
+            f'0.999); first 64 tokens of the {len(prompt)}-token prompt: '
+            f'{len(forced)} W4A8 products against the CPU on the card\'s '
+            f'inputs, worst {max(forced):.3e} (tol 1e-3); end to end (not '
+            f'gated) {short["rel"]:.3e}, min cosine {short["cos"]:.6f}, the '
+            f'byte form\'s {short["byte_rel"]:.3e}; rows over 5% (W4A8, '
+            f'byte form): {short["rows_over_5pct"]} '
+            f'({time.monotonic() - t_phase:.1f} s into the phase)')
+        summary['w4a8_cut_gate'] = dict(rel=rel8, cos=cos8, short=short)
+        del cut_bytes, cut_host, got, byte_short
+
+        # 4. the debugger on the 2-layer cut (packed: all three kernels)
+        host = _to(cut, 'cpu')
+        dbg_dir = os.path.join(tmp, 'cmp')
+        feed = []
+
+        def dbg_run(dev, tree):
+            """A 16-token prompt and 2 decode steps (the card's argmax
+            tokens are fed to every run)."""
+            cache = init_cache(cut_cfg.num_layer, 4, 64, cut_cfg.kv_head_num,
+                               cut_cfg.size_per_head, torch.bfloat16, dev)
+            pt = torch.arange(4, dtype=torch.int32, device=dev)[None]
+            ids, start = prompt[:16], 0
+            for s in range(3):
+                t = len(ids)
+                batch = StepBatch(
+                    ids=torch.tensor([ids], dtype=torch.int32, device=dev),
+                    positions=torch.arange(start, start + t,
+                                           dtype=torch.int32,
+                                           device=dev)[None],
+                    valid=torch.ones((1, t), dtype=torch.bool, device=dev),
+                    context_len=torch.tensor([start + t], dtype=torch.int32,
+                                             device=dev),
+                    page_table=pt)
+                logits, _ = forward(tree, cache, batch, cut_cfg)
+                start += t
+                if len(feed) <= s:
+                    feed.append(int(logits[0, :cut_cfg.vocab_size].argmax()))
+                ids = [feed[s]]
+
+        def with_mode(mode, dev, tree):
+            """Run under LMDEPLOY_TPU_DEBUG=``mode``; its [cmp] lines."""
+            buf = io.StringIO()
+            with env_vars({'LMDEPLOY_TPU_DEBUG': mode,
+                           'LMDEPLOY_TPU_DEBUG_DIR': dbg_dir}):
+                importlib.reload(debug)
+                try:
+                    K.reset_launch_counts()
+                    with cl.redirect_stdout(buf):
+                        dbg_run(dev, tree)
+                    sync()
+                    if dev == device:
+                        add_launches()
+                finally:
+                    os.environ.pop('LMDEPLOY_TPU_DEBUG', None)
+                    importlib.reload(debug)
+            return [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith('[cmp]')]
+
+        t0 = time.monotonic()
+        with_mode('dump', device, cut)
+        files = sorted(os.listdir(dbg_dir))
+        want_files = sorted([f'layer_out.{i}.npy'
+                             for i in range(3 * cut_cfg.num_layer)]
+                            + [f'logits.{i}.npy' for i in range(3)])
+        shapes = {f: np.load(os.path.join(dbg_dir, f)).shape for f in files}
+        d = cut_cfg.hidden_size
+        want_shapes = {f: ((1, 16, d) if f.startswith('layer_out') and
+                           int(f.split('.')[1]) < cut_cfg.num_layer else
+                           (1, 1, d) if f.startswith('layer_out') else
+                           (1, cut.get('lm_head').shape[-1]))
+                       for f in want_files}
+        if files != want_files or shapes != want_shapes:
+            raise AssertionError(f'debug dump: files {files}, shapes '
+                                 f'{shapes}; want {want_shapes}')
+        same_dev = with_mode('cmp', device, cut)
+        if len(same_dev) != len(files) or not all(
+                ln.startswith('[cmp] OK ') for ln in same_dev):
+            raise AssertionError(f'debug cmp on {device}: {same_dev}')
+        cpu_lines = with_mode('cmp', 'cpu', host)
+        rels = [float(ln.split(' rel ')[1]) for ln in cpu_lines
+                if ' rel ' in ln]
+        log(f'  debugger: dump of a 16-token prompt + 2 decode steps wrote '
+            f'{len(files)} files ({shapes}); cmp on {device}: '
+            f'{len(same_dev)} lines OK; cmp of the CPU run (not gated): '
+            + '; '.join(ln[6:] for ln in cpu_lines)
+            + f' ({time.monotonic() - t0:.1f} s)')
+        summary['debug'] = dict(files=len(files), cpu_rel=rels)
+        del cut, host
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        K.reset_launch_counts()
+        if on_card:
+            torch.cuda.empty_cache()
+    summary['seconds'] = time.monotonic() - t_phase
+    ctx['tools'] = summary
+    log(f'  tools: {summary["seconds"]:.1f} s')
 
 
 def main(argv=None) -> int:
@@ -3872,6 +4387,7 @@ def main(argv=None) -> int:
             spec_launches=k.get('spec_launches'),
             doors_launches=k.get('doors_launches'),
             quant_launches=k.get('quant_launches'),
+            tools_launches=k.get('tools_launches'),
             launches_per_verify_round=k.get('launches_per_verify_round'),
             max_abs_err=k.get('max_abs_err'), tolerance=k.get('tolerance'),
             ms=k.get('ms'), kernel_ms=k.get('ms'), plain_ms=k.get('plain_ms'),

@@ -7,21 +7,15 @@ Commands mirror the reference's python -m entrypoints:
   decode    prompt logits / perplexity      (lmdeploy.turbomind.decode)
   lite      quantisation toolkit: calibrate, auto_awq, kv_qparams
                                             (lmdeploy.lite.apis)
+  chat-baseline  HF eager baseline chat     (lmdeploy.pytorch.chat)
 
-``chat``, ``serve``, ``decode``, ``lite calibrate`` and ``lite auto_awq``
-take ``--device cpu`` to run on the CPU (the default is CUDA).
-``chat-baseline`` belongs to the JAX package and is not ported yet.
+``chat``, ``serve``, ``decode``, ``chat-baseline``, ``lite calibrate`` and
+``lite auto_awq`` take ``--device cpu`` to run on the CPU (the default is
+CUDA).  ``chat-baseline`` needs the ``transformers`` package.
 """
 from __future__ import annotations
 
 import sys
-
-# commands of the JAX package's CLI that the port does not have yet, and
-# where ROADMAP.md queues them
-NOT_PORTED = {
-    'chat-baseline': 'ROADMAP.md Queue 1 item "The remaining benchmarks '
-                     'and tools" (pytorch/, the HF eager backend)',
-}
 
 
 def main(argv=None):
@@ -47,10 +41,10 @@ def main(argv=None):
     if cmd == 'lite':
         from ..lite.cli import main as lite_main
         return lite_main(rest)
-    if cmd in NOT_PORTED:
-        print(f'{cmd}: not ported to lmdeploy_tpu_torch yet; '
-              f'{NOT_PORTED[cmd]} brings it')
-        return 1
+    if cmd == 'chat-baseline':
+        from ..pytorch.chat import main as pt_main
+        pt_main(rest[0], **_kw(rest[1:]))
+        return 0
     print(f'unknown command: {cmd}\n{__doc__}')
     return 1
 

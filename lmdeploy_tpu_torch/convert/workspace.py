@@ -25,7 +25,8 @@ import torch
 from ..config import EngineConfig, ModelConfig
 from ..models.llama import packable
 from ..ops.cuda.quant_matmul import unpack_nibbles
-from ..ops.linear import (PackedInt4Weight, QuantizedWeight, pack_quantized,
+from ..ops.linear import (PackedInt4Weight, QuantizedWeight,
+                          packed_int4_enabled, pack_quantized,
                           unpack_int4)
 
 _NP_DTYPES = {'F32': np.float32, 'F16': np.float16, 'F64': np.float64,
@@ -170,7 +171,8 @@ def params_from_numpy(tree: Dict[str, Any], device='cuda') -> Dict[str, Any]:
 
     Dense leaves keep their dtype.  Quantized weights arrive as
     ``{'qvals', 'scales', 'zeros'}`` (byte-per-int4; packed to
-    :class:`PackedInt4Weight` when packable) or ``{'packed', 'scales',
+    :class:`PackedInt4Weight` when packable, unless
+    ``LMDEPLOY_TPU_PACKED_INT4=0``) or ``{'packed', 'scales',
     'sz'}`` (already nibble-packed: a plain byte copy)."""
     out: Dict[str, Any] = {}
     for key, v in tree.items():
@@ -178,7 +180,8 @@ def params_from_numpy(tree: Dict[str, Any], device='cuda') -> Dict[str, Any]:
             qw = QuantizedWeight(qvals=_tensor(v['qvals'], device),
                                  scales=_tensor(v['scales'], device),
                                  zeros=_tensor(v['zeros'], device))
-            out[key] = pack_quantized(qw) if packable(qw) else qw
+            out[key] = pack_quantized(qw) if (
+                packable(qw) and packed_int4_enabled()) else qw
         elif isinstance(v, dict) and {'packed', 'scales', 'sz'} <= set(v):
             packed = _tensor(v['packed'], device)
             scales = _tensor(v['scales'], device)

@@ -17,6 +17,11 @@ point 0 without them, as the JAX engine does) or nibble-packed int4
 ``kv_scales``, or without them dynamic per-token-head-group qparams
 written beside each token (the JAX engine's default int4 KV).
 
+W4A16 weights handed over byte-per-int4 are nibble-packed at start
+where they can pack, as the JAX engine packs them;
+``LMDEPLOY_TPU_PACKED_INT4=0`` keeps the byte form, which
+``ops/linear.py``'s products serve (``LMDEPLOY_TPU_W4A8=1``: W4A8).
+
 The host session store is the native C++ cache manager
 (``kvcache/native.py``, built with g++ at first use), as in the JAX
 engine; ``LMDEPLOY_TPU_NATIVE=0`` chooses the Python one
@@ -78,7 +83,9 @@ from ..kvcache.native import NativeSequenceManager
 from ..kvcache.paged import KV_WIDTHS, kv_bits_named, kv_dyn_groups
 from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
                         ResponseType)
+from ..models.llama import pack_params
 from ..ops import prng
+from ..ops.linear import packed_int4_enabled
 from ..ops.sampling import MAX_STOP_BAD_WORDS
 from ..parallel import multihost
 from ..parallel import pp as PP
@@ -216,7 +223,13 @@ class TorchEngine:
         self._own_group = False
         self._rank_timeout = rank_timeout
         world = self.tp * self.pp * self.dp
-        shards = self._prepare_shards(params) if world > 1 else [params]
+        if world > 1:
+            shards = self._prepare_shards(params)
+        else:
+            # a byte-form tree packs where it can, as the JAX engine packs
+            # at start (LMDEPLOY_TPU_PACKED_INT4=0 keeps the byte form)
+            shards = [pack_params(params) if packed_int4_enabled()
+                      else params]
         rank = dist.get_rank() if world > 1 and dist.is_initialized() else 0
         self.params = shards[rank % (self.tp * self.pp)]
         num_pages = engine_cfg.num_pages or self._derive_num_pages(shards)

@@ -34,6 +34,17 @@ with per-head qparams), gathers and dequantises the layer's pages
 ``ops/attention.py::gqa_attention``.
 
 :func:`forward_layers` takes an optional calibration ``hook`` (see there).
+
+Golden-file debugging (``utils/debug.py``, ``LMDEPLOY_TPU_DEBUG=dump|cmp``)
+records ``layer_out`` (the residual stream after each layer's FFN add, in
+layer order) and ``logits`` (after the vocab gather), where the JAX
+package's forward records them, so the ``n`` of ``{name}.{n}.npy`` names
+the same tensor in both packages for forwards of identical
+:class:`StepBatch` shapes.  With several ranks each rank records its own
+activations (a stage its own layers) into the one shared directory, each
+with its own counters, so ranks overwrite one another's files: record one
+rank's run.  With the mode off the hooks return at once (no launch, no
+host sync).
 """
 from __future__ import annotations
 
@@ -56,10 +67,11 @@ from ..ops.cuda.paged_attention import (paged_decode_attention,
                                         rope_full_tables)
 from ..ops.cuda.prefill_attention import paged_prefill_attention
 from ..ops.linear import (PackedInt4Weight, QuantizedWeight, linear,
-                          pack_quantized, quant_matmul_packed,
-                          quantize_weight_int4)
+                          pack_quantized, packed_int4_enabled,
+                          quant_matmul_packed, quantize_weight_int4)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_qk, rope_tables
+from ..utils.debug import dbg
 
 
 def fused_attn_enabled() -> bool:
@@ -190,14 +202,14 @@ def packable(w) -> bool:
 
 
 def pack_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Stacked QuantizedWeight layers -> PackedInt4Weight where packable."""
-    layers = dict(params['layers'])
-    for name, w in list(layers.items()):
-        if isinstance(w, QuantizedWeight) and packable(w):
-            layers[name] = pack_quantized(w)
-    out = dict(params)
-    out['layers'] = layers
-    return out
+    """Stacked QuantizedWeight layers -> PackedInt4Weight where packable
+    (a tree with nothing to pack comes back as it is)."""
+    layers = params.get('layers', {})
+    packed = {name: pack_quantized(w) for name, w in layers.items()
+              if isinstance(w, QuantizedWeight) and packable(w)}
+    if not packed:
+        return params
+    return dict(params, layers=dict(layers, **packed))
 
 
 def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig, tp: int = 1):
@@ -223,12 +235,17 @@ def _layer_linear(x: torch.Tensor, w, layer: int,
         out = out.reshape(*lead, -1).to(x.dtype)
         return out if bias is None else out + bias.to(out.dtype)
     if isinstance(w, QuantizedWeight):
-        if x.device.type != 'cpu':
-            # no kernel reads the byte-per-int4 form: it would run plain
+        # byte-per-int4: ops/linear.py's group, dequant or W4A8 product, as
+        # the JAX package serves this form with XLA.  On the card only when
+        # the user chose it (LMDEPLOY_TPU_PACKED_INT4=0); with packed
+        # residency a weight left in this form is one the kernel cannot take
+        if x.device.type != 'cpu' and packed_int4_enabled():
             raise NotImplementedError(
-                f'W4A16 weight K={w.k} N={w.n} with {w.scales.shape[-2]} '
-                'groups is not packable (N % 16 == 0 and an even group '
-                'count) and only its CPU plain version exists')
+                f'byte-per-int4 W4A16 weight K={w.k} N={w.n} with '
+                f'{w.scales.shape[-2]} groups on the card: packed residency '
+                'serves W4A16 only nibble-packed (packable: N % 16 == 0 and '
+                'an even group count); LMDEPLOY_TPU_PACKED_INT4=0 serves '
+                'the byte form')
         w = QuantizedWeight(qvals=w.qvals[layer], scales=w.scales[layer],
                             zeros=w.zeros[layer])
     else:
@@ -360,6 +377,7 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
         if group is not None:
             dist.all_reduce(f, group=group)
         h = h + f
+        dbg('layer_out', h)
     return h
 
 
@@ -406,7 +424,10 @@ def lm_head_logits(params: Dict[str, Any], h_out: torch.Tensor,
         # values multiplied in f32 (each product exact), f32 logits
         logits = torch.mm(h2.float(), lm_head.float())
     logits = logits.reshape(*lead, -1)
-    return logits if group is None else _gather_logits(logits, group)
+    if group is not None:
+        logits = _gather_logits(logits, group)
+    dbg('logits', logits)
+    return logits
 
 
 def forward(params: Dict[str, Any], cache: KVCache, batch: StepBatch,

@@ -15,18 +15,50 @@ linear.py:254-255,329-332).
 Residency: :class:`PackedInt4Weight` holds two int4 values per byte in
 the JAX package's half-split ``pack_nibbles`` layout ([L, K/2, N]), so
 weights carry across as a plain byte copy.  :class:`QuantizedWeight`
-(one value per byte) is the load form and the form of shapes that cannot
-pack (odd group count).
+(one value per byte) is the load form, the form of shapes that cannot
+pack (odd group count) and, with ``LMDEPLOY_TPU_PACKED_INT4=0``
+(:func:`packed_int4_enabled`), the serving form.  The port packs by
+default on every device; the JAX package packs by default on the TPU
+only.
+
+The byte form is served by the JAX package's XLA products, ported as
+plain PyTorch on every device (no Pallas kernel reads this form):
+:func:`quant_matmul` (small M), :func:`quant_matmul_dequant` (M at or
+above ``LMDEPLOY_TPU_DEQUANT_MIN_M``, default 32) and, with
+``LMDEPLOY_TPU_W4A8=1``, :func:`quant_matmul_a8` at every M.  Both
+switches are read on each call, as the JAX package reads them.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .cuda.quant_matmul import unpack_nibbles, w4a16_gemm
+
+
+def packed_int4_enabled() -> bool:
+    """Nibble-packed W4A16 residency where ``models/llama.py::packable``
+    allows: on unless ``LMDEPLOY_TPU_PACKED_INT4=0``, which keeps the byte
+    form (the JAX engine's switch, ``engine/engine.py:374-390``; its CPU
+    default is the byte form, the port's is packed)."""
+    return os.environ.get('LMDEPLOY_TPU_PACKED_INT4', '') != '0'
+
+
+def _w4a8_enabled() -> bool:
+    """The opt-in W4A8 product for byte-form weights,
+    ``LMDEPLOY_TPU_W4A8=1`` (off by default)."""
+    return os.environ.get('LMDEPLOY_TPU_W4A8', '0') == '1'
+
+
+def _dequant_min_m() -> int:
+    """Rows from which a byte-form product dequantises the weight once
+    (:func:`quant_matmul_dequant`), ``LMDEPLOY_TPU_DEQUANT_MIN_M``,
+    default 32 (the JAX package's measured threshold)."""
+    return int(os.environ.get('LMDEPLOY_TPU_DEQUANT_MIN_M', '32'))
 
 
 @dataclasses.dataclass
@@ -149,6 +181,36 @@ def quant_matmul(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     return out - sums @ sz
 
 
+def quant_matmul_a8(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
+    """W4A8 byte-per-int4 product (JAX ``ops/linear.py:172-204``): x in
+    f32 (not rounded to bf16 first), per-token int8 ``xq = clip(round(x /
+    sx), -127, 127)`` with ``sx = max(max|x|, 1e-8) / 127`` (round half to
+    even), the int group dots rounded to bf16 and scaled by the bf16
+    scales with f32 sums over the groups, times ``sx``, minus the
+    zero-point term of the unquantised x: [M, K] -> [M, N] f32.
+
+    The group dots run as an f32 ``bmm`` over the integer values: every
+    product and partial sum is an integer below 2^24 (128 * 127 * 15), so
+    it is exact in any order, as XLA's int32 dot is."""
+    m, k = x2.shape
+    g = qw.scales.shape[-2]
+    x2 = x2.float()
+    amax = torch.clamp(x2.abs().amax(dim=1, keepdim=True), min=1e-8)
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python
+    # scalar divisor, which moves sx by an ulp and then an int8 code
+    sx = amax / torch.full_like(amax, 127.0)
+    xq = torch.clamp(torch.round(x2 / sx), -127, 127)       # [M, K]
+    s = qw.scales.float()
+    sz = s * qw.zeros.float()
+    qb = qw.qvals.float().reshape(g, k // g, -1)
+    xg = xq.reshape(m, g, k // g).transpose(0, 1)          # [G, M, group]
+    dots = torch.bmm(xg, qb).to(torch.bfloat16).float()    # [G, M, N]
+    out = torch.einsum('gmn,gn->mn', dots, s.to(torch.bfloat16).float())
+    out = out * sx
+    sums = x2.reshape(m, g, k // g).sum(dim=2)
+    return out - sums @ sz
+
+
 def quant_matmul_dequant(x2: torch.Tensor,
                          qw: QuantizedWeight) -> torch.Tensor:
     """Large-M byte-per-int4 product: bf16 dequant, f32 accumulation."""
@@ -156,19 +218,21 @@ def quant_matmul_dequant(x2: torch.Tensor,
     return x2.to(torch.bfloat16).float() @ w.float()
 
 
-# the JAX package's static-M switch between the two byte-per-int4 forms
-_DEQUANT_MIN_M = 32
-
-
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None
            ) -> torch.Tensor:
     """Dense dispatch: ``w`` is a dense [K, N] tensor or one layer's
-    :class:`QuantizedWeight`.  Output in x.dtype (+ bias)."""
+    :class:`QuantizedWeight`.  Output in x.dtype (+ bias).  The byte form
+    picks its product in the JAX package's order: W4A8 when switched on,
+    else dequant from ``_dequant_min_m()`` rows, else the group form."""
     lead = x.shape[:-1]
     if isinstance(w, QuantizedWeight):
         x2 = x.reshape(-1, x.shape[-1])
-        mm = quant_matmul_dequant if x2.shape[0] >= _DEQUANT_MIN_M \
-            else quant_matmul
+        if _w4a8_enabled():
+            mm = quant_matmul_a8
+        elif x2.shape[0] >= _dequant_min_m():
+            mm = quant_matmul_dequant
+        else:
+            mm = quant_matmul
         out = mm(x2, w).reshape(*lead, -1)
     else:
         out = torch.matmul(x.to(w.dtype), w).float()
@@ -178,7 +242,8 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None
     return out
 
 
-__all__ = ['QuantizedWeight', 'PackedInt4Weight', 'unpack_int4',
-           'pack_nibbles', 'unpack_nibbles', 'quantize_weight_int4',
-           'dequantize', 'pack_quantized', 'quant_matmul',
-           'quant_matmul_dequant', 'quant_matmul_packed', 'linear']
+__all__ = ['packed_int4_enabled', 'QuantizedWeight', 'PackedInt4Weight',
+           'unpack_int4', 'pack_nibbles', 'unpack_nibbles',
+           'quantize_weight_int4', 'dequantize', 'pack_quantized',
+           'quant_matmul', 'quant_matmul_a8', 'quant_matmul_dequant',
+           'quant_matmul_packed', 'linear']

@@ -86,14 +86,12 @@ def rank_shards(params: Dict[str, Any], cfg: ModelConfig, tp: int,
                 pp: int = 1) -> List[Dict[str, Any]]:
     """Every rank's weight block of one dp group, indexed by ``stage * tp +
     tp_rank``: ``prepare_params_for_tp``, :func:`prepare_params_for_pp`
-    and, with tp > 1, ``pack_params_for_tp`` (the JAX engine's order), then
-    ``shard_params``.  At tp = 1 the W4A16 weights keep the form they came
-    in, as the one-rank engine keeps them."""
+    and ``pack_params_for_tp`` (the JAX engine's order; it owns the
+    residency switch), then ``shard_params``."""
     prepared = TP.prepare_params_for_tp(params, cfg, tp)
     if pp > 1:
         prepared = prepare_params_for_pp(prepared, pp, tp)
-    if tp > 1:
-        prepared = TP.pack_params_for_tp(prepared, tp)
+    prepared = TP.pack_params_for_tp(prepared, tp)
     return [TP.shard_params(prepared, tp, r, pp, s)
             for s in range(pp) for r in range(tp)]
 

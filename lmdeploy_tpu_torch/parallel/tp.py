@@ -36,7 +36,8 @@ import torch.distributed as dist
 from ..config import ModelConfig
 from ..kvcache.paged import KVCache
 from ..ops.cuda.quant_matmul import unpack_nibbles
-from ..ops.linear import PackedInt4Weight, QuantizedWeight, pack_nibbles
+from ..ops.linear import (PackedInt4Weight, QuantizedWeight, pack_nibbles,
+                          packed_int4_enabled)
 
 # ---------------------------------------------------------------------------
 # host-side weight preparation (load-time equivalent of deploy.py's per-rank
@@ -212,11 +213,17 @@ def pack_params_for_tp(params: Dict[str, Any], tp: int) -> Dict[str, Any]:
     concatenate, so the shard boundary IS the pack boundary.  A weight
     that arrives packed over its global K unpacks first.  Run AFTER
     :func:`prepare_params_for_tp`.  A weight that cannot pack stays
-    byte-per-int4, as in the JAX package; only the CPU has a path for
-    that form (:func:`check_kernel_shapes`).  A packed row-split weight
-    with an odd group count per rank (it has no zero points to go back to
-    byte-per-int4 with) repacks per rank all the same: its CPU plain
-    version takes it, and the card refuses it at preparation."""
+    byte-per-int4, as in the JAX package, and so does every byte-form
+    weight under ``LMDEPLOY_TPU_PACKED_INT4=0`` (a tree without packed
+    weights then comes back as it is, as the JAX engine then skips this
+    function).  A packed row-split weight with an odd group count per
+    rank (it has no zero points to go back to byte-per-int4 with)
+    repacks per rank all the same: its CPU plain version takes it, and
+    the card refuses it at preparation."""
+    pack_bytes = packed_int4_enabled()
+    if not pack_bytes and not any(isinstance(w, PackedInt4Weight)
+                                  for w in params['layers'].values()):
+        return params
     layers = dict(params['layers'])
     # the packed kernel half-splits each rank's K, so the per-rank group
     # count must be EVEN: widen the inter padding quantum to 2*group*tp
@@ -225,7 +232,7 @@ def pack_params_for_tp(params: Dict[str, Any], tp: int) -> Dict[str, Any]:
     for name, w in list(layers.items()):
         row_split = name in _ROW_SPLIT and tp > 1
         if isinstance(w, QuantizedWeight):
-            if not _packable(w) or (row_split and (
+            if not pack_bytes or not _packable(w) or (row_split and (
                     w.k // (_group_size(w) * tp)) % 2):
                 # unpackable shape, or an odd group count per rank: stays
                 # byte-per-int4, as in the JAX package
@@ -253,9 +260,13 @@ def pack_params_for_tp(params: Dict[str, Any], tp: int) -> Dict[str, Any]:
 def check_kernel_shapes(params: Dict[str, Any], rank: int = 0) -> None:
     """Raise unless every W4A16 weight of one rank's shard has a kernel on
     the card: nibble-packed, an even group count, N % 16 == 0 (the
-    kernel's vector loads).  Other forms have only a CPU plain version."""
+    kernel's vector loads).  A byte-per-int4 weight passes only under
+    ``LMDEPLOY_TPU_PACKED_INT4=0``, where the user chose that form and
+    ``ops/linear.py``'s products serve it; with packed residency it is a
+    weight the kernel cannot take."""
+    byte_ok = not packed_int4_enabled()
     for name, w in params['layers'].items():
-        if isinstance(w, QuantizedWeight) or (
+        if (isinstance(w, QuantizedWeight) and not byte_ok) or (
                 isinstance(w, PackedInt4Weight) and not _packable(w)):
             raise NotImplementedError(
                 f'W4A16 weight {name!r} of rank {rank}: K={w.k} N={w.n}, '

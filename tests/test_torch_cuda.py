@@ -601,3 +601,78 @@ def test_prefill_at_tp_rank_heads_matches_plain_on_card(cuda_device,
     64-token chunk over 300 tokens and the T = 5 verify of 8 slots."""
     rng = np.random.default_rng(160 + kv_bits + t)
     _check_prefill(rng, kv_bits, 16, 1, 64, t, histories, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [1, 8, 40])
+@pytest.mark.parametrize('w4a8', [False, True])
+def test_byte_form_layer_linear_on_card_matches_cpu(cuda_device,
+                                                    monkeypatch, w4a8, m):
+    """A byte-per-int4 W4A16 weight (LMDEPLOY_TPU_PACKED_INT4=0's serving
+    form) runs through models/llama.py::_layer_linear on the card, with the
+    group, dequant or (LMDEPLOY_TPU_W4A8=1) W4A8 product of ops/linear.py,
+    and gives the CPU's numbers on identical inputs within 1e-3 of
+    max|ref| (f32 sums in another order; the bf16 and int8 roundings see
+    the same values).  With packed residency (the default) the card
+    refuses the byte form instead of bypassing the W4A16 kernel."""
+    from lmdeploy_tpu_torch.models.llama import _layer_linear
+    from lmdeploy_tpu_torch.ops.linear import QuantizedWeight
+    monkeypatch.setenv('LMDEPLOY_TPU_PACKED_INT4', '0')
+    if w4a8:
+        monkeypatch.setenv('LMDEPLOY_TPU_W4A8', '1')
+    else:
+        monkeypatch.delenv('LMDEPLOY_TPU_W4A8', raising=False)
+    rng = np.random.default_rng(170 + m)
+    k, n, layers = 4096, 1536, 2
+    qw = QuantizedWeight(
+        qvals=torch.from_numpy(rng.integers(0, 16, (layers, k, n),
+                                            dtype=np.uint8)),
+        scales=torch.from_numpy(rng.uniform(0.001, 0.004, (
+            layers, k // 128, n)).astype(np.float32)).to(torch.bfloat16),
+        zeros=torch.from_numpy(rng.integers(6, 10, (layers, k // 128, n)
+                                            ).astype(np.float32)
+                               ).to(torch.bfloat16))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want = _layer_linear(x, qw, 1).float()
+    got = _layer_linear(x.to(cuda_device), QuantizedWeight(
+        *(t.to(cuda_device) for t in (qw.qvals, qw.scales, qw.zeros))), 1)
+    assert got.device.type == 'cuda' and got.dtype == torch.bfloat16
+    # bf16 outputs: one bf16 ulp of max|ref| on top of the sums' order
+    tol = (1e-3 + 2 ** -8) * want.abs().max().item()
+    assert (got.float().cpu() - want).abs().max().item() <= tol
+    monkeypatch.delenv('LMDEPLOY_TPU_PACKED_INT4')
+    with pytest.raises(NotImplementedError, match='packed residency'):
+        _layer_linear(x.to(cuda_device), QuantizedWeight(
+            *(t.to(cuda_device) for t in (qw.qvals, qw.scales, qw.zeros))), 1)
+
+
+@pytest.mark.cuda
+def test_debug_hook_off_has_no_host_sync_on_card(cuda_device, monkeypatch,
+                                                 tmp_path):
+    """With LMDEPLOY_TPU_DEBUG unset, dbg returns before it touches a CUDA
+    tensor: under torch.cuda.set_sync_debug_mode('error') it raises
+    nothing, while the dump mode's host copy does raise there."""
+    import importlib
+
+    from lmdeploy_tpu_torch.utils import debug
+    x = torch.ones((4, 8), device=cuda_device) * 3
+    try:
+        for mode in ('', 'dump'):
+            monkeypatch.setenv('LMDEPLOY_TPU_DEBUG', mode)
+            monkeypatch.setenv('LMDEPLOY_TPU_DEBUG_DIR', str(tmp_path))
+            importlib.reload(debug)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                if mode:
+                    with pytest.raises(RuntimeError):
+                        debug.dbg('x', x)
+                else:
+                    debug.dbg('x', x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert not list(tmp_path.iterdir())
+    finally:
+        monkeypatch.delenv('LMDEPLOY_TPU_DEBUG')
+        importlib.reload(debug)

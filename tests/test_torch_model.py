@@ -319,22 +319,42 @@ def test_prefill_chunks_and_slot_surgery():
     assert st.finished.tolist() == [True, True]
 
 
-def test_unpackable_int4_weight_raises_off_the_cpu():
-    """A W4A16 weight the kernel cannot read (odd group count) runs its
-    plain product on CPU tensors and raises on any other device instead of
-    bypassing the kernel."""
+def _unpackable_stacked():
     qw = tllama.quantize_weight_int4(
         np.random.default_rng(6).normal(size=(384, 64)), 128)
     stacked = tlinear.QuantizedWeight(qvals=qw.qvals[None],
                                       scales=qw.scales[None],
                                       zeros=qw.zeros[None])
     assert not tllama.packable(stacked)
+    meta = tlinear.QuantizedWeight(*(t.to('meta') for t in
+                                     (stacked.qvals, stacked.scales,
+                                      stacked.zeros)))
+    return qw, stacked, meta
+
+
+def test_unpackable_int4_weight_raises_off_the_cpu(monkeypatch):
+    """A W4A16 weight the kernel cannot read (odd group count) runs its
+    plain product on CPU tensors and, with packed residency (the default),
+    raises on any other device instead of bypassing the kernel."""
+    monkeypatch.delenv('LMDEPLOY_TPU_PACKED_INT4', raising=False)
+    qw, stacked, meta = _unpackable_stacked()
     x = torch.ones((2, 384))
     want = tlinear.linear(x, qw)
     np.testing.assert_array_equal(
         tllama._layer_linear(x, stacked, 0).numpy(), want.numpy())
-    meta = tlinear.QuantizedWeight(*(t.to('meta') for t in
-                                     (stacked.qvals, stacked.scales,
-                                      stacked.zeros)))
-    with pytest.raises(NotImplementedError, match='not packable'):
+    with pytest.raises(NotImplementedError, match='packed residency'):
         tllama._layer_linear(x.to('meta'), meta, 0)
+
+
+def test_byte_form_runs_off_the_cpu_when_chosen(monkeypatch):
+    """With LMDEPLOY_TPU_PACKED_INT4=0 the user chose the byte form: off
+    the CPU (meta tensors here) _layer_linear runs ops/linear.py's
+    product, the JAX package's XLA form of it, instead of raising."""
+    monkeypatch.setenv('LMDEPLOY_TPU_PACKED_INT4', '0')
+    qw, stacked, meta = _unpackable_stacked()
+    x = torch.ones((2, 384))
+    want = tlinear.linear(x, qw)
+    np.testing.assert_array_equal(
+        tllama._layer_linear(x, stacked, 0).numpy(), want.numpy())
+    out = tllama._layer_linear(x.to('meta'), meta, 0)
+    assert out.device.type == 'meta' and out.shape == want.shape

@@ -48,10 +48,10 @@ def _cut(arr, spec, stage, rank, pp, tp):
 
 def _jax_stage_shards(jp, cfg, tp, pp, pack):
     """The JAX engine's preparation (prepare_params_for_tp, then
-    prepare_params_for_pp, then pack_params_for_tp where the port packs:
-    at tp > 1, and at tp = 1 for weights loaded packed, which the port
-    keeps as they came), each leaf cut per (stage, rank) as
-    pp_param_pspecs shards it: {path: [block of stage * tp + rank]}."""
+    prepare_params_for_pp, then pack_params_for_tp when ``pack``: as both
+    engines do with packed residency on, the port's default), each leaf
+    cut per (stage, rank) as pp_param_pspecs shards it: {path: [block of
+    stage * tp + rank]}."""
     jp = jpp.prepare_params_for_pp(jtp.prepare_params_for_tp(jp, cfg, tp),
                                    pp, tp)
     if pack:
@@ -92,7 +92,7 @@ def test_stage_shards_byte_equal_jax_pp_cut(pp, tp, case):
     if case == 'tied-embeddings':
         assert 'lm_head' not in port
 
-    want = _jax_stage_shards(jp, jcfg, tp, pp, tp > 1 or form == 'packed')
+    want = _jax_stage_shards(jp, jcfg, tp, pp, True)
     shards = tpp.rank_shards(port, ModelConfig(**dict(CFG, **over)), tp, pp)
     assert len(shards) == pp * tp
     for i, shard in enumerate(shards):
