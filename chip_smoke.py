@@ -16,7 +16,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                decode (all 8 batch slots: GEMM M=8, attention B=8); the GEMM
                also at the verify's M=40, prefill attention also at the
                verify's T=5 (B=8 all live, one live slot with 7 padding
-               rows, B=1 at ctx 80 / 512 / 2048); and kernels 1-3 at one
+               rows, B=1 at ctx 80 / 512 / 2048) and at the route boundary
+               T = 8 / 9 with G = 8; every kernel-3 line names its route
+               (split, wgmma or mma), and times the parent (this tree's
+               route mma, or with --parent TREE that checkout's kernel 3
+               through its own wrapper and build) and one SDPA call over
+               the live slots beside it; and kernels 1-3 at one
                tp = 2 rank's shapes (the GEMM at K x N 4096 x 6144, 2048 x
                4096, 4096 x 5632, 5632 x 4096 and M = 1 / 8 / 40 / 512,
                attention at H = KH = 16); kernels 1 and 2 at the pp = 2
@@ -45,12 +50,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                defaults, LMDEPLOY_TPU_FUSED_ATTN=0 and
                LMDEPLOY_TPU_FUSED_ROPE=1 must solve to 32 / 0 launches per
                decode step / prefill pass of the selected decode kernel and
-               0 / 32 of prefill attention.  Then speculative decoding
+               0 / 32 of prefill attention, all of it on route wgmma by
+               the route counters.  Then
+               speculative decoding
                (k=4, n-gram 3 down to 2) on the bf16 engine: greedy bs1 of
                256 tokens from prompt [1] (bench.py's headline path) and
                one of 32, whose windows solve 160 / 160 / 32 / 0 launches
                per verify round (GEMM / its wgmma regime / prefill / decode
-               attention); the same 256-token request on plain rounds; the
+               attention), prefill attention's 32 all on route split; the
+               same 256-token request on plain rounds; the
                spec tokens against one teacher-forced forward (each within
                1% of max|logit| of its argmax; the two streams agree up to
                the first near-tie); seeded sampled requests (top-k/top-p,
@@ -153,6 +161,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                (LMDEPLOY_TPU_DEBUG=dump, then cmp on the card, then cmp of
                the CPU's run) on that cut; trace() and annotate() around a
                bs1 request.  Alone: --phases probe,build,tools.
+Not run by default:
+  breakdown — where kernel 3's time goes: routes wgmma and split against
+               copies of the checkout's csrc/paged_prefill_attention.cu with
+               one part taken out (no_products: no Q K^T or P V wgmma;
+               loads_only: each tile released as it lands; no_merge: route
+               split's slots of several splits skip the partials, ticket
+               and merge, so their output is wrong and only the time
+               counts; one_term: P enters P V as one bf16 term, not two,
+               with its largest error on valid rows beside the kernel's),
+               each built with the port's nvcc flags into csrc/build/ and
+               called through the port's wrapper, timed at Llama-2-7B
+               heads (--phases probe,build,breakdown).  The variants are
+               text edits of the source: an edit that no longer matches
+               raises.
 The line before the last is the kernels JSON; the last line is the result.
 Nothing here imports JAX or the JAX package.
 """
@@ -174,6 +196,7 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant',
           'parallel', 'pipeline', 'tools')
+OPTIONAL_PHASES = ('breakdown',)
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
                    ('w2', 11008, 4096))
@@ -641,26 +664,139 @@ def sweep_splits(torch, timer, gen, kh, h, dh, n_layers):
         torch.cuda.empty_cache()
 
 
+def prefill_bound(starts, lens, h, kh, elem_bytes):
+    """Kernel 3's bound on these chunks: q and out once, the visible K/V
+    once (bytes); 4 Dh H per (row, visible key) (operations)."""
+    dh = 128
+    nbytes = sum(2 * n * h * dh * 2 + 2 * (s + n) * kh * dh * elem_bytes
+                 for s, n in zip(starts, lens) if n)
+    ops = sum(4.0 * dh * h * (n * s + n * (n + 1) / 2)
+              for s, n in zip(starts, lens))
+    return bound_ms(nbytes, ops)
+
+
+def load_parent(ctx, tree):
+    """Kernel 3 of another checkout (the parent commit's, say) through that
+    checkout's own wrapper, for the parent column of every kernel-3 line:
+    its package is imported under another name, so its build.py builds
+    its own sources into its own csrc/build/ and loads them with its own
+    C signatures; ctx['parent_pf'] is its ops/cuda/prefill_attention
+    module, whose ``paged_prefill_attention`` takes the same arguments in
+    every version."""
+    import importlib
+    import importlib.util
+    root = os.path.join(os.path.abspath(tree), 'lmdeploy_tpu_torch')
+    name = 'parent_lmdeploy_tpu_torch'
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, '__init__.py'),
+        submodule_search_locations=[root])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    t0 = time.monotonic()
+    importlib.import_module(f'{name}.ops.cuda.build').load()
+    ctx['parent_pf'] = importlib.import_module(
+        f'{name}.ops.cuda.prefill_attention')
+    log(f'parent kernels from {root}: built in {time.monotonic() - t0:.1f} s')
+
+
+def time_prefill(torch, ctx, timer, q, kc, vc, pt, sp, ce, qp, n_layers,
+                 iters):
+    """Kernel 3 on these inputs cycling n_layers layers: (route, kernel ms,
+    parent ms, parent label).  The parent is the --parent tree's kernel 3
+    when one was loaded (its output held to this tree's within 1e-2 on the
+    live slots first), else this tree's route mma (FORCE_MMA: the body
+    kernel 3 had before its routes)."""
+    from lmdeploy_tpu_torch.kvcache.paged import kv_bits_of
+    from lmdeploy_tpu_torch.ops.cuda import prefill_attention as PF
+    b, t, h, dh = q.shape
+    route = PF.prefill_route(b, t, h, kc.shape[3], kc.shape[2],
+                             kv_bits_of(kc))
+    ms = timer.graph(lambda i: PF.paged_prefill_attention(
+        q, kc, vc, i % n_layers, pt, sp, ce, qp), iters)
+    parent_pf = ctx.get('parent_pf')
+    if parent_pf is None:
+        PF.FORCE_MMA = True
+        try:
+            parent = timer.graph(lambda i: PF.paged_prefill_attention(
+                q, kc, vc, i % n_layers, pt, sp, ce, qp), iters)
+        finally:
+            PF.FORCE_MMA = False
+        return route, ms, parent, 'route mma'
+    theirs = parent_pf.paged_prefill_attention(q, kc, vc, 1, pt, sp, ce, qp)
+    ours = PF.paged_prefill_attention(q, kc, vc, 1, pt, sp, ce, qp)
+    torch.cuda.synchronize()
+    live = [i for i in range(b) if int(ce[i]) > int(sp[i])]
+    diff = (theirs[live].float() - ours[live].float()).abs().max().item()
+    if not diff <= 1e-2:
+        raise AssertionError(f'parent kernel 3 and this tree differ by '
+                             f'{diff}')
+    parent = timer.graph(lambda i: parent_pf.paged_prefill_attention(
+        q, kc, vc, i % n_layers, pt, sp, ce, qp), iters)
+    return route, ms, parent, 'parent tree'
+
+
+def sdpa_ms(torch, timer, q, kc, vc, pt, starts, ends, qp, n_layers, iters):
+    """The library yardstick of kernel 3 on these inputs: one SDPA call over
+    the live slots (context_end > start_pos), K/V gathered and dequantised
+    beforehand, mask kv_pos <= start + t and kv_pos < context_end (is_causal
+    for one chunk from 0, the same function), GQA through enable_gqa."""
+    b, t, h, _ = q.shape
+    page, kh = kc.shape[2], kc.shape[3]
+    live = [i for i in range(b) if ends[i] > starts[i]]
+    n_kv = max(ends[i] for i in live)
+    kvg = [(kk[:, :, :n_kv], vv[:, :, :n_kv]) for kk, vv in
+           _dequant_gather(torch, kc, vc, pt[live], -(-n_kv // page) * page,
+                           qp)]
+    qt = q[live].transpose(1, 2)
+    kw = dict(enable_gqa=True) if h != kh else {}
+    if len(live) == 1 and starts[live[0]] == 0 and ends[live[0]] == t:
+        kw['is_causal'] = True
+    else:
+        kv = torch.arange(n_kv, device='cuda')
+        q_pos = (torch.tensor([starts[i] for i in live], device='cuda')
+                 [:, None] + torch.arange(t, device='cuda'))
+        end = torch.tensor([ends[i] for i in live], device='cuda')
+        kw['attn_mask'] = ((kv <= q_pos[:, :, None])
+                           & (kv < end[:, None, None]))[:, None]
+    return timer.graph(lambda i: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           qt, *kvg[i % n_layers], **kw), iters)
+
+
+# kernel 3's chunk cases (label, history per slot, chunk length per slot,
+# T, KH, H): the two prefill buckets at Llama-2-7B heads, a padding row,
+# and the route boundary at G = 8 (KH = 4 of H = 32): T = 8 puts 64 rows
+# in one route-split block, T = 9 is a chunk
+PREFILL_CASES = (
+    ('512-token chunk from 0', [0], [512], 512, 32, 32),
+    ('64-token chunk over 300 history', [300], [64], 64, 32, 32),
+    ('a chunk and a padding row', [100, 40], [64, 0], 64, 32, 32),
+    ('T=8 G=8 (KH=4), histories 0 / 70 / 1000', [0, 70, 1000], [8] * 3, 8,
+     4, 32),
+    ('T=9 G=8 (KH=4), histories 0 / 70 / 1000', [0, 70, 1000], [9] * 3, 9,
+     4, 32),
+)
+
+
 def check_prefill(torch, ctx, timer):
     from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     gen = torch.Generator(device='cuda').manual_seed(3)
-    kh, h, dh, n_layers = 32, 32, 128, 4
-    cases = [('512-token chunk from 0', [0], [512], 512),
-             ('64-token chunk over 300 history', [300], [64], 64),
-             ('a chunk and a padding row', [100, 40], [64, 0], 64)]
+    dh, n_layers = 128, 4
     for kv_bits, (width, _, elem_bytes) in KV_WIDTHS.items():
         qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
               if kv_bits else None)
         name = f'paged_prefill_attention[{width}]'
-        worst = 0.0
-        for label, starts, lens, t in cases:
+        worst, routes = 0.0, {}
+        for label, starts, lens, t, kh, h in PREFILL_CASES:
             b = len(starts)
             ends = [s + n for s, n in zip(starts, lens)]
             kc, vc, pt = _paged_case(torch, gen, b,
                                      [max(e, 1) for e in ends], n_layers,
-                                     pages=24, kh=kh, kv_bits=kv_bits)
+                                     pages=sum(-(-e // 64) for e in ends)
+                                     + 8, kh=kh, kv_bits=kv_bits)
             q = torch.randn((b, t, h, dh), generator=gen, device='cuda').to(
                 torch.bfloat16)
             sp = torch.tensor(starts, dtype=torch.int32, device='cuda')
@@ -677,47 +813,38 @@ def check_prefill(torch, ctx, timer):
                 raise AssertionError(f'{name} ({label}): max abs err {err} '
                                      '> 1e-2')
             worst = max(worst, err)
-            ms = timer.graph(lambda i: paged_prefill_attention(
-                q, kc, vc, i % n_layers, pt, sp, ce, qp), 8)
+            route, ms, parent, plabel = time_prefill(
+                torch, ctx, timer, q, kc, vc, pt, sp, ce, qp, n_layers, 8)
+            routes[label] = route
             plain = timer.events(lambda i: paged_prefill_attention_plain(
                 q, kc, vc, i % n_layers, pt, sp, ce, qp), 3, warmup=1)
-            msg = (f'  {name} ({label}): kernel {ms:.4f} ms, plain '
-                   f'{plain:.3f} ms, max abs err {err:.2e} (tol 1e-2)')
-            if t == lens[0] and b == 1:      # the two single-chunk cases
-                ctx_len = ends[0]
-                kvg = [(k[:, :, :ctx_len], v[:, :, :ctx_len]) for k, v in
-                       _dequant_gather(torch, kc, vc, pt, 512, qp)]
-                qt = q.transpose(1, 2)
-                # from 0 the chunk is causal; over history SDPA takes the
-                # mask kv_pos <= start + t explicitly
-                causal = (dict(is_causal=True) if not starts[0] else dict(
-                    attn_mask=torch.arange(ctx_len, device='cuda')[None]
-                    <= starts[0] + torch.arange(t, device='cuda')[:, None]))
-                lib = timer.graph(lambda i: torch.nn.functional
-                                  .scaled_dot_product_attention(
-                                      qt, *kvg[i % n_layers], **causal), 8)
-                nbytes = (2 * t * h * dh * 2
-                          + 2 * ctx_len * kh * dh * elem_bytes)
-                ops = 4.0 * dh * h * t * (starts[0] + (t + 1) / 2)
-                bms, by = bound_ms(nbytes, ops)
-                msg += (f', SDPA (causal) {lib:.4f} ms, bound {bms:.4f} ms '
-                        f'({by})')
-                row = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bms, bound_by=by)
-                if t == 512:
-                    ctx['kernels'][name] = dict(
-                        shape=f'Llama-2-7B layer, {width} pool, one '
-                              '512-token chunk from 0', **row)
-                else:
-                    ctx['kernels'][name]['chunk64_over300'] = row
-                del kvg
+            lib = sdpa_ms(torch, timer, q, kc, vc, pt, starts, ends, qp,
+                          n_layers, 8)
+            bms, by = prefill_bound(starts, lens, h, kh, elem_bytes)
+            row = dict(route=route, ms=ms, parent_ms=parent,
+                       parent=plabel, plain_ms=plain, library_ms=lib,
+                       bound_ms=bms, bound_by=by, max_abs_err=err)
+            msg = (f'  {name} ({label}): route {route}, kernel {ms:.4f} ms, '
+                   f'parent ({plabel}) {parent:.4f} ms, plain {plain:.3f} '
+                   f'ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}), '
+                   f'{bms / ms:.0%} of the bound, max abs err {err:.2e} (tol '
+                   f'1e-2)')
+            if t == 512:
+                ctx['kernels'][name] = dict(
+                    shape=f'Llama-2-7B layer, {width} pool, one '
+                          '512-token chunk from 0', cases={}, **row)
+            elif t == 64 and b == 1:
+                ctx['kernels'][name]['chunk64_over300'] = row
+            else:
+                ctx['kernels'][name]['cases'][label] = row
             log(msg)
             del kc, vc
         ctx['kernels'][name].update(
-            max_abs_err=worst,
+            max_abs_err=worst, routes=routes,
             tolerance='1e-2 abs on bf16 outputs, valid rows; padding rows '
                       'finite',
-            library='SDPA with a causal mask on K/V gathered and '
+            library='SDPA (causal, or masked kv_pos <= start + t and < '
+                    'context_end) over the live slots on K/V gathered and '
                     'dequantised beforehand')
         torch.cuda.empty_cache()
 
@@ -774,37 +901,30 @@ def check_verify(torch, ctx, timer):
                 raise AssertionError(f'{name} ({label}): max abs err {err} '
                                      '> 1e-2')
             worst = max(worst, err)
-            ms = timer.graph(lambda i: paged_prefill_attention(
-                q, kc, vc, i % n_layers, pt, sp, ce, qp), 32)
+            route, ms, parent, plabel = time_prefill(
+                torch, ctx, timer, q, kc, vc, pt, sp, ce, qp, n_layers, 32)
             plain = timer.events(lambda i: paged_prefill_attention_plain(
                 q, kc, vc, i % n_layers, pt, sp, ce, qp), 3, warmup=1)
-            # SDPA over the live slots, kv_pos <= start + t per row
-            n_kv = max(live_ends)
-            kvg = [(kk[:, :, :n_kv], vv[:, :, :n_kv]) for kk, vv in
-                   _dequant_gather(torch, kc, vc, pt[:nl],
-                                   -(-n_kv // page) * page, qp)]
-            qt = q[:nl].transpose(1, 2)
-            mask = (torch.arange(n_kv, device='cuda')[None, None, None]
-                    <= sp[:nl, None, None, None]
-                    + torch.arange(t, device='cuda')[None, None, :, None])
-            lib = timer.graph(lambda i: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qt, *kvg[i % n_layers], attn_mask=mask),
-                              32)
+            lib = sdpa_ms(torch, timer, q, kc, vc, pt, starts, ends, qp,
+                          n_layers, 32)
             nbytes = (2 * nl * t * h * dh * 2
                       + 2 * sum(live_ends) * kh * dh * elem_bytes)
             ops = sum(4.0 * dh * h * (t * s + t * (t + 1) / 2)
                       for s in starts[:nl])
             bms, by = bound_ms(nbytes, ops)
-            log(f'  {name} verify {label}: kernel {ms:.4f} ms, plain '
-                f'{plain:.3f} ms, SDPA (masked) {lib:.4f} ms, bound '
-                f'{bms:.4f} ms ({by}), {bms / ms:.0%} of the bound, max abs '
-                f'err {err:.2e} (tol 1e-2)')
-            rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+            log(f'  {name} verify {label}: route {route}, kernel {ms:.4f} '
+                f'ms, parent ({plabel}) {parent:.4f} ms, plain {plain:.3f} '
+                f'ms, SDPA (masked) {lib:.4f} ms, bound {bms:.4f} ms ({by}), '
+                f'{bms / ms:.0%} of the bound, max abs err {err:.2e} (tol '
+                f'1e-2)')
+            rows[label] = dict(route=route, ms=ms, parent_ms=parent,
+                               parent=plabel, plain_ms=plain, library_ms=lib,
                                bound_ms=bms, bound_by=by, max_abs_err=err)
-            del kvg, kc, vc
+            del kc, vc
         entry = ctx['kernels'][name]
         entry['verify'] = rows
+        entry.setdefault('routes', {}).update(
+            {f'verify {label}': r['route'] for label, r in rows.items()})
         entry['max_abs_err'] = max(entry['max_abs_err'], worst)
         torch.cuda.empty_cache()
 
@@ -940,7 +1060,7 @@ def check_rank_shapes(torch, ctx, timer):
             check_decode_write(torch, gen, timer, kh, ctxs, masked, kv_bits,
                                f'tp=2 rank H=KH=16, {label}')
         pre = {}
-        for plabel, starts, ends, t in (
+        for case, starts, ends, t in (
                 ('512-token chunk from 0', [0], [512], 512),
                 ('verify T=5 B=8 ctx~512',
                  [512 - 7 * i - 5 for i in range(8)],
@@ -960,37 +1080,33 @@ def check_rank_shapes(torch, ctx, timer):
             err = (got.float() - want.float()).abs().max().item()
             if not err <= 1e-2:
                 raise AssertionError(f'paged_prefill_attention[{width}] '
-                                     f'tp=2 {plabel}: max abs err {err}')
-            ms = timer.graph(lambda i: paged_prefill_attention(
-                q, kc, vc, i % n_layers, pt, sp, ce, qp), 8)
+                                     f'tp=2 {case}: max abs err {err}')
+            route, ms, parent, plabel = time_prefill(
+                torch, ctx, timer, q, kc, vc, pt, sp, ce, qp, n_layers, 8)
             plain = timer.events(lambda i: paged_prefill_attention_plain(
                 q, kc, vc, i % n_layers, pt, sp, ce, qp), 2, warmup=1)
-            n_kv = max(ends)
-            kvg = [(kk[:, :, :n_kv], vv[:, :, :n_kv]) for kk, vv in
-                   _dequant_gather(torch, kc, vc, pt,
-                                   -(-n_kv // page) * page, qp)]
-            qt = q.transpose(1, 2)
-            mask = (torch.arange(n_kv, device='cuda')[None, None, None]
-                    <= sp[:, None, None, None]
-                    + torch.arange(t, device='cuda')[None, None, :, None])
-            lib = timer.graph(lambda i: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qt, *kvg[i % n_layers], attn_mask=mask),
-                              8)
+            lib = sdpa_ms(torch, timer, q, kc, vc, pt, starts, ends, qp,
+                          n_layers, 8)
             bms, by = bound_ms(
                 2 * bb * t * h * dh * 2 + 2 * sum(ends) * kh * dh
                 * elem_bytes,
                 sum(4.0 * dh * h * (t * s + t * (t + 1) / 2)
                     for s in starts))
-            pre[plabel] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=bms, bound_by=by, max_abs_err=err)
+            pre[case] = dict(route=route, ms=ms, parent_ms=parent,
+                             parent=plabel, plain_ms=plain, library_ms=lib,
+                             bound_ms=bms, bound_by=by, max_abs_err=err)
             log(f'  paged_prefill_attention[{width}] tp=2 rank H=KH=16 '
-                f'{plabel}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA '
-                f'(masked) {lib:.4f} ms, bound {bms:.4f} ms ({by}), max abs '
-                f'err {err:.2e} (tol 1e-2)')
-            del kc, vc, kvg
-        ctx['kernels'].setdefault(f'paged_prefill_attention[{width}]',
-                                  {})['tp2'] = pre
+                f'{case}: route {route}, kernel {ms:.4f} ms, parent '
+                f'({plabel}) {parent:.4f} ms, plain {plain:.3f} ms, SDPA '
+                f'(masked) {lib:.4f} ms, bound {bms:.4f} ms ({by}), '
+                f'{bms / ms:.0%} of the bound, max abs err {err:.2e} (tol '
+                f'1e-2)')
+            del kc, vc
+        entry = ctx['kernels'].setdefault(
+            f'paged_prefill_attention[{width}]', {})
+        entry['tp2'] = pre
+        entry.setdefault('routes', {}).update(
+            {f'tp=2 {case}': r['route'] for case, r in pre.items()})
         torch.cuda.empty_cache()
 
 
@@ -1022,8 +1138,123 @@ def check_pp_shapes(torch, ctx, timer):
         torch.cuda.empty_cache()
 
 
+def breakdown_variants(src: str) -> dict:
+    """The kernel-3 source as it is and with one part taken out (see
+    phase ``breakdown``)."""
+    def cut(text, old, new=''):
+        if text.count(old) != 1:
+            raise RuntimeError(f'breakdown edit does not match: {old[:60]!r}')
+        return text.replace(old, new)
+    lo = '      wgmma_pv(o, pl[k2], dv);\n'
+    no_products = cut(cut(cut(
+        src, '      wgmma_pv(o, ph[k2], dv);\n'), lo),
+        '      wgmma_qk(s, qa[kk],', '      if (kk < 0) wgmma_qk(s, qa[kk],')
+    wait = '    mbar_wait(&full[st], (i / kWStages) & 1);\n'
+    loads_only = cut(src, wait, wait + (
+        '    if (BITS == 0) {\n'
+        '      if (lane == 0) mbar_arrive(&empty[st]);\n'
+        '      continue;\n'
+        '    }\n'))
+    a = src.index("    // write this split's (m, l, O); the last split")
+    b = src.index('    __syncthreads();  // s_ticket is read by everyone')
+    return {'full': src, 'no_products': no_products,
+            'loads_only': loads_only, 'no_merge': src[:a] + src[b:],
+            'one_term': cut(src, lo)}
+
+
+def phase_breakdown(torch, ctx):
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from lmdeploy_tpu_torch.ops.cuda import build
+    from lmdeploy_tpu_torch.ops.cuda import prefill_attention as PF
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def one(item):
+        name, text = item
+        cu = build.BUILD_DIR / f'breakdown_{name}.cu'
+        cu.write_text(text)
+        so = build.BUILD_DIR / f'breakdown_{name}.so'
+        r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, '-I',
+                            str(build.CSRC), '-shared', '-o', str(so),
+                            str(cu)], capture_output=True, text=True,
+                           timeout=900)
+        if r.returncode:
+            raise RuntimeError(f'{name}: nvcc failed\n{r.stdout}{r.stderr}')
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in build._SIGNATURES.items():
+            if fn.startswith('lmd_paged_prefill'):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        return name, lib
+    sources = breakdown_variants(
+        (build.CSRC / 'paged_prefill_attention.cu').read_text())
+    with ThreadPoolExecutor(len(sources)) as ex:
+        libs = dict(ex.map(one, sources.items()))
+    timer = Timer(torch)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    chunk = ('full', 'no_products', 'loads_only', 'one_term')
+    cases = [  # (label, histories, chunk lengths, T, KH = H, kv_bits,
+        #         variants)
+        ('512-token chunk from 0', [0], [512], 512, 32, 0, chunk),
+        ('512-token chunk from 0, int8', [0], [512], 512, 32, 8,
+         ('full', 'one_term')),
+        ('512-token chunk from 0, int4', [0], [512], 512, 32, 4,
+         ('full', 'one_term')),
+        ('tp=2 rank 512-token chunk', [0], [512], 512, 16, 0, chunk),
+        ('64-token chunk over 300', [300], [64], 64, 32, 0, chunk),
+        ('padding row only (launch floor)', [0], [0], 512, 32, 0,
+         ('full',)),
+        ('verify B=1 ctx 512', [507], [5], 5, 32, 0, ('full', 'no_merge')),
+        ('verify B=1 ctx 2048', [2043], [5], 5, 32, 0, ('full', 'no_merge')),
+        ('verify B=8 ctx~512', [507 - 7 * i for i in range(8)], [5] * 8, 5,
+         32, 0, ('full', 'no_merge')),
+    ]
+    out = {}
+    main_lib = build.load()
+    try:
+        for label, starts, lens, t, kh, kv_bits, names in cases:
+            ends = [s + n for s, n in zip(starts, lens)]
+            kc, vc, pt = _paged_case(
+                torch, gen, len(starts), [max(e, 1) for e in ends], 4,
+                pages=sum(-(-max(e, 1) // 64) for e in ends) + 8, kh=kh,
+                kv_bits=kv_bits)
+            qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
+                  if kv_bits else None)
+            q = torch.randn((len(starts), t, kh, 128), generator=gen,
+                            device='cuda').to(torch.bfloat16)
+            sp = torch.tensor(starts, dtype=torch.int32, device='cuda')
+            ce = torch.tensor(ends, dtype=torch.int32, device='cuda')
+            want = PF.paged_prefill_attention_plain(q, kc, vc, 1, pt, sp, ce,
+                                                    qp)
+            row = {'route': PF.prefill_route(len(starts), t, kh, kh, 64,
+                                             kv_bits)}
+            for name in names:
+                build._lib = libs[name]
+                row[name] = timer.graph(lambda i: PF.paged_prefill_attention(
+                    q, kc, vc, i % 4, pt, sp, ce, qp), 16)
+                if name in ('full', 'one_term') and any(lens):
+                    # valid rows against the plain version (reported,
+                    # not gated: one_term is not what the kernel runs)
+                    got = PF.paged_prefill_attention(q, kc, vc, 1, pt, sp,
+                                                     ce, qp)
+                    row[f'{name} max abs err'] = max(
+                        (got[i, :n].float() - want[i, :n].float()).abs()
+                        .max().item() for i, n in enumerate(lens) if n)
+            out[label] = row
+            log(f'  {label}: ' + ', '.join(
+                f'{k} {v:.2e}' if k.endswith('err') else
+                f'{k} {v:.4f} ms' if isinstance(v, float) else f'{k} {v}'
+                for k, v in row.items()) + f' [{ctx.get("card", "?")}]')
+            del kc, vc
+    finally:
+        build._lib = main_lib
+    ctx['breakdown'] = out
+
+
 def phase_kernels(torch, ctx):
     timer = Timer(torch)
+    if ctx.get('parent'):
+        load_parent(ctx, ctx['parent'])
     check_gemm(torch, ctx, timer)
     check_decode(torch, ctx, timer)
     check_prefill(torch, ctx, timer)
@@ -1274,6 +1505,10 @@ def profile_bs1(torch, ctx, run_request, eng, passes_of, width='bf16'):
         f'{launches / passes:.0f} kernel launches')
     for ms, n, name in rows[:12]:
         log(f'    {ms:9.2f} ms  {n:7d}x  {name[:90]}')
+    k3 = sum(ms for ms, _, name in rows if 'paged_prefill' in name)
+    log(f'    kernel 3 (prefill attention): {k3:.3f} ms, '
+        f'{k3 / max(rounds, 1):.4f} ms a verify round' if rounds else
+        f'    kernel 3 (prefill attention): {k3:.3f} ms')
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()), reverse=True)[:8]
     log('    host (self CPU time): ' + '; '.join(
@@ -1281,8 +1516,31 @@ def profile_bs1(torch, ctx, run_request, eng, passes_of, width='bf16'):
     ctx[f'profile_bs1_{width}'] = dict(
         wall_ms=wall * 1e3, device_ms=busy, busy_share=busy / (wall * 1e3),
         passes=passes, verify_rounds=rounds, launches=launches,
+        device_ms_per_pass=busy / max(passes, 1), kernel3_ms=k3,
         top=[(name[:90], ms, n) for ms, n, name in rows[:12]],
         host_top=[(name[:90], ms, n) for ms, n, name in host])
+
+
+def profile_prefill_pass(torch, ctx, run_request, eng, passes_of):
+    """One request that is a single 512-row prefill pass (a 300-token
+    prompt, one new token) under torch.profiler: the pass's device ms and
+    kernel 3's part of it."""
+    out = []
+    before = passes_of(eng)
+    rows = device_kernels(torch, lambda: run_request(out))
+    after = passes_of(eng)
+    passes = {k: after[k] - before[k] for k in PASS_KINDS
+              if after[k] != before[k]}
+    busy = sum(ms for ms, _, _ in rows)
+    k3 = sum(ms for ms, _, name in rows if 'paged_prefill' in name)
+    log(f'  profile, a request of one 512-row prefill pass (bf16 pool, '
+        f'300-token prompt, 1 new token; passes {passes}; '
+        f'{ctx.get("card", "?")}): device {busy:.3f} ms, kernel 3 '
+        f'{k3:.4f} ms ({sum(n for _, n, name in rows if "paged_prefill" in name)} '
+        f'launches); top: ' + '; '.join(f'{name[:40]} {ms:.3f} ms'
+                                         for ms, _, name in rows[:4]))
+    ctx['profile_prefill_pass_bf16'] = dict(device_ms=busy, kernel3_ms=k3,
+                                            passes=passes)
 
 
 # forward passes by kind: the engine's decode steps and prefill passes,
@@ -1509,6 +1767,20 @@ def phase_engine(torch, ctx):
         return ({n: c[0] for n, c in K.launch_counts(True).items()},
                 passes_of(eng))
 
+    def route_mark(eng):
+        """(prefill attention's launches by route, passes by kind)."""
+        return K.route_counts(), passes_of(eng)
+
+    def check_routes(rmarks, want, label):
+        """Kernel 3's launches by route per pass of each kind equal
+        ``want``; returns them (nonzero ones only)."""
+        solved = launches_per_kind(rmarks)
+        check_route({}, solved, want, f'{label} routes')
+        per = {kind: {n: v for n, v in d.items() if v}
+               for kind, d in solved[0].items()}
+        log(f'    kernel 3 routes per pass: {per}')
+        return per
+
     def record(name, launches, per_step, per_pass):
         ctx['kernels'].setdefault(name, {}).update(
             launches=launches, launches_per_decode_step=per_step,
@@ -1585,10 +1857,12 @@ def phase_engine(torch, ctx):
         rows = min(b for b in ecfg.prefill_buckets if b >= len(prompt))
         K.reset_launch_counts()
         marks, out = [mark(eng)], []
+        rmarks = [route_mark(eng)]
         with env_vars(env):
             for n_new in lens:
                 run(inst, prompt, n_new, out)
                 marks.append(mark(eng))
+                rmarks.append(route_mark(eng))
         counts = K.launch_counts(True)
         solved = launches_per_kind(marks)
         per, _, windows = solved
@@ -1601,6 +1875,12 @@ def phase_engine(torch, ctx):
                          WGMMA: 5 * nl if rows > DECODE_MAX_M else 0}},
                     label, need=('decode_steps', 'prefill_passes'))
         per_step, per_pass = per['decode_steps'], per['prefill_passes']
+        # chunks take route wgmma at every width
+        route = f'{prefill}:wgmma'
+        routes = check_routes(rmarks, {'prefill_passes': {route: nl}}, label)
+        ctx['kernels'].setdefault(prefill, {}).setdefault(
+            'route_launches', {})[f'per prefill pass, {rows}-row bucket'] = \
+            routes['prefill_passes']
         tps = (out[0]['n'] - 1) / (out[0]['t_end'] - out[0]['t_first'])
         log(f'  {label}, requests of {lens} new tokens: {decode} '
             f'{counts[decode][0]} launches, {per_step[decode]} per decode '
@@ -1636,10 +1916,12 @@ def phase_engine(torch, ctx):
                 'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl}}
         K.reset_launch_counts()
         marks, out, stats = [mark(eng)], [], []
+        rmarks = [route_mark(eng)]
         for n_new in lens:
             before = dict(eng.stats)
             run(inst, [1], n_new, out)
             marks.append(mark(eng))
+            rmarks.append(route_mark(eng))
             stats.append({k: eng.stats[k] - before[k] for k in (
                 'spec_rounds', 'spec_emitted', 'spec_fallbacks',
                 'decode_steps')})
@@ -1648,6 +1930,12 @@ def phase_engine(torch, ctx):
         per, kinds, windows = solved
         check_route(counts, solved, want, f'{width} spec',
                     need=('spec_rounds',))
+        # every verify round takes route split
+        routes = check_routes(
+            rmarks, {'spec_rounds': {f'{prefill}:split': nl}},
+            f'{width} spec')
+        ctx['kernels'].setdefault(prefill, {}).setdefault(
+            'route_launches', {})['per verify round'] = routes['spec_rounds']
         log(f'  {width} spec bs1 requests of {lens} new tokens: per verify '
             f'round {({n: v for n, v in per["spec_rounds"].items() if v})}'
             f'; windows {windows} of {kinds}; per request {stats}')
@@ -2070,6 +2358,8 @@ def phase_engine(torch, ctx):
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, bs1_prompt, 64,
                                                     out), eng, passes_of)
+            profile_prefill_pass(torch, ctx, lambda out: run(
+                inst, long_prompt[::-1], 1, out), eng, passes_of)
         scales = {b: kv_scales_from_pool(torch, eng.cache, b) for b in (8, 4)}
         log(f'  int8 qparams from the bf16 run\'s K/V: k_scale '
             f'{[round(float(x), 5) for x in scales[8][0][:4]]}..., k_zp '
@@ -4346,7 +4636,13 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--phases', default=','.join(PHASES),
-                    help=f'comma-separated subset of {PHASES}')
+                    help=f'comma-separated subset of {PHASES} and of '
+                         f'{OPTIONAL_PHASES} (not run by default)')
+    ap.add_argument('--parent', metavar='TREE',
+                    help='kernels phase: time kernel 3 of the checkout at '
+                         'TREE (through its own wrapper, built by its own '
+                         "build.py) beside this tree's; by default the "
+                         "parent column is this tree's route mma")
     ap.add_argument('--profile', action='store_true',
                     help='engine phase: also profile one bs1 request on '
                          'the bf16 and on the int8 pool')
@@ -4359,13 +4655,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phases = [p for p in args.phases.split(',') if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         raise SystemExit(f'unknown phases {sorted(unknown)}')
-    ctx = {'kernels': {}, 'profile': args.profile}
+    ctx = {'kernels': {}, 'profile': args.profile, 'parent': args.parent}
     t_all = time.monotonic()
     try:
-        for name in PHASES:
+        for name in PHASES + OPTIONAL_PHASES:
             if name not in phases:
                 continue
             log(f'== phase {name}')
@@ -4391,6 +4687,8 @@ def main(argv=None) -> int:
             launches_per_verify_round=k.get('launches_per_verify_round'),
             max_abs_err=k.get('max_abs_err'), tolerance=k.get('tolerance'),
             ms=k.get('ms'), kernel_ms=k.get('ms'), plain_ms=k.get('plain_ms'),
+            parent_ms=k.get('parent_ms'), parent=k.get('parent'),
+            routes=k.get('routes'), route_launches=k.get('route_launches'),
             bound_ms=k.get('bound_ms'), bound_by=k.get('bound_by'),
             library_ms=k.get('library_ms'), library=k.get('library'),
             shape=k.get('shape'), at_bs1=k.get('m1') or k.get('b1'),

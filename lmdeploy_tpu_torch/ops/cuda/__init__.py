@@ -30,6 +30,11 @@ KERNEL_NAMES = ('w4a16_gemm',) + tuple(
 
 # Launches of one regime of a kernel, also counted under the kernel's name.
 REGIME_NAMES = (WGMMA,)
+# Launches of each route of prefill attention, also counted under the
+# kernel's name: paged_prefill_attention[bf16]:split / :wgmma / :mma.
+ROUTE_NAMES = tuple(
+    f'{variant("paged_prefill_attention", kv_bits)}:{route}'
+    for kv_bits in KV_WIDTHS for route in prefill_attention.ROUTES)
 
 
 def launch_counts(regimes: bool = False) -> dict:
@@ -40,11 +45,17 @@ def launch_counts(regimes: bool = False) -> dict:
     return {name: (LAUNCHES[name], PLAIN_CALLS[name]) for name in names}
 
 
+def route_counts() -> dict:
+    """{route name: launches} of prefill attention's routes."""
+    return {name: LAUNCHES[name] for name in ROUTE_NAMES}
+
+
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
     PLAIN_CALLS.clear()
 
 
 __all__ = ['ATTENTION_KERNELS', 'KERNEL_NAMES', 'REGIME_NAMES',
-           'launch_counts', 'reset_launch_counts', 'paged_attention',
+           'ROUTE_NAMES', 'launch_counts', 'route_counts',
+           'reset_launch_counts', 'paged_attention',
            'prefill_attention', 'quant_matmul']

@@ -4,9 +4,10 @@ The sources live in ``lmdeploy_tpu_torch/csrc/*.cu``, each with a plain C
 interface.  At first use they are compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
 started together, then linked into one shared library under
-``lmdeploy_tpu_torch/csrc/build/`` (named by a hash of the sources and
-flags, so an unchanged tree reuses it) and loaded with ``ctypes``.  There
-is no fallback: a missing ``nvcc`` or a failed build raises.
+``lmdeploy_tpu_torch/csrc/build/`` (named by a hash of the sources, the
+header they share and the flags, so an unchanged tree reuses it) and
+loaded with ``ctypes``.  There is no fallback: a missing ``nvcc`` or a
+failed build raises.
 
 ``ptxas -v`` output (registers, shared memory, spills per kernel) is kept
 in :data:`BUILD_LOG` for the build that this process ran.
@@ -26,6 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = CSRC / 'build'
 SOURCES = ('w4a16_gemm.cu', 'paged_decode_attention.cu',
            'paged_prefill_attention.cu')
+HEADERS = ('sm90.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -45,7 +47,9 @@ _SIGNATURES = {
     'lmd_paged_decode_attention': (_I,) + (_P,) * 15 + (_I,) * 10
                                   + (_F, _P),
     'lmd_paged_decode_want': (_I, _I, _I, _I),
-    'lmd_paged_prefill_attention': (_P,) * 8 + (_I,) * 8 + (_F, _P),
+    'lmd_paged_prefill_attention': (_I,) + (_P,) * 10 + (_I,) * 12
+                                   + (_F, _P),
+    'lmd_paged_prefill_capacity': (_I, _I, _I),
 }
 
 
@@ -62,7 +66,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

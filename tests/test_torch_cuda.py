@@ -326,6 +326,87 @@ def test_prefill_verify_shapes_on_card(cuda_device, kv_bits, shape):
                    pad_starts=pads)
 
 
+# the route boundary at G = 8 (KH = 4 of H = 32): T = 8 puts 64 rows in one
+# route-split block, T = 9 is a chunk (route wgmma at every width, page 16
+# and 64 alike); histories of 0, 70 and 1000 tokens (several splits)
+@pytest.mark.cuda
+@pytest.mark.parametrize('page', [16, 64])
+@pytest.mark.parametrize('t', [8, 9])
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_prefill_route_boundary_at_g8_on_card(cuda_device, kv_bits, t, page):
+    rng = np.random.default_rng(140 + kv_bits + t + page)
+    _check_prefill(rng, kv_bits, 4, 8, page, t, (0, 70, 1000), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('how', ['forced', 'page48'])
+@pytest.mark.parametrize('g', [1, 4])
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+def test_prefill_forced_route_matches_plain_on_card(cuda_device, monkeypatch,
+                                                    kv_bits, how, g):
+    """Route mma against the plain version: forced (FORCE_MMA) on the
+    shapes routes split and wgmma take (T = 1 to 512 at page 16), and
+    taken by the route rule itself on chunks at page 48, which neither
+    divides 64 nor is a multiple of it."""
+    from lmdeploy_tpu_torch.ops.cuda import prefill_attention as PF
+    page, lengths = 16, (1, 5, 8, 64, 100, 512)
+    if how == 'forced':
+        monkeypatch.setattr(PF, 'FORCE_MMA', True)
+    else:
+        page, lengths = 48, (64, 100, 512)
+    rng = np.random.default_rng(150 + g + len(how) + kv_bits)
+    for t in lengths:
+        assert how == 'forced' or PF.prefill_route(
+            4, t, 2 * g, 2, page, kv_bits) == 'mma'
+        _check_prefill(rng, kv_bits, 2, g, page, t, (0, 37, 300), cuda_device)
+
+
+@pytest.mark.cuda
+def test_prefill_route_counts_on_card(cuda_device):
+    """Every launch counts under the kernel and under the route it took:
+    split for T <= 8 and wgmma for chunks at every width, as
+    prefill_route says from the shapes."""
+    import lmdeploy_tpu_torch.ops.cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.prefill_attention import prefill_route
+    rng = np.random.default_rng(160)
+    cases = [(0, 5, (507,)), (0, 5, (2043,)), (0, 512, (0,)),
+             (0, 64, (300,)), (8, 5, (300,)), (8, 64, (300,)),
+             (4, 5, (80,)), (4, 512, (0,))]
+    K.reset_launch_counts()
+    want = {}
+    for kv_bits, t, hist in cases:
+        _check_prefill(rng, kv_bits, 32, 1, 64, t, hist, cuda_device)
+        width = ('bf16', 'int8', 'int4')[(0, 8, 4).index(kv_bits)]
+        name = f'paged_prefill_attention[{width}]'
+        route = prefill_route(2, t, 32, 32, 64, kv_bits)
+        assert route == ('split' if t <= 8 else 'wgmma')
+        want[f'{name}:{route}'] = want.get(f'{name}:{route}', 0) + 1
+        want[name] = want.get(name, 0) + 1
+    assert {n: c for n, c in K.route_counts().items() if c} == {
+        n: c for n, c in want.items() if ':' in n}
+    assert {n: c[0] for n, c in K.launch_counts().items() if c[0]} == {
+        n: c for n, c in want.items() if ':' not in n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('t,history', [(5, 2043), (5, 75), (64, 300),
+                                       (512, 0)])
+def test_prefill_split_merges_are_bit_identical_across_calls(
+        cuda_device, t, history):
+    """The split merge runs in split order whichever split finishes last:
+    two calls give the same bits (route split at T = 5 with several
+    splits and one; route wgmma at the two prefill buckets)."""
+    rng = np.random.default_rng(170 + t)
+    kc, vc, pt, sp, ce, lens = _prefill_batch(rng, 0, 32, 64, t, (history,),
+                                              cuda_device)
+    q = torch.from_numpy(rng.normal(size=(len(lens), t, 32, 128))
+                         .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    args = (q, kc, vc, 1, pt, sp, ce)
+    first = paged_prefill_attention(*args)
+    for _ in range(3):
+        assert torch.equal(paged_prefill_attention(*args), first)
+
+
 def _gemm_args(rng, m, k, n, device):
     x, packed, scales = _gemm_case(rng, m, k, n)
     return (torch.from_numpy(x).to(device),
