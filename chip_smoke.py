@@ -14,8 +14,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                version's time, one PyTorch library call's time and the bound;
                the kernels line reports the shapes the engine launches in
                decode (all 8 batch slots: GEMM M=8, attention B=8); the GEMM
-               also at the verify's M=40, prefill attention also at the
-               verify's T=5 (B=8 all live, one live slot with 7 padding
+               at every GEMM_ROWS M on every route that takes M (decode up
+               to 64; splitk and tiles above 8), each line naming the route
+               gemm_route picks, with its split plan, and timing the parent
+               (--parent TREE: that checkout's kernel 1 through its own
+               wrapper and build), torch.matmul and the bound beside it; the
+               kernels line has one entry per GEMM route (splitk with the
+               launches of the verify's M=40, tiles with those of the 512
+               bucket); prefill attention also at the verify's T=5 (B=8 all live, one live slot with 7 padding
                rows, B=1 at ctx 80 / 512 / 2048) and at the route boundary
                T = 8 / 9 with G = 8; every kernel-3 line names its route
                (split, wgmma or mma), and times the parent (this tree's
@@ -51,13 +57,16 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                LMDEPLOY_TPU_FUSED_ROPE=1 must solve to 32 / 0 launches per
                decode step / prefill pass of the selected decode kernel and
                0 / 32 of prefill attention, all of it on route wgmma by
-               the route counters.  Then
+               the route counters, and the GEMM's 160 a pass on the bucket's
+               routes (the 512 bucket: all tiles).  Then
                speculative decoding
                (k=4, n-gram 3 down to 2) on the bf16 engine: greedy bs1 of
                256 tokens from prompt [1] (bench.py's headline path) and
                one of 32, whose windows solve 160 / 160 / 32 / 0 launches
                per verify round (GEMM / its wgmma regime / prefill / decode
-               attention), prefill attention's 32 all on route split; the
+               attention), prefill attention's 32 all on route split and the
+               GEMM's 160 on the routes gemm_route picks at M = 40 (route
+               counters: splitk for wo and w2, tiles for wqkv, w1, w3); the
                same 256-token request on plain rounds; the
                spec tokens against one teacher-forced forward (each within
                1% of max|logit| of its argmax; the two streams agree up to
@@ -162,8 +171,16 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                the CPU's run) on that cut; trace() and annotate() around a
                bs1 request.  Alone: --phases probe,build,tools.
 Not run by default:
-  breakdown — where kernel 3's time goes: routes wgmma and split against
-               copies of the checkout's csrc/paged_prefill_attention.cu with
+  breakdown — where kernels 1 and 3's time goes.  Kernel 1: one layer's
+               projections at M = 40, 64 and 512 and at a tp = 2 rank's M =
+               40 and 512, on the route gemm_route picks, against copies of
+               csrc/w4a16_gemm.cu with one part of the wgmma regime taken
+               out (no_products: no wgmma issued; no_abuild: A fragments
+               are constants, so no weight byte is read from shared memory
+               or converted; no_order: the consumer warpgroups issue
+               without their ping-pong barriers; loads_only: each stage
+               released as it lands), and the other route forced.  Kernel
+               3: routes wgmma and split against copies of the checkout's csrc/paged_prefill_attention.cu with
                one part taken out (no_products: no Q K^T or P V wgmma;
                loads_only: each tile released as it lands; no_merge: route
                split's slots of several splits skip the partials, ticket
@@ -202,10 +219,12 @@ LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w2', 11008, 4096))
 ENGINE_SLOTS = 8     # phase 5's max_batch_size: every decode step runs all
 # 64 and 512: the prefill buckets; 40: the speculative verify of all 8 slots
-# (K+1 = 5 rows each); each M times both regimes (the crossover)
+# (K+1 = 5 rows each); M <= 64 also times the decode kernel (the crossover)
 SPEC_K = 4           # phase 5's speculative_k, as bench.py's headline run
 GEMM_ROWS = (1, ENGINE_SLOTS, 16, 32, ENGINE_SLOTS * (SPEC_K + 1), 64, 128,
              256, 512)
+# M at which check_gemm also times the wgmma route gemm_route does not pick
+SPLIT_CROSS_ROWS = (ENGINE_SLOTS * (SPEC_K + 1), 64, 128)
 REPLACES = {
     'w4a16_gemm': 'lmdeploy_tpu/ops/pallas/quant_matmul.py:177',
     'paged_decode_attention_write':
@@ -335,9 +354,11 @@ def phase_build(torch, ctx):
     log(f'build: {time.monotonic() - t0:.1f} s (sources {build.SOURCES})')
     for block in build.BUILD_LOG:
         for line in block.splitlines():
-            if line.startswith('==') or 'ptxas' in line and (
-                    'registers' in line or 'spill' in line
-                    or 'Compiling entry' in line):
+            if line.startswith('==') or 'spill' in line or (
+                    'ptxas' in line and ('registers' in line
+                                         or 'Compiling entry' in line
+                                         or 'arning' in line
+                                         or 'Performance' in line)):
                 log('  ' + line.strip())
 
 
@@ -346,97 +367,188 @@ def _rand_packed(torch, gen, shape):
                          device='cuda')
 
 
+def _gemm_weights(torch, gen, k, n, n_layers):
+    """A random packed weight [L, K/2, N], its bf16 scales and each layer's
+    dequantised bf16 weight (torch.matmul's operand)."""
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import unpack_nibbles
+    g = k // 128
+    packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
+    scales = (torch.rand((n_layers, g, 1, n), generator=gen,
+                         device='cuda') * 0.01 + 0.001).to(torch.bfloat16)
+    deq = [(unpack_nibbles(packed[i]).float().reshape(g, 128, n)
+            * scales[i].float()).reshape(k, n).to(torch.bfloat16)
+           for i in range(n_layers)]
+    return packed, scales, deq
+
+
+def gemm_bound(m, k, n):
+    """Kernel 1's bound: x, the packed weight, the scales and y once
+    (bytes); 2 M K N (operations)."""
+    return bound_ms(m * k * 2 + k * n // 2 + k // 128 * n * 2 + m * n * 4,
+                    2.0 * m * k * n)
+
+
+def gemm_parent_ms(torch, ctx, timer, x, packed, scales, layer, want, tol,
+                   label, n_layers, iters=16):
+    """The parent checkout's kernel 1 (--parent) through its own wrapper on
+    these inputs, held to the plain version at ``layer`` (``want``), timed
+    cycling n_layers layers; None without --parent."""
+    qm = ctx.get('parent_qm')
+    if qm is None:
+        return None
+    theirs = qm.w4a16_gemm(x, packed, scales, layer)
+    torch.cuda.synchronize()
+    e = (theirs - want).abs().max().item()
+    if not e <= tol:
+        raise AssertionError(f'parent w4a16_gemm {label}: max abs err {e}')
+    return timer.graph(lambda i: qm.w4a16_gemm(x, packed, scales,
+                                               i % n_layers), iters)
+
+
 def check_gemm(torch, ctx, timer):
     """The W4A16 GEMM at every GEMM_ROWS M over one Llama-2-7B layer's five
-    projections, both regimes (each against the plain version), with the
+    projections: every route that takes M (decode up to M = 64, splitk and
+    tiles above DECODE_MAX_M) against the plain version; the route that
+    gemm_route picks timed beside the parent's kernel (--parent), the
     library call (torch.matmul on the dequantised weight) and the bound;
-    the kernel time is that of the regime the wrapper picks."""
+    the decode kernel also timed up to M = 64 and route splitk at M =
+    DECODE_MAX_M (the crossover), and the other wgmma route at
+    SPLIT_CROSS_ROWS (the splitk / tiles boundary)."""
     from lmdeploy_tpu_torch.ops.cuda import build
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
-        DECODE_MAX_M, REGIMES, unpack_nibbles, w4a16_gemm_plain,
-        w4a16_gemm_regime)
+        DECODE_MAX_M, ROUTES, gemm_route, sm_count, splitk_splits,
+        w4a16_gemm_plain, w4a16_gemm_route, wgmma_rows)
     gen = torch.Generator(device='cuda').manual_seed(1)
     n_layers = 8          # timing cycles layers so weights come from HBM
+    sms = sm_count('cuda')
     rows, worst = [], 0.0
     zero = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
-    layer = {m: dict(zero) for m in GEMM_ROWS}
-    by_regime = {r: {m: 0.0 for m in GEMM_ROWS} for r in REGIMES}
+    if ctx.get('parent_qm') is not None:
+        zero['parent_ms'] = 0.0
+    layer = {m: dict(zero, routes={}) for m in GEMM_ROWS}
+    by_route = {r: {} for r in ROUTES}
+    wgmma_plan = {}       # M -> the wgmma regime on its plan's routes
     lib = build.load()
     for name, k, n in LLAMA2_7B_GEMMS:
-        g = k // 128
-        packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
-        scales = (torch.rand((n_layers, g, 1, n), generator=gen,
-                             device='cuda') * 0.01 + 0.001).to(torch.bfloat16)
-        deq = [(unpack_nibbles(packed[i]).float().reshape(g, 128, n)
-                * scales[i].float()).reshape(k, n).to(torch.bfloat16)
-               for i in range(n_layers)]
+        packed, scales, deq = _gemm_weights(torch, gen, k, n, n_layers)
         for m in GEMM_ROWS:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
             want = w4a16_gemm_plain(x, packed, scales, 3)
             scale = want.abs().max().item()
             tol = 1e-3 * scale + 1e-3
-            regime = 'decode' if m <= DECODE_MAX_M else 'wgmma'
-            for r in REGIMES:
-                got = w4a16_gemm_regime(x, packed, scales, 3, r)
+            route = gemm_route(m, k, n, sms)
+            timed = {route}
+            if m <= 64:
+                timed.add('decode')
+            if m in SPLIT_CROSS_ROWS:
+                timed |= {'splitk', 'tiles'}
+            plan = ('splitk' if splitk_splits(m, k, n, sms) > 1
+                    else 'tiles')
+            if m <= DECODE_MAX_M:
+                timed.add(plan)         # the crossover's other side
+            errs, times = {}, {}
+            for r in [r for r in ROUTES if (
+                    m <= 64 if r == 'decode' else
+                    m > DECODE_MAX_M or r in timed)]:
+                got = w4a16_gemm_route(x, packed, scales, 3, r)
                 torch.cuda.synchronize()
-                e = (got - want).abs().max().item()
-                if not e <= tol:
-                    raise AssertionError(f'w4a16_gemm[{r}] {name} M={m}: max '
-                                         f'abs err {e} > {tol}')
-                worst = max(worst, e)
-                if r == regime:
-                    err = e
-                t = timer.graph(lambda i: w4a16_gemm_regime(
-                    x, packed, scales, i % n_layers, r), 16)
-                by_regime[r][m] += t
-                if r == regime:
-                    ms = t
+                errs[r] = (got - want).abs().max().item()
+                if not errs[r] <= tol:
+                    raise AssertionError(f'w4a16_gemm[{r}] {name} M={m}: '
+                                         f'max abs err {errs[r]} > {tol}')
+                worst = max(worst, errs[r])
+                if r in timed:
+                    t = times[r] = timer.graph(lambda i: w4a16_gemm_route(
+                        x, packed, scales, i % n_layers, r), 16)
+                    by_route[r][m] = by_route[r].get(m, 0.0) + t
+                    if r == route:
+                        ms = t
+                    if r == plan:
+                        wgmma_plan[m] = wgmma_plan.get(m, 0.0) + t
+            parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 3,
+                                    want, tol, f'{name} M={m}', n_layers)
             lib_ms = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
                                  16)
             plain = timer.events(lambda i: w4a16_gemm_plain(
                 x, packed, scales, i % n_layers), 3, warmup=1)
-            nbytes = m * k * 2 + k * n // 2 + g * n * 2 + m * n * 4
-            ops = 2.0 * m * k * n
-            bms, by = bound_ms(nbytes, ops)
-            tile = ('' if regime == 'decode' else
-                    f', tile {lib.lmd_w4a16_wgmma_tile(m, n)}')
-            rows.append((name, m, k, n, ms, plain, lib_ms, bms, by, err))
+            bms, by = gemm_bound(m, k, n)
+            shape = ('' if route == 'decode' else
+                     f', S={splitk_splits(m, k, n, sms)}, x tile '
+                     f'{wgmma_rows(m)} rows')
+            rows.append((name, m, k, n, route, ms, parent, plain, lib_ms, bms,
+                         by, errs[route]))
             log(f'  w4a16_gemm {name:4s} M={m:3d} K={k:5d} N={n:5d} '
-                f'({regime}{tile}): kernel {ms:.4f} ms, plain {plain:.3f} '
-                f'ms, torch.matmul (bf16 dequantized) {lib_ms:.4f} ms, bound '
-                f'{bms:.4f} ms ({by}), max abs err {err:.2e} (tol '
-                f'{tol:.2e}, scale {scale:.1f})')
+                f'(route {route}{shape}): kernel {ms:.4f} ms, '
+                + (f'parent {parent:.4f} ms, ' if parent is not None else '')
+                + f'plain {plain:.3f} ms, torch.matmul (bf16 dequantized) '
+                f'{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), routes timed '
+                + ', '.join(f'{r} {t:.4f}' for r, t in times.items())
+                + ' ms, max abs err '
+                + ', '.join(f'{r} {e:.2e}' for r, e in errs.items())
+                + f' (tol {tol:.2e}, scale {scale:.1f})')
+            layer[m]['routes'][name] = route
             for key, val in (('ms', ms), ('plain_ms', plain),
-                             ('library_ms', lib_ms), ('bytes', nbytes),
-                             ('ops', ops)):
-                layer[m][key] += val
+                             ('library_ms', lib_ms), ('parent_ms', parent),
+                             ('bytes', m * k * 2 + k * n // 2
+                              + k // 128 * n * 2 + m * n * 4),
+                             ('ops', 2.0 * m * k * n)):
+                if key in layer[m]:
+                    layer[m][key] += val
         del deq, packed, scales
         torch.cuda.empty_cache()
     for m in layer:
         layer[m]['bound_ms'], layer[m]['bound_by'] = bound_ms(
             layer[m].pop('bytes'), layer[m].pop('ops'))
-        log(f'  w4a16_gemm one layer M={m}: kernel {layer[m]["ms"]:.4f} ms, '
-            f'torch.matmul {layer[m]["library_ms"]:.4f} ms, bound '
-            f'{layer[m]["bound_ms"]:.4f} ms ({layer[m]["bound_by"]})')
+        par = layer[m].get('parent_ms')
+        routes = sorted(set(layer[m]['routes'].values()))
+        log(f'  w4a16_gemm one layer M={m} ({routes}): kernel '
+            f'{layer[m]["ms"]:.4f} ms, '
+            + (f'parent {par:.4f} ms, ' if par is not None else '')
+            + f'torch.matmul {layer[m]["library_ms"]:.4f} ms, bound '
+            f'{layer[m]["bound_ms"]:.4f} ms ({layer[m]["bound_by"]}), '
+            f'{layer[m]["bound_ms"] / layer[m]["ms"]:.0%} of the bound')
     log('  crossover, one layer (ms): ' + '; '.join(
-        f'M={m} decode {by_regime["decode"][m]:.4f} wgmma '
-        f'{by_regime["wgmma"][m]:.4f}' for m in GEMM_ROWS))
+        f'M={m} decode {by_route["decode"][m]:.4f} wgmma (plan) '
+        f'{wgmma_plan[m]:.4f}' for m in GEMM_ROWS if m <= 64))
+    log('  routes, one layer (ms; a route summed over the projections timed '
+        'on it): ' + '; '.join(
+            f'M={m} ' + ' '.join(f'{r} {by_route[r][m]:.4f}' for r in ROUTES
+                                 if m in by_route[r]) for m in GEMM_ROWS))
     enc = lib.lmd_tmap_encode_ns(10000)
     log(f'  host: one tensor-map encode {enc} ns (two per wgmma call)')
+    verify_m = ENGINE_SLOTS * (SPEC_K + 1)
+    tol = '1e-3 * max|plain| + 1e-3 (f32 sums in another order)'
     ctx['kernels']['w4a16_gemm'] = dict(
         shape=f'one Llama-2-7B layer in decode: wqkv+wo+w1+w3+w2, '
               f'M={ENGINE_SLOTS} (the engine runs all its slots)',
         **layer[ENGINE_SLOTS], m1=layer[1], layer_by_m=layer,
-        max_abs_err=worst,
-        tolerance='1e-3 * max|plain| + 1e-3 (f32 sums in another order)')
+        max_abs_err=worst, tolerance=tol)
     ctx['kernels']['w4a16_gemm[wgmma]'] = dict(
         shape='one Llama-2-7B layer in prefill: wqkv+wo+w1+w3+w2, M=512 '
               '(the 512-token bucket)',
-        **layer[512], max_abs_err=worst,
-        verify_m40=layer[ENGINE_SLOTS * (SPEC_K + 1)],
-        crossover={r: by_regime[r] for r in REGIMES}, tmap_encode_ns=enc,
-        tolerance='1e-3 * max|plain| + 1e-3')
+        **layer[512], max_abs_err=worst, verify_m40=layer[verify_m],
+        crossover=dict(by_route, wgmma_plan=wgmma_plan),
+        tmap_encode_ns=enc, tolerance=tol)
+    # one entry per route: the projections that take it at the verify's M
+    # (splitk) and at the 512-token bucket (tiles), summed
+    for route, m, what in (('splitk', verify_m, 'the verify of 8 slots x '
+                            f'{SPEC_K + 1} rows'),
+                           ('tiles', 512, 'the 512-token bucket')):
+        mine = [r for r in rows if r[1] == m and r[4] == route]
+        names = '+'.join(r[0] for r in mine)
+        bms, by = bound_ms(sum(mm * k * 2 + k * n // 2 + k // 128 * n * 2
+                               + mm * n * 4 for _, mm, k, n, *_ in mine),
+                           sum(2.0 * mm * k * n for _, mm, k, n, *_ in mine))
+        parents = [r[6] for r in mine]
+        ctx['kernels'][f'w4a16_gemm[wgmma]:{route}'] = dict(
+            shape=f'Llama-2-7B {names} (the projections on route {route}), '
+                  f'M={m} ({what})',
+            ms=sum(r[5] for r in mine), plain_ms=sum(r[7] for r in mine),
+            library_ms=sum(r[8] for r in mine),
+            parent_ms=None if None in parents else sum(parents),
+            bound_ms=bms, bound_by=by, routes={r[0]: route for r in mine},
+            max_abs_err=max(r[11] for r in mine), tolerance=tol)
     ctx['gemm_rows'] = rows
 
 
@@ -676,13 +788,14 @@ def prefill_bound(starts, lens, h, kh, elem_bytes):
 
 
 def load_parent(ctx, tree):
-    """Kernel 3 of another checkout (the parent commit's, say) through that
-    checkout's own wrapper, for the parent column of every kernel-3 line:
-    its package is imported under another name, so its build.py builds
-    its own sources into its own csrc/build/ and loads them with its own
-    C signatures; ctx['parent_pf'] is its ops/cuda/prefill_attention
-    module, whose ``paged_prefill_attention`` takes the same arguments in
-    every version."""
+    """Kernels 1 and 3 of another checkout (the parent commit's, say)
+    through that checkout's own wrappers, for the parent column of every
+    kernel-1 and kernel-3 line: its package is imported under another
+    name, so its build.py builds its own sources into its own csrc/build/
+    and loads them with its own C signatures; ctx['parent_pf'] is its
+    ops/cuda/prefill_attention module and ctx['parent_qm'] its
+    ops/cuda/quant_matmul module, whose ``paged_prefill_attention`` and
+    ``w4a16_gemm`` take the same arguments in every version."""
     import importlib
     import importlib.util
     root = os.path.join(os.path.abspath(tree), 'lmdeploy_tpu_torch')
@@ -697,6 +810,8 @@ def load_parent(ctx, tree):
     importlib.import_module(f'{name}.ops.cuda.build').load()
     ctx['parent_pf'] = importlib.import_module(
         f'{name}.ops.cuda.prefill_attention')
+    ctx['parent_qm'] = importlib.import_module(
+        f'{name}.ops.cuda.quant_matmul')
     log(f'parent kernels from {root}: built in {time.monotonic() - t0:.1f} s')
 
 
@@ -939,22 +1054,17 @@ TP2_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 512)
 PP2_ROWS = (ENGINE_SLOTS // 2, ENGINE_SLOTS // 4)
 
 
-def check_gemm_rows(torch, gen, timer, gemms, m_rows, label):
-    """The W4A16 GEMM at ``gemms`` x ``m_rows`` (the regime the wrapper
-    picks) against its plain version, with torch.matmul on the
-    dequantised weight and the bound; a row each, keyed by shape."""
+def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
+    """The W4A16 GEMM at ``gemms`` x ``m_rows`` (the route the wrapper
+    picks) against its plain version, with the parent's kernel
+    (--parent), torch.matmul on the dequantised weight and the bound; a
+    row each, keyed by shape."""
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
-        unpack_nibbles, w4a16_gemm, w4a16_gemm_plain)
+        gemm_route, sm_count, w4a16_gemm, w4a16_gemm_plain)
     n_layers = 4
     rows = {}
     for name, k, n in gemms:
-        g = k // 128
-        packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
-        scales = (torch.rand((n_layers, g, 1, n), generator=gen,
-                             device='cuda') * 0.01 + 0.001).to(torch.bfloat16)
-        deq = [(unpack_nibbles(packed[i]).float().reshape(g, 128, n)
-                * scales[i].float()).reshape(k, n).to(torch.bfloat16)
-               for i in range(n_layers)]
+        packed, scales, deq = _gemm_weights(torch, gen, k, n, n_layers)
         for m in m_rows:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
@@ -966,23 +1076,39 @@ def check_gemm_rows(torch, gen, timer, gemms, m_rows, label):
             if not err <= tol:
                 raise AssertionError(f'w4a16_gemm {label} {name} M={m}: max '
                                      f'abs err {err} > {tol}')
+            route = gemm_route(m, k, n, sm_count('cuda'))
             ms = timer.graph(lambda i: w4a16_gemm(x, packed, scales,
                                                   i % n_layers), 16)
+            parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 1,
+                                    want, tol, f'{label} {name} M={m}',
+                                    n_layers)
             lib = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
                               16)
             plain = timer.events(lambda i: w4a16_gemm_plain(
                 x, packed, scales, i % n_layers), 2, warmup=1)
-            bms, by = bound_ms(m * k * 2 + k * n // 2 + g * n * 2 + m * n * 4,
-                               2.0 * m * k * n)
+            bms, by = gemm_bound(m, k, n)
             rows[f'{name} K={k} N={n} M={m}'] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, max_abs_err=err)
+                route=route, ms=ms, parent_ms=parent, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err)
             log(f'  w4a16_gemm {label} rank {name:4s} M={m:3d} K={k:5d} '
-                f'N={n:5d}: kernel {ms:.4f} ms, plain {plain:.3f} ms, '
-                f'torch.matmul {lib:.4f} ms, bound {bms:.4f} ms ({by}), max '
-                f'abs err {err:.2e} (tol {tol:.2e})')
+                f'N={n:5d} (route {route}): kernel {ms:.4f} ms, '
+                + (f'parent {parent:.4f} ms, ' if parent is not None else '')
+                + f'plain {plain:.3f} ms, torch.matmul {lib:.4f} ms, bound '
+                f'{bms:.4f} ms ({by}), max abs err {err:.2e} (tol {tol:.2e})')
         del deq, packed, scales
         torch.cuda.empty_cache()
+    # one layer: w1's shape stands for w3 too where ``gemms`` lists it once
+    times = {name: 2 if name == 'w1' and len(gemms) == 4 else 1
+             for name, _, _ in gemms}
+    for m in m_rows:
+        mine = [(times[key.split()[0]], r) for key, r in rows.items()
+                if key.endswith(f' M={m}')]
+        layer = {key: (None if any(r[key] is None for _, r in mine) else
+                       sum(c * r[key] for c, r in mine))
+                 for key in ('ms', 'parent_ms', 'library_ms')}
+        log(f'  w4a16_gemm {label} rank, one layer M={m} (w1 counted for '
+            f'w3 too): ' + ', '.join(f'{key} {v:.4f}' for key, v in
+                                     layer.items() if v is not None))
     return rows
 
 
@@ -1049,7 +1175,7 @@ def check_rank_shapes(torch, ctx, timer):
     gen = torch.Generator(device='cuda').manual_seed(11)
     n_layers = 4
     ctx['kernels'].setdefault('w4a16_gemm', {})['tp2'] = check_gemm_rows(
-        torch, gen, timer, TP2_GEMMS, TP2_ROWS, 'tp=2')
+        torch, ctx, gen, timer, TP2_GEMMS, TP2_ROWS, 'tp=2')
     kh = h = 16
     dh, page, mode = 128, 64, 'paged_decode_attention_write'
     label, ctxs, masked = DECODE_CASES[0]
@@ -1121,9 +1247,10 @@ def check_pp_shapes(torch, ctx, timer):
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     gen = torch.Generator(device='cuda').manual_seed(12)
     gemm = {f'tp=1 {k}': v for k, v in check_gemm_rows(
-        torch, gen, timer, LLAMA2_7B_GEMMS, PP2_ROWS, 'pp=2').items()}
+        torch, ctx, gen, timer, LLAMA2_7B_GEMMS, PP2_ROWS, 'pp=2').items()}
     gemm.update({f'tp=2 {k}': v for k, v in check_gemm_rows(
-        torch, gen, timer, TP2_GEMMS, PP2_ROWS, 'pp=2 x tp=2').items()})
+        torch, ctx, gen, timer, TP2_GEMMS, PP2_ROWS,
+        'pp=2 x tp=2').items()})
     ctx['kernels'].setdefault('w4a16_gemm', {})['pp2'] = gemm
     _, ctxs, _ = DECODE_CASES[0]
     for kv_bits, (width, _, _) in KV_WIDTHS.items():
@@ -1138,13 +1265,18 @@ def check_pp_shapes(torch, ctx, timer):
         torch.cuda.empty_cache()
 
 
+def _cut(text, old, new=''):
+    """``text`` with its one occurrence of ``old`` replaced; raises when
+    ``old`` does not occur exactly once."""
+    if text.count(old) != 1:
+        raise RuntimeError(f'breakdown edit does not match: {old[:60]!r}')
+    return text.replace(old, new)
+
+
 def breakdown_variants(src: str) -> dict:
     """The kernel-3 source as it is and with one part taken out (see
     phase ``breakdown``)."""
-    def cut(text, old, new=''):
-        if text.count(old) != 1:
-            raise RuntimeError(f'breakdown edit does not match: {old[:60]!r}')
-        return text.replace(old, new)
+    cut = _cut
     lo = '      wgmma_pv(o, pl[k2], dv);\n'
     no_products = cut(cut(cut(
         src, '      wgmma_pv(o, ph[k2], dv);\n'), lo),
@@ -1162,6 +1294,44 @@ def breakdown_variants(src: str) -> dict:
             'one_term': cut(src, lo)}
 
 
+def gemm_breakdown_variants(src: str) -> dict:
+    """Kernel 1's source as it is and with one part of its wgmma regime
+    taken out (see phase ``breakdown``)."""
+    issue = 'wgmma_bm<BM>(d, a[kk],'
+    fold = 'for (int j = 0; j < kD / 4; ++j) {  // fold'
+    skip_fold = 'for (int j = 0; j < 0; ++j) {  // fold'
+    # the A fragments become constants, so the packed bytes are neither
+    # read from shared memory nor converted
+    first = '        a[kk][0] = nib2_bf16(p);'
+    i = src.index(first)
+    j = src.index('\n', src.index('a[kk][3] = nib2_bf16(q >> 8);')) + 1
+
+    def no_abuild(text):
+        text = (text[:i] + '        a[kk][0] = a[kk][1] = a[kk][2] = '
+                'a[kk][3] = 0x3F803F80u;\n' + text[j:])
+        return _cut(text, '        ldsm_x4_trans(wt + p * 32 * kBN,',
+                    '        if (p < 0) ldsm_x4_trans(wt + p * 32 * kBN,')
+    pingpong = '  constexpr bool kPingPong = BM > 64;'
+    no_order = _cut(src, pingpong, '  constexpr bool kPingPong = false;')
+    # the ring and the epilogue alone: no products, no fold, no A build
+    loads_only = no_abuild(_cut(_cut(src, issue, 'if (kk < 0) ' + issue),
+                                fold, skip_fold))
+    x_loads = (
+        '            tma_load_2d(base + T::kWBytes, &tm_x, krow, it.m0, '
+        '&full[st]);\n'
+        '            tma_load_2d(base + T::kWBytes + T::kXBytes, &tm_x,\n'
+        '                        half_k + krow, it.m0, &full[st]);\n')
+    weight_only = _cut(_cut(loads_only, x_loads),
+                       'T::kWBytes + 2 * T::kXBytes +',
+                       'T::kWBytes + 0 * T::kXBytes +')
+    return {'full': src,
+            'no_products': _cut(src, issue, 'if (kk < 0) ' + issue),
+            'no_abuild': no_abuild(src), 'no_order': no_order,
+            'all_order': _cut(src, pingpong,
+                              '  constexpr bool kPingPong = true;'),
+            'loads_only': loads_only, 'weight_only': weight_only}
+
+
 def phase_breakdown(torch, ctx):
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
@@ -1170,26 +1340,36 @@ def phase_breakdown(torch, ctx):
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     def one(item):
-        name, text = item
-        cu = build.BUILD_DIR / f'breakdown_{name}.cu'
+        (kernel, name), text = item
+        stem = f'breakdown_{kernel}_{name}'
+        cu = build.BUILD_DIR / f'{stem}.cu'
         cu.write_text(text)
-        so = build.BUILD_DIR / f'breakdown_{name}.so'
+        so = build.BUILD_DIR / f'{stem}.so'
         r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, '-I',
                             str(build.CSRC), '-shared', '-o', str(so),
                             str(cu)], capture_output=True, text=True,
                            timeout=900)
         if r.returncode:
-            raise RuntimeError(f'{name}: nvcc failed\n{r.stdout}{r.stderr}')
+            raise RuntimeError(f'{stem}: nvcc failed\n{r.stdout}{r.stderr}')
         lib = ctypes.CDLL(str(so))
+        prefix = ('lmd_paged_prefill' if kernel == 'k3' else
+                  ('lmd_w4a16', 'lmd_tmap'))
         for fn, argtypes in build._SIGNATURES.items():
-            if fn.startswith('lmd_paged_prefill'):
+            if fn.startswith(prefix):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-        return name, lib
-    sources = breakdown_variants(
-        (build.CSRC / 'paged_prefill_attention.cu').read_text())
+        return (kernel, name), lib
+    sources = {('k3', name): text for name, text in breakdown_variants(
+        (build.CSRC / 'paged_prefill_attention.cu').read_text()).items()}
+    sources.update({('k1', name): text for name, text in
+                    gemm_breakdown_variants(
+                        (build.CSRC / 'w4a16_gemm.cu').read_text()).items()})
     with ThreadPoolExecutor(len(sources)) as ex:
-        libs = dict(ex.map(one, sources.items()))
+        built = dict(ex.map(one, sources.items()))
+    libs = {name: lib for (kernel, name), lib in built.items()
+            if kernel == 'k3'}
+    gemm_libs = {name: lib for (kernel, name), lib in built.items()
+                 if kernel == 'k1'}
     timer = Timer(torch)
     gen = torch.Generator(device='cuda').manual_seed(1)
     chunk = ('full', 'no_products', 'loads_only', 'one_term')
@@ -1246,9 +1426,92 @@ def phase_breakdown(torch, ctx):
                 f'{k} {v:.4f} ms' if isinstance(v, float) else f'{k} {v}'
                 for k, v in row.items()) + f' [{ctx.get("card", "?")}]')
             del kc, vc
+        out.update(gemm_breakdown(torch, ctx, timer, gemm_libs))
     finally:
         build._lib = main_lib
     ctx['breakdown'] = out
+
+
+# kernel 1's breakdown cases: (label, projections, M)
+GEMM_BREAKDOWN_CASES = (
+    ('7B layer M=16', LLAMA2_7B_GEMMS, 16),
+    ('7B layer M=40 (verify)', LLAMA2_7B_GEMMS, ENGINE_SLOTS * (SPEC_K + 1)),
+    ('7B layer M=64 (bucket)', LLAMA2_7B_GEMMS, 64),
+    ('7B layer M=512 (bucket)', LLAMA2_7B_GEMMS, 512),
+    ('tp=2 rank layer M=40', None, ENGINE_SLOTS * (SPEC_K + 1)),
+    ('tp=2 rank layer M=512', None, 512),
+)
+
+
+# M at which the breakdown times every projection at every split count
+GEMM_SPLIT_SWEEP_ROWS = (16, ENGINE_SLOTS * (SPEC_K + 1), 64, 128)
+
+
+def gemm_breakdown(torch, ctx, timer, libs):
+    """Kernel 1's wgmma regime on the route gemm_route picks, one layer's
+    projections summed, with each variant of gemm_breakdown_variants
+    swapped in as the kernels' library: where its time goes.  Also each
+    projection on the other route (full source), and a sweep of the split
+    count per projection (the plan's cost model against the card)."""
+    from lmdeploy_tpu_torch.ops.cuda import build
+    from lmdeploy_tpu_torch.ops.cuda import quant_matmul as QM
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
+        gemm_route, sm_count, w4a16_gemm_route)
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    out = {}
+    for label, gemms, m in GEMM_BREAKDOWN_CASES:
+        gemms = gemms or TP2_GEMMS
+        row = {}
+        for name, k, n in gemms:
+            packed, scales, _ = _gemm_weights(torch, gen, k, n, 4)
+            x = torch.randn((m, k), generator=gen, device='cuda').to(
+                torch.bfloat16)
+            route = gemm_route(m, k, n, sm_count('cuda'))
+            other = 'tiles' if route == 'splitk' else 'splitk'
+            row.setdefault('routes', []).append(route)
+            for variant, lib in libs.items():
+                build._lib = lib
+                row[variant] = row.get(variant, 0.0) + timer.graph(
+                    lambda i: w4a16_gemm_route(x, packed, scales, i % 4,
+                                               route), 16)
+            build._lib = libs['full']
+            row['full, the other route'] = row.get(
+                'full, the other route', 0.0) + timer.graph(
+                lambda i: w4a16_gemm_route(x, packed, scales, i % 4, other),
+                16)
+            del packed, scales
+        out[f'kernel 1 {label}'] = row
+        log(f'  kernel 1 {label}: ' + ', '.join(
+            f'{k} {v:.4f} ms' if isinstance(v, float) else f'{k} {v}'
+            for k, v in row.items()) + f' [{ctx.get("card", "?")}]')
+    # the split plan's cost model against the card: each projection at
+    # every split count (1 is route tiles)
+    build._lib = libs['full']
+    plan = QM.splitk_splits
+    try:
+        for m in GEMM_SPLIT_SWEEP_ROWS:
+            for name, k, n in LLAMA2_7B_GEMMS:
+                packed, scales, _ = _gemm_weights(torch, gen, k, n, 4)
+                x = torch.randn((m, k), generator=gen, device='cuda').to(
+                    torch.bfloat16)
+                times = {}
+                for s in (1, 2, 3, 4, 6, 8):
+                    if s > k // 256:
+                        continue
+                    # a forced splitk launches the plan's split count
+                    QM.splitk_splits = lambda *_, s=s: s
+                    times[s] = timer.graph(lambda i: QM.w4a16_gemm_route(
+                        x, packed, scales, i % 4,
+                        'splitk' if s > 1 else 'tiles'), 16)
+                QM.splitk_splits = plan
+                out[f'kernel 1 split sweep {name} M={m}'] = times
+                log(f'  kernel 1 split sweep {name} M={m} (plan S='
+                    f'{plan(m, k, n, sm_count("cuda"))}): ' + ', '.join(
+                        f'S={s} {t:.4f} ms' for s, t in times.items()))
+                del packed, scales
+    finally:
+        QM.splitk_splits = plan
+    return out
 
 
 def phase_kernels(torch, ctx):
@@ -1711,7 +1974,8 @@ def phase_engine(torch, ctx):
     from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
     from lmdeploy_tpu_torch.models.llama import random_packed_params
     from lmdeploy_tpu_torch.ops import cuda as K
-    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import DECODE_MAX_M, WGMMA
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
+        DECODE_MAX_M, WGMMA, gemm_route, sm_count)
     cfg = llama2_7b()
     nl = cfg.num_layer
     t0 = time.monotonic()
@@ -1772,14 +2036,40 @@ def phase_engine(torch, ctx):
         return K.route_counts(), passes_of(eng)
 
     def check_routes(rmarks, want, label):
-        """Kernel 3's launches by route per pass of each kind equal
-        ``want``; returns them (nonzero ones only)."""
+        """Kernels 1 and 3's launches by route per pass of each kind
+        equal ``want``; returns them (nonzero ones only)."""
         solved = launches_per_kind(rmarks)
         check_route({}, solved, want, f'{label} routes')
         per = {kind: {n: v for n, v in d.items() if v}
                for kind, d in solved[0].items()}
-        log(f'    kernel 3 routes per pass: {per}')
+        log(f'    kernel 1 and 3 routes per pass: {per}')
         return per
+
+    def gemm_routes(rows):
+        """{GEMM route counter: launches} of one pass of ``rows`` rows
+        through the layers' five projections (none at M <= DECODE_MAX_M:
+        the decode kernel has no route counter)."""
+        want = {}
+        for _, k, n in (LLAMA2_7B_GEMMS if rows > DECODE_MAX_M else ()):
+            key = f'{WGMMA}:{gemm_route(rows, k, n, sm_count("cuda"))}'
+            want[key] = want.get(key, 0) + nl
+        return want
+
+    def record_routes(per_kind, kind, key, owner=None):
+        """Note the GEMM's route launches of one pass of ``kind`` on the
+        kernels line under each route's ``route_launches``.  The entry of
+        route ``owner`` (a route this run is the main-path run of: tiles
+        the 512-row bucket's, splitk the verify's) also takes this run's
+        launches (counters from 0) and its launches per pass."""
+        total = K.route_counts()
+        for name, v in per_kind.get(kind, {}).items():
+            if name.startswith(WGMMA):
+                entry = ctx['kernels'].setdefault(name, {})
+                entry.setdefault('route_launches', {})[key] = v
+                if name == f'{WGMMA}:{owner}':
+                    entry['launches'] = total[name]
+                    entry['launches_per_verify_round' if kind == 'spec_rounds'
+                          else 'launches_per_prefill_pass'] = v
 
     def record(name, launches, per_step, per_pass):
         ctx['kernels'].setdefault(name, {}).update(
@@ -1875,12 +2165,20 @@ def phase_engine(torch, ctx):
                          WGMMA: 5 * nl if rows > DECODE_MAX_M else 0}},
                     label, need=('decode_steps', 'prefill_passes'))
         per_step, per_pass = per['decode_steps'], per['prefill_passes']
-        # chunks take route wgmma at every width
+        # chunks take route wgmma at every width; the bucket's GEMMs the
+        # route gemm_route picks (splitk at 64 rows, tiles at 512)
         route = f'{prefill}:wgmma'
-        routes = check_routes(rmarks, {'prefill_passes': {route: nl}}, label)
+        routes = check_routes(
+            rmarks, {'prefill_passes': {route: nl, **gemm_routes(rows)}},
+            label)
         ctx['kernels'].setdefault(prefill, {}).setdefault(
             'route_launches', {})[f'per prefill pass, {rows}-row bucket'] = \
-            routes['prefill_passes']
+            {n: v for n, v in routes['prefill_passes'].items()
+             if n.startswith(prefill)}
+        record_routes(routes, 'prefill_passes',
+                      f'per prefill pass, {rows}-row bucket',
+                      'tiles' if prompt is long_prompt and width == 'bf16'
+                      and not env else None)
         tps = (out[0]['n'] - 1) / (out[0]['t_end'] - out[0]['t_first'])
         log(f'  {label}, requests of {lens} new tokens: {decode} '
             f'{counts[decode][0]} launches, {per_step[decode]} per decode '
@@ -1930,12 +2228,18 @@ def phase_engine(torch, ctx):
         per, kinds, windows = solved
         check_route(counts, solved, want, f'{width} spec',
                     need=('spec_rounds',))
-        # every verify round takes route split
+        # every verify round takes route split, and its M = 40 GEMMs route
+        # splitk
         routes = check_routes(
-            rmarks, {'spec_rounds': {f'{prefill}:split': nl}},
-            f'{width} spec')
+            rmarks, {'spec_rounds': {f'{prefill}:split': nl, **gemm_routes(
+                ENGINE_SLOTS * (SPEC_K + 1))}}, f'{width} spec')
         ctx['kernels'].setdefault(prefill, {}).setdefault(
-            'route_launches', {})['per verify round'] = routes['spec_rounds']
+            'route_launches', {})['per verify round'] = {
+                n: v for n, v in routes['spec_rounds'].items()
+                if n.startswith(prefill)}
+        if width == 'bf16':
+            record_routes(routes, 'spec_rounds', 'per verify round',
+                          'splitk')
         log(f'  {width} spec bs1 requests of {lens} new tokens: per verify '
             f'round {({n: v for n, v in per["spec_rounds"].items() if v})}'
             f'; windows {windows} of {kinds}; per request {stats}')
@@ -4639,10 +4943,11 @@ def main(argv=None) -> int:
                     help=f'comma-separated subset of {PHASES} and of '
                          f'{OPTIONAL_PHASES} (not run by default)')
     ap.add_argument('--parent', metavar='TREE',
-                    help='kernels phase: time kernel 3 of the checkout at '
-                         'TREE (through its own wrapper, built by its own '
-                         "build.py) beside this tree's; by default the "
-                         "parent column is this tree's route mma")
+                    help='kernels phase: time kernels 1 and 3 of the '
+                         'checkout at TREE (through its own wrappers, built '
+                         "by its own build.py) beside this tree's; without "
+                         "it kernel 3's parent column is this tree's route "
+                         "mma and kernel 1 has none")
     ap.add_argument('--profile', action='store_true',
                     help='engine phase: also profile one bs1 request on '
                          'the bf16 and on the int8 pool')

@@ -13,7 +13,7 @@
 // nibble; scales s[g, n] (bf16), group size `group` along K.  x is bf16.
 //
 // Two regimes; the wrapper (ops/cuda/quant_matmul.py) picks one by M at the
-// crossover measured on the H100:
+// crossover measured on the H100 (DECODE_MAX_M):
 //  * decode (small M): w4a16_decode.  Bound by the packed weight bytes
 //    (K*N/2: Llama-2-7B wqkv 25.2 MB, ~7.5 us at 3.35 TB/s).  Tensor cores
 //    on mma.sync.m16n8k16 bf16 -> f32 with A and B swapped: the weight is
@@ -46,46 +46,72 @@
 //    w2's 22 splits would need the non-portable size 16 or a new split of
 //    K, while the ticket pattern keeps the split and tile as they were.
 //    y is written, not accumulated, so no zero-fill launch precedes it.
-//  * prefill (large M): w4a16_wgmma.  Bound by operations (2*M*K*N; one
-//    Llama-2-7B layer at M = 512 is 207 GFLOP, 0.21 ms at 989 TF/s), and
-//    behind that by the L2 -> SM traffic of the x tiles, which every block
-//    along N reads again.  Design:
+//  * M > 8: w4a16_wgmma, on two routes that the wrapper picks from shapes
+//    alone (ops/cuda/quant_matmul.py::gemm_route).  Bound by the weight's
+//    bytes at the verify's M = 40 and the 64-row bucket (one Llama-2-7B
+//    layer: 101 MB, 0.030 ms at 3.35 TB/s) and by operations from M ~ 80
+//    (2*M*K*N; M = 512: 207 GFLOP, 0.21 ms at 989 TF/s).  One kernel body:
 //    - wgmma.mma_async m64nBMk16 (the only path to the tensor cores' full
 //      rate) with A and B swapped, as in the decode regime: A is 64 output
 //      columns x 16 k of the weight, built IN REGISTERS from the packed
 //      bytes by the same mantissa trick (wgmma's register-A form), so the
 //      weight never goes through shared memory as bf16; B is a [BM rows of
 //      x] x [16 k] tile in shared memory, K-major as x is, with 128-byte
-//      swizzle.  M rows of x are wgmma's N (64 or 128); TMA zero-fills the
-//      ragged M edge and the ragged N edge of the weight.
+//      swizzle.  BM is wgmma's N: M rounded up to 8 up to 64 (16 to 64),
+//      else 128, so the verify's 40 rows take n40 and not a 64-row tile;
+//      TMA zero-fills the ragged M edge and the ragged N edge of the
+//      weight without reading them.
 //    - The lane -> column map of the decode kernel, for one m64 tile: a
 //      warp owns 16 output columns and lane (gid, t) holds A rows gid and
 //      gid + 8 = columns 2*gid and 2*gid + 1, so it reads one 16-bit pair
 //      per packed row and its accumulator rows are two adjacent output
 //      columns: scales come as one bf16 pair, results leave as float2.
-//    - Half-split K: a pipeline stage holds 64 packed rows of the block's
-//      columns and the two x tiles they multiply (low nibbles: x columns
-//      k'.., high nibbles: K/2 + k'..).  A group (128 packed rows) is two
-//      stages; its low and high halves are groups gb and G/2 + gb.
-//    - Exact per-group scaling, as in the TPU kernel: each half's 8 k16
+//    - Half-split K: a pipeline stage holds 64 packed rows of the tile's
+//      128 columns and the two x tiles they multiply (low nibbles: x
+//      columns k'.., high nibbles: K/2 + k'..).  A half group (128 packed
+//      rows) is two stages; its low and high halves are groups gb and
+//      G/2 + gb.
+//    - Exact per-group scaling, as in the TPU kernel: each group's 8 k16
 //      steps run into one f32 partial that the first step resets (scale-d
 //      0), and after wgmma.wait_group the partial is folded into the
 //      running sum with s[g, n] (n is the accumulator's row, so a thread
 //      reads one scale pair per group).  Nibbles and x are exact in bf16
-//      and their products exact in f32, as in the decode kernel.  No split
-//      over K: deterministic.
-//    - Pipeline: a ring of 5-6 stages in dynamic shared memory with full /
-//      empty mbarriers.  One producer thread (its warpgroup gives registers
-//      away with setmaxnreg) issues three TMA loads per stage; one or two
-//      consumer warpgroups, each on its own 64 columns of the block, build
-//      A fragments from shared memory and run wgmma.  While one consumer
-//      waits on its partial and folds it, the other's wgmmas keep the
-//      tensor cores busy.
-//    - Tiles: 128 columns x 128 rows or 128 x 64 (two consumers), 64 x 64
-//      (one consumer), chosen per call from N and M by the number of waves
-//      over the card's SMs (see pick_tile).  Tensor maps are encoded on the
-//      host per call (cuTensorMapEncodeTiled through the runtime's driver
-//      entry point; its cost is measured by lmd_tmap_encode_ns).
+//      and their products exact in f32, as in the decode kernel.
+//    - Persistent grid: min(items, SMs) blocks of 384 threads, one an SM,
+//      each walking work items b, b + grid, ... of (column tile, row tile,
+//      split) in an order that keeps a column tile's weight and a row
+//      tile's x in L2 for the blocks in flight.  One producer thread keeps
+//      the ring of stages (5 at BM = 128 up to 12 at BM <= 32, ~210 KB;
+//      a stage also brings its two groups' scale rows)
+//      full across item boundaries, so an item's epilogue overlaps the
+//      next one's loads and no wave of blocks waits on a tail.
+//    - Ping-pong at 128-row tiles: the two consumer warpgroups (64 columns
+//      each) issue their 8 products of a group in turn, ordered by two
+//      named barriers, so that one folds its partial while the other's
+//      products keep the tensor cores busy.  At <= 64 rows the products
+//      are short and the ordering measured slower, so they issue freely.  A second partial in flight (wait_group 1) would
+//      overlap a warpgroup's own fold too, but ptxas then serializes every
+//      wgmma (C7514: the fold reads accumulator registers inside the
+//      pipeline stage), which measured slower; so did building the next
+//      half's A fragments while the products run (64 more registers).
+//    - Route "splitk" (S > 1): where the output tiles fill at most half
+//      the SMs, the half groups are cut into the most splits S <= 8 that
+//      keep the items in one wave (quant_matmul.py::splitk_splits), so wo
+//      and w2 at M = 40 run over 128 items and not 32 tiles.  Each item writes its f32 partial
+//      tile to a workspace [S, M, N]; the last of a tile's S items to
+//      arrive, found by a ticket per tile that it resets for the next
+//      launch (the decode regime's pattern), sums the S partials into y
+//      in split order, each thread over its own outputs, every split's
+//      values of a few outputs in flight at once.  Chosen over a
+//      cluster reduction through distributed shared memory: the plan's S
+//      (up to 8) would need clusters of S blocks co-scheduled, which a
+//      persistent grid of one block per SM cannot promise for every S,
+//      while the ticket keeps the persistent walk as it is.  A call gives
+//      the same bits on every run.  Route "tiles" (S = 1): each item
+//      writes y directly.
+//    Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled
+//    through the runtime's driver entry point; its cost is measured by
+//    lmd_tmap_encode_ns).
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -120,28 +146,147 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t v) {
 }
 
 // ---------------------------------------------------------------------------
-// prefill regime: wgmma with the weight as the register operand
+// M > 8 regime: wgmma with the weight as the register operand
 // ---------------------------------------------------------------------------
 
-constexpr int kGroup = 128;     // the prefill regime's quantisation group
+constexpr int kGroup = 128;     // the wgmma regime's quantisation group
 constexpr int kChunk = 64;      // packed rows per pipeline stage
-constexpr int kSmemBudget = 200 * 1024;
+constexpr int kBN = 128;        // output columns of a tile: 2 x 64
+constexpr int kMaxStages = 12;
+constexpr int kMaxSplits = 8;   // route splitk's splits of K at most
+constexpr int kSmemBudget = 210 * 1024;
+constexpr int kThreads = 384;   // 2 consumer warpgroups + 1 producer
+// named barriers (0 is __syncthreads): the consumers' own, and the two
+// that order their product issues (ping-pong)
+constexpr int kBarConsumers = 1;
+constexpr int kBarTurn0 = 2;
+constexpr int kBarTurn1 = 3;
 
-template <int BM, int NWG>
+// A tile of BM rows of x (wgmma's N: 16, 32, 48, 64 or 128) by kBN
+// output columns; a stage holds 64 packed rows of the tile's columns and
+// the two x tiles they multiply (low nibbles: x columns k'..., high
+// nibbles: K/2 + k'...).
+template <int BM>
 struct Tile {
-  static constexpr int kBN = 64 * NWG;              // output columns
   static constexpr int kWBytes = kChunk * kBN;      // packed weight tile
   static constexpr int kXBytes = BM * kChunk * 2;   // one half's x tile
-  static constexpr int kStage = kWBytes + 2 * kXBytes;
-  static constexpr int kStages =
-      kSmemBudget / kStage < 6 ? kSmemBudget / kStage : 6;
-  static constexpr int kThreads = 128 * (NWG + 1);  // + producer warpgroup
+  static constexpr int kSBytes = 2 * kBN * 2;       // the group pair's scales
+  // weight, two x tiles, scales (padded so stages stay 1024-aligned)
+  static constexpr int kStage = kWBytes + 2 * kXBytes + 1024;
+  static constexpr int kStages = kSmemBudget / kStage < kMaxStages
+                                     ? kSmemBudget / kStage
+                                     : kMaxStages;
   static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
 };
 
 // D (64 x N, f32, in registers) += A (64 x 16 bf16, four registers a
 // thread, the m16n8k16 A layout per warp) x B (16 x N, shared memory,
 // descriptor desc); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n48(float (&d)[24],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n24(float (&d)[12],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n40(float (&d)[20],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n56(float (&d)[28],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_n64(float (&d)[32],
                                           const uint32_t (&a)[4],
                                           uint64_t desc, int scale_d) {
@@ -197,15 +342,11 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64],
 }
 
 
-// Byte offset of (packed row r, byte column c) in a TMA-swizzled weight
-// tile: 128-byte rows swizzle 16-byte chunks with r % 8 (SWIZZLE_128B),
-// 64-byte rows with (r / 2) % 4 (SWIZZLE_64B).
-template <int BN>
+// Byte offset of (packed row r, byte column c) in the TMA-swizzled
+// weight tile: 128-byte rows swizzle 16-byte chunks with r % 8
+// (SWIZZLE_128B).
 __device__ __forceinline__ int w_off(int r, int c) {
-  if constexpr (BN == 128)
-    return r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
-  else
-    return r * 64 + ((((c >> 4) ^ ((r >> 1) & 3)) << 4) | (c & 15));
+  return r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
 }
 
 template <int BM>
@@ -214,25 +355,90 @@ __device__ __forceinline__ void wgmma_bm(float (&d)[BM / 2],
                                          uint64_t desc, int scale_d) {
   if constexpr (BM == 128)
     wgmma_n128(d, a, desc, scale_d);
-  else
+  else if constexpr (BM == 64)
     wgmma_n64(d, a, desc, scale_d);
+  else if constexpr (BM == 56)
+    wgmma_n56(d, a, desc, scale_d);
+  else if constexpr (BM == 48)
+    wgmma_n48(d, a, desc, scale_d);
+  else if constexpr (BM == 40)
+    wgmma_n40(d, a, desc, scale_d);
+  else if constexpr (BM == 32)
+    wgmma_n32(d, a, desc, scale_d);
+  else if constexpr (BM == 24)
+    wgmma_n24(d, a, desc, scale_d);
+  else
+    wgmma_n16(d, a, desc, scale_d);
 }
 
-// Grid (ceil(N / BN), ceil(M / BM)); NWG consumer warpgroups, then one
-// producer warpgroup.  tm_x: x [M, K] bf16, box {64, BM}, SWIZZLE_128B;
-// tm_w: the layer's packed [K/2, N] uint8, box {BN, 64}, swizzled to the
-// row width.
-template <int BM, int NWG>
-__global__ void __launch_bounds__(Tile<BM, NWG>::kThreads, 1)
+// Four 8x8 b16 matrices from shared memory, transposed: lane (g, t) gets
+// elements (rows 2t, 2t + 1; column g) of each, row 2t in the low half.
+// Lane L gives the address of row L % 8 of matrix L / 8.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& d0,
+                                              uint32_t& d1, uint32_t& d2,
+                                              uint32_t& d3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d0), "=r"(d1), "=r"(d2), "=r"(d3) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* m) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(m)) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Work item i of a grid over (column tile, row tile, split): split i % S
+// of row tile (i / S) % tiles_m of column tile i / (S tiles_m), so the
+// blocks in flight share the weight's column tiles and x's row tiles in
+// L2.  Split s covers half groups [s G/2 / S, (s + 1) G/2 / S).
+struct Item {
+  int n0, m0, tile, split, gb0, gb1;
+  __device__ Item(int i, int splits, int tiles_m, int bm, int g_half) {
+    split = i % splits;
+    const int r = i / splits;
+    const int tm = r % tiles_m;
+    const int tn = r / tiles_m;
+    n0 = tn * kBN;
+    m0 = tm * bm;
+    tile = r;
+    gb0 = split * g_half / splits;
+    gb1 = (split + 1) * g_half / splits;
+  }
+};
+
+// Persistent grid: block b takes items b, b + gridDim.x, ... of
+// ceil(N / 128) x ceil(M / BM) x S.  Threads 0-255: two consumer
+// warpgroups, each on 64 of the tile's columns; thread 256: the producer.
+// tm_x: x [M, K] bf16, box {64, BM}, SWIZZLE_128B; tm_w: the layer's
+// packed [K/2, N] uint8, box {128, 64}, SWIZZLE_128B; tm_s: the layer's
+// scales [G, N] bf16, box {128, 1}: the first stage of a half group also
+// brings the scale rows of its two groups, so no consumer waits on a
+// global load.  With S > 1 each item writes its f32 partial tile to
+// ws[split] and the last of a tile's S items to arrive sums ws[0..S-1]
+// into y in split order.
+template <int BM>
+__global__ void __launch_bounds__(kThreads, 1)
 w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
             const __grid_constant__ CUtensorMap tm_w,
-            const __nv_bfloat16* __restrict__ s, float* __restrict__ y,
-            int M, int K, int N) {
-  using T = Tile<BM, NWG>;
-  constexpr int kBN = T::kBN;
+            const __grid_constant__ CUtensorMap tm_s, float* __restrict__ y,
+            float* __restrict__ ws, int* __restrict__ counter, int M, int K,
+            int N, int splits) {
+  using T = Tile<BM>;
   constexpr int kS = T::kStages;
   constexpr int kD = BM / 2;                // accumulator floats per thread
+  // the consumers issue in turn at 128-row tiles, where the products are
+  // long (measured: faster there, slower at <= 64 rows)
+  constexpr bool kPingPong = BM > 64;
   extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_last;
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS * T::kStage);
@@ -240,152 +446,243 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
 
   const int half_k = K >> 1;
   const int g_half = half_k / kGroup;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
+  const int tiles_m = (M + BM - 1) / BM;
+  const int items = (N + kBN - 1) / kBN * tiles_m * splits;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
 
   if (tid == 0) {
     for (int i = 0; i < kS; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 4 * NWG);       // lane 0 of each consumer warp
+      mbar_init(&empty[i], 8);             // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == NWG) {
-    // ---- producer: one thread keeps the ring full ----
-    if constexpr (NWG == 2)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == NWG * 128) {
-      for (int i = 0; i < 2 * g_half; ++i) {
-        const int st = i % kS;
-        if (i >= kS) mbar_wait(&empty[st], ((i / kS) - 1) & 1);
-        mbar_expect_tx(&full[st], T::kStage);
-        const int krow = (i >> 1) * kGroup + (i & 1) * kChunk;
-        uint8_t* base = smem + st * T::kStage;
-        tma_load_2d(base, &tm_w, n0, krow, &full[st]);
-        tma_load_2d(base + T::kWBytes, &tm_x, krow, m0, &full[st]);
-        tma_load_2d(base + T::kWBytes + T::kXBytes, &tm_x, half_k + krow, m0,
-                    &full[st]);
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full across items ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      prefetch_tmap(&tm_w);
+      prefetch_tmap(&tm_x);
+      prefetch_tmap(&tm_s);
+      int i = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const Item it(item, splits, tiles_m, BM, g_half);
+        for (int gb = it.gb0; gb < it.gb1; ++gb) {
+          for (int c = 0; c < 2; ++c, ++i) {
+            const int st = i % kS;
+            if (i >= kS) mbar_wait(&empty[st], ((i / kS) - 1) & 1);
+            mbar_expect_tx(&full[st], T::kWBytes + 2 * T::kXBytes +
+                                          (c == 0 ? T::kSBytes : 0));
+            const int krow = gb * kGroup + c * kChunk;
+            uint8_t* base = smem + st * T::kStage;
+            tma_load_2d(base, &tm_w, it.n0, krow, &full[st]);
+            tma_load_2d(base + T::kWBytes, &tm_x, krow, it.m0, &full[st]);
+            tma_load_2d(base + T::kWBytes + T::kXBytes, &tm_x,
+                        half_k + krow, it.m0, &full[st]);
+            if (c == 0) {
+              uint8_t* sb = base + T::kWBytes + 2 * T::kXBytes;
+              tma_load_2d(sb, &tm_s, it.n0, gb, &full[st]);
+              tma_load_2d(sb + kBN * 2, &tm_s, it.n0, g_half + gb, &full[st]);
+            }
+          }
+        }
       }
     }
-  } else {
-    // ---- consumer warpgroup wg: output columns n0 + 64 wg .. + 63 ----
-    if constexpr (NWG == 2)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int lane = tid & 31;
-    const int warp = (tid >> 5) & 3;
-    const int gid = lane >> 2;
-    const int t4 = lane & 3;
-    const int col = wg * 64 + warp * 16 + 2 * gid;   // byte column in tile
-    const int n = n0 + col;                          // columns n, n + 1
-    const bool n_ok = n < N;                         // N % 16 == 0
-    // this lane's packed rows 2t4, 2t4+1, 2t4+8, 2t4+9 of each k16 step;
-    // 16 rows further keep the same swizzle
-    const int off0 = w_off<kBN>(2 * t4, col);
-    const int off1 = w_off<kBN>(2 * t4 + 1, col);
-    const int off2 = w_off<kBN>(2 * t4 + 8, col);
-    const int off3 = w_off<kBN>(2 * t4 + 9, col);
+    return;
+  }
 
+  // ---- consumer warpgroup wg: output columns n0 + 64 wg .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int gid = lane >> 2;
+  const int t4 = lane & 3;
+  const int col = wg * 64 + warp * 16 + 2 * gid;   // byte column in tile
+  // The warp's 16 columns are one 16-byte chunk of each packed row, read
+  // as 8 b16 columns by ldmatrix.trans: lane L addresses row L % 8 of
+  // matrix L / 8, matrices (rows 0-7, 8-15) of k16 steps 2p and 2p + 1,
+  // so lane (gid, t4) gets rows 2t4, 2t4+1 and 2t4+8, 2t4+9 of its
+  // columns 2 gid, 2 gid + 1 in one register each; 32 rows further (the
+  // next pair of steps) keep the same swizzle.
+  const int lrow = 16 * (lane >> 4) + 8 * ((lane >> 3) & 1) + (lane & 7);
+  const uint32_t w_lane = w_off(lrow, wg * 64 + warp * 16);
+  const size_t mn = (size_t)M * N;
+
+  // Wait for the two stages of the half group at ring index i and read
+  // this lane's packed bytes of them, columns (2 gid, 2 gid + 1) of rows
+  // (2t4, 2t4+1) and (2t4+8, 2t4+9) of each k16 step as [row a | row b <<
+  // 16], and its two groups' scale pairs of columns n, n + 1 (zero past
+  // N).
+  auto load = [&](int i, uint32_t (&v01)[2][4], uint32_t (&v23)[2][4],
+                  uint32_t (&sc)[2]) {
+    mbar_wait(&full[i % kS], (i / kS) & 1);
+    mbar_wait(&full[(i + 1) % kS], ((i + 1) / kS) & 1);
+    const uint8_t* sb = smem + (i % kS) * T::kStage + T::kWBytes +
+                        2 * T::kXBytes + col * 2;
+    sc[0] = *reinterpret_cast<const uint32_t*>(sb);
+    sc[1] = *reinterpret_cast<const uint32_t*>(sb + kBN * 2);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint32_t wt = smem_u32(smem + ((i + c) % kS) * T::kStage) + w_lane;
+#pragma unroll
+      for (int p = 0; p < 2; ++p)         // k16 steps 2p and 2p + 1
+        ldsm_x4_trans(wt + p * 32 * kBN, v01[c][2 * p], v23[c][2 * p],
+                      v01[c][2 * p + 1], v23[c][2 * p + 1]);
+    }
+  };
+  // Issue the 8 products of nibble half h (0: low, group gb; 1: high,
+  // group G/2 + gb) of the half group at ring index i into the partial d
+  // (the first one overwrites it), as one commit group; stage 1's A
+  // fragments are built while stage 0's products run.
+  auto issue = [&](float (&d)[kD], const uint32_t (&v01)[2][4],
+                   const uint32_t (&v23)[2][4], int i, int h) {
+#pragma unroll
+    for (int j = 0; j < kD; ++j) pin(d[j]);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t p = v01[c][kk] >> (4 * h);
+        const uint32_t q = v23[c][kk] >> (4 * h);
+        a[kk][0] = nib2_bf16(p);          // column n,   k 2t4, 2t4+1
+        a[kk][1] = nib2_bf16(p >> 8);     // column n+1
+        a[kk][2] = nib2_bf16(q);          // column n,   k 2t4+8, 2t4+9
+        a[kk][3] = nib2_bf16(q >> 8);     // column n+1
+      }
+      const uint32_t xaddr = smem_u32(smem + ((i + c) % kS) * T::kStage +
+                                      T::kWBytes + h * T::kXBytes);
+      wgmma_fence();            // orders the A registers' writes
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bm<BM>(d, a[kk], kmajor_sw128_desc(xaddr + 32 * kk),
+                     (c | kk) != 0);
+    }
+    wgmma_commit();
+  };
+  // Fold a finished group partial into the sum with its scale pair:
+  // accumulator rows gid / gid + 8 are columns n / n + 1.
+  auto fold = [&](float (&acc)[kD], float (&d)[kD], uint32_t sc) {
+#pragma unroll
+    for (int j = 0; j < kD; ++j) pin(d[j]);
+    const float s0 = __uint_as_float(sc << 16);
+    const float s1 = __uint_as_float(sc & 0xFFFF0000u);
+#pragma unroll
+    for (int j = 0; j < kD / 4; ++j) {  // fold
+      acc[4 * j + 0] += d[4 * j + 0] * s0;
+      acc[4 * j + 1] += d[4 * j + 1] * s0;
+      acc[4 * j + 2] += d[4 * j + 2] * s1;
+      acc[4 * j + 3] += d[4 * j + 3] * s1;
+    }
+  };
+  int i = 0;        // stages consumed
+  int issues = 0;   // product groups this warpgroup issued
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item it(item, splits, tiles_m, BM, g_half);
+    const int n = it.n0 + col;                       // columns n, n + 1
+    const bool n_ok = n < N;                         // N % 16 == 0
     float acc[kD], part[kD];
 #pragma unroll
-    for (int i = 0; i < kD; ++i) acc[i] = 0.f;
-
-    for (int gb = 0; gb < g_half; ++gb) {
-      // the group's two scale pairs, read while the wgmmas run
-      uint32_t sc[2] = {0u, 0u};
-      if (n_ok) {
-        sc[0] = *reinterpret_cast<const uint32_t*>(s + (size_t)gb * N + n);
-        sc[1] = *reinterpret_cast<const uint32_t*>(
-            s + (size_t)(g_half + gb) * N + n);
-      }
-      const int i0 = 2 * gb;
-      mbar_wait(&full[i0 % kS], (i0 / kS) & 1);
-      mbar_wait(&full[(i0 + 1) % kS], ((i0 + 1) / kS) & 1);
-
-      // the packed bytes of both stages: rows (2t4, 2t4+1) and
-      // (2t4+8, 2t4+9) of each k16 step, as [row a | row b << 16]
-      uint32_t v01[2][4], v23[2][4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const uint8_t* wt = smem + ((i0 + c) % kS) * T::kStage;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int r = kk * 16 * kBN;
-          const uint32_t b0 = *reinterpret_cast<const uint16_t*>(wt + off0 + r);
-          const uint32_t b1 = *reinterpret_cast<const uint16_t*>(wt + off1 + r);
-          const uint32_t b2 = *reinterpret_cast<const uint16_t*>(wt + off2 + r);
-          const uint32_t b3 = *reinterpret_cast<const uint16_t*>(wt + off3 + r);
-          v01[c][kk] = b0 | (b1 << 16);
-          v23[c][kk] = b2 | (b3 << 16);
-        }
-      }
-
+    for (int j = 0; j < kD; ++j) acc[j] = 0.f;
+    for (int gb = it.gb0; gb < it.gb1; ++gb, i += 2) {
+      uint32_t v01[2][4], v23[2][4], sc[2];
+      load(i, v01, v23, sc);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {       // low nibbles, then high
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const uint32_t xaddr = smem_u32(smem + ((i0 + c) % kS) * T::kStage +
-                                          T::kWBytes + h * T::kXBytes);
-          uint32_t a[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint32_t p = v01[c][kk] >> (4 * h);
-            const uint32_t q = v23[c][kk] >> (4 * h);
-            a[kk][0] = nib2_bf16(p);        // column n,   k 2t4, 2t4+1
-            a[kk][1] = nib2_bf16(p >> 8);   // column n+1
-            a[kk][2] = nib2_bf16(q);        // column n,   k 2t4+8, 2t4+9
-            a[kk][3] = nib2_bf16(q >> 8);   // column n+1
-          }
-#pragma unroll
-          for (int i = 0; i < kD; ++i) pin(part[i]);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_bm<BM>(part, a[kk], kmajor_sw128_desc(xaddr + 32 * kk),
-                         (c | kk) != 0);
-        }
-        wgmma_commit();
+        // ping-pong: the warpgroups issue their products in turn, so one
+        // folds while the other's products keep the tensor cores busy
+        if (kPingPong && (wg == 1 || issues > 0))
+          named_sync(wg == 0 ? kBarTurn0 : kBarTurn1);
+        issue(part, v01, v23, i, h);
+        if (kPingPong) named_arrive(wg == 0 ? kBarTurn1 : kBarTurn0);
+        ++issues;
         wgmma_wait0();
-#pragma unroll
-        for (int i = 0; i < kD; ++i) pin(part[i]);
-        // fold: accumulator rows gid / gid + 8 are columns n / n + 1
-        const float s0 = __uint_as_float(sc[h] << 16);
-        const float s1 = __uint_as_float(sc[h] & 0xFFFF0000u);
-#pragma unroll
-        for (int j = 0; j < kD / 4; ++j) {
-          acc[4 * j + 0] += part[4 * j + 0] * s0;
-          acc[4 * j + 1] += part[4 * j + 1] * s0;
-          acc[4 * j + 2] += part[4 * j + 2] * s1;
-          acc[4 * j + 3] += part[4 * j + 3] * s1;
-        }
+        fold(acc, part, sc[h]);
       }
       if (lane == 0) {
-        mbar_arrive(&empty[i0 % kS]);
-        mbar_arrive(&empty[(i0 + 1) % kS]);
+        mbar_arrive(&empty[i % kS]);
+        mbar_arrive(&empty[(i + 1) % kS]);
       }
     }
 
     // accumulator (row gid | gid + 8, column 8j + 2t4 | + 1) is
-    // y[m0 + 8j + 2t4 (+1), n (+1)]
+    // y[m0 + 8j + 2t4 (+1), n (+1)]; with S > 1 it is this split's
+    // partial, written to ws[split]
+    float* dst = splits > 1 ? ws + it.split * mn : y;
     if (n_ok) {
 #pragma unroll
       for (int j = 0; j < kD / 4; ++j) {
-        const int m = m0 + 8 * j + 2 * t4;
+        const int m = it.m0 + 8 * j + 2 * t4;
         if (m < M)
-          *reinterpret_cast<float2*>(y + (size_t)m * N + n) =
+          *reinterpret_cast<float2*>(dst + (size_t)m * N + n) =
               make_float2(acc[4 * j + 0], acc[4 * j + 2]);
         if (m + 1 < M)
-          *reinterpret_cast<float2*>(y + (size_t)(m + 1) * N + n) =
+          *reinterpret_cast<float2*>(dst + (size_t)(m + 1) * N + n) =
               make_float2(acc[4 * j + 1], acc[4 * j + 3]);
       }
     }
+    if (splits == 1) continue;
+
+    // the last of the tile's S items to arrive sums the S partials in
+    // split order (a ticket per tile, left at zero for the next launch).
+    // The ticket is taken after the consumers' partials are visible
+    // card-wide: thread 0's fence after the barrier orders their stores
+    // before its atomic (the decode regime's pattern).
+    named_sync(kBarConsumers);
+    if (tid == 0) {
+      __threadfence();
+      const bool last = atomicAdd(counter + it.tile, 1) == splits - 1;
+      if (last) {
+        counter[it.tile] = 0;
+        __threadfence();
+      }
+      s_last = last;
+    }
+    named_sync(kBarConsumers);
+    if (!s_last || !n_ok) continue;
+    // four (two at 128-row tiles) of this thread's outputs at a time,
+    // every split's values of them in flight at once, summed in split
+    // order; rows past M read row 0 and are not stored
+    constexpr int kB = BM > 64 ? 2 : 4;
+#pragma unroll
+    for (int j0 = 0; j0 < kD / 2; j0 += kB) {
+      float2 v[kMaxSplits][kB];
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp) {
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          const int jj = j0 + j;
+          const int m = it.m0 + 8 * (jj >> 1) + 2 * t4 + (jj & 1);
+          if (sp < splits && jj < kD / 2)
+            v[sp][j] = __ldcg(reinterpret_cast<const float2*>(
+                ws + sp * mn + (size_t)(m < M ? m : 0) * N + n));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        const int jj = j0 + j;
+        const int m = it.m0 + 8 * (jj >> 1) + 2 * t4 + (jj & 1);
+        if (jj >= kD / 2 || m >= M) continue;
+        float2 sum = v[0][j];
+#pragma unroll
+        for (int sp = 1; sp < kMaxSplits; ++sp) {
+          if (sp < splits) {
+            sum.x += v[sp][j].x;
+            sum.y += v[sp][j].y;
+          }
+        }
+        *reinterpret_cast<float2*>(y + (size_t)m * N + n) = sum;
+      }
+    }
   }
+  // pairs the other warpgroup's last arrival on this barrier
+  if (kPingPong && wg == 0) named_sync(kBarTurn0);
 }
 
-// ---- host side of the prefill regime ----
+// ---- host side of the wgmma regime ----
 
 int sm_count() {
   static int n = 0;
@@ -398,54 +695,40 @@ int sm_count() {
   return n;
 }
 
-template <int BM, int NWG>
+// Rows of x a tile holds (wgmma's N): M rounded up to 8 (at least 16) up
+// to 64, else 128 (ops/cuda/quant_matmul.py::wgmma_rows).
+int wgmma_rows(int M) {
+  return M <= 16 ? 16 : M <= 64 ? (M + 7) / 8 * 8 : 128;
+}
+
+template <int BM>
 cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w,
-                         const __nv_bfloat16* s, float* y, int M, int K,
-                         int N, cudaStream_t stream) {
-  using T = Tile<BM, NWG>;
-  CUtensorMap tm_x, tm_w;
+                         const __nv_bfloat16* s, float* y, float* ws,
+                         int* counter, int M, int K, int N, int splits,
+                         cudaStream_t stream) {
+  using T = Tile<BM>;
+  CUtensorMap tm_x, tm_w, tm_s;
   if (!encode_2d(&tm_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, BM,
                  kChunk, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(&tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
-                 kChunk, T::kBN,
-                 T::kBN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B))
+                 kChunk, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&tm_s, s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K / kGroup,
+                 N, 1, kBN, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w4a16_wgmma<BM, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        w4a16_wgmma<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::kSmem);
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  const dim3 grid((N + T::kBN - 1) / T::kBN, (M + BM - 1) / BM);
-  w4a16_wgmma<BM, NWG><<<grid, T::kThreads, T::kSmem, stream>>>(
-      tm_x, tm_w, s, y, M, K, N);
+  const int items =
+      (N + kBN - 1) / kBN * ((M + BM - 1) / BM) * splits;
+  const int grid = items < sm_count() ? items : sm_count();
+  w4a16_wgmma<BM><<<grid, kThreads, T::kSmem, stream>>>(
+      tm_x, tm_w, tm_s, y, ws, counter, M, K, N, splits);
   return cudaGetLastError();
-}
-
-// The tile (BM, consumer warpgroups) with the least estimated time: waves
-// of blocks over the SMs (one block per SM) times the block's work, the
-// smaller tiles charged for their lower tensor-core efficiency (more
-// weight dequantised per product, more x re-read per column).
-int pick_tile(int M, int N) {
-  const int sms = sm_count();
-  const struct { int bm, nwg; float cost; } tiles[3] = {
-      {128, 2, 1.0f}, {64, 2, 1.15f}, {64, 1, 1.4f}};
-  int best = 0;
-  float best_t = 0.f;
-  for (int i = 0; i < 3; ++i) {
-    const int blocks = ((N + 64 * tiles[i].nwg - 1) / (64 * tiles[i].nwg)) *
-                       ((M + tiles[i].bm - 1) / tiles[i].bm);
-    const int waves = (blocks + sms - 1) / sms;
-    const float t = waves * tiles[i].bm * 64.f * tiles[i].nwg * tiles[i].cost;
-    if (i == 0 || t < best_t) {
-      best = i;
-      best_t = t;
-    }
-  }
-  return best;
 }
 
 // ---------------------------------------------------------------------------
@@ -726,12 +1009,15 @@ extern "C" {
 // regime 0: the decode kernel.  With lmd_w4a16_decode_splits(K, group) = S
 // > 1 it takes `ws`, f32 [S, M, N] (16-byte aligned), and `counter`, int32
 // with one entry per (N/128, M/16 or M/8) tile, zero before the first
-// launch; every launch leaves it at zero.
-// regime 1: the wgmma kernel (group 128); ws and counter are not used.
+// launch; every launch leaves it at zero.  `splits` is not read.
+// regime 1: the wgmma kernel (group 128) over `splits` = S splits of the
+// K/2 / 128 half groups (1 <= S <= min(K/256, 8); the wrapper's plan).  With S > 1
+// it takes `ws`, f32 [S, M, N], and `counter`, one int32 per (column tile,
+// row tile), zero before the first launch and left at zero.
 // Returns the launch's cudaError_t.
 int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
                    void* y, void* ws, void* counter, int M, int K, int N,
-                   int group, int regime, void* stream) {
+                   int group, int regime, int splits, void* stream) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const uint8_t*>(packed);
   const auto* sb = static_cast<const __nv_bfloat16*>(scales);
@@ -753,14 +1039,30 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
     return (int)cudaGetLastError();
   }
   if (regime != 1 || group != kGroup || (K / 2) % kGroup != 0 ||
+      splits < 1 || splits > K / (2 * kGroup) || splits > kMaxSplits ||
+      (splits > 1 && (wsf == nullptr || cnt == nullptr ||
+                      (reinterpret_cast<uintptr_t>(ws) & 7) != 0)) ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(packed) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(packed) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(scales) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  switch (pick_tile(M, N)) {
-    case 0: return (int)launch_wgmma<128, 2>(xb, wb, sb, yf, M, K, N, st);
-    case 1: return (int)launch_wgmma<64, 2>(xb, wb, sb, yf, M, K, N, st);
-    default: return (int)launch_wgmma<64, 1>(xb, wb, sb, yf, M, K, N, st);
+#define LMD_WGMMA_CASE(BM)                                               \
+  case BM:                                                                 \
+    return (int)launch_wgmma<BM>(xb, wb, sb, yf, wsf, cnt, M, K, N, splits, \
+                                 st);
+  switch (wgmma_rows(M)) {
+    LMD_WGMMA_CASE(16)
+    LMD_WGMMA_CASE(24)
+    LMD_WGMMA_CASE(32)
+    LMD_WGMMA_CASE(40)
+    LMD_WGMMA_CASE(48)
+    LMD_WGMMA_CASE(56)
+    LMD_WGMMA_CASE(64)
+    default:
+      return (int)launch_wgmma<128>(xb, wb, sb, yf, wsf, cnt, M, K, N, splits,
+                                    st);
   }
+#undef LMD_WGMMA_CASE
 }
 
 // The decode regime's split of K (its grid's y blocks); the wrapper sizes
@@ -769,9 +1071,8 @@ int lmd_w4a16_decode_splits(int K, int group) {
   return group > 0 && group % 16 == 0 ? decode_splits(K, group) : -1;
 }
 
-// The tile (0: 128 columns x 128 rows, 1: 128 x 64, 2: 64 x 64) the wgmma
-// regime takes at this M and N.
-int lmd_w4a16_wgmma_tile(int M, int N) { return pick_tile(M, N); }
+// Rows of x a wgmma tile holds at this M (the wrapper's plan mirrors it).
+int lmd_w4a16_wgmma_rows(int M) { return wgmma_rows(M); }
 
 // Mean host time of one tensor-map encode, in nanoseconds, over `iters`
 // encodes of an x map (the wgmma regime encodes two per call); -1 when the

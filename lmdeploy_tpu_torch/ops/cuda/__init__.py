@@ -18,6 +18,7 @@ width.
 from ...kvcache.paged import KV_WIDTHS
 from . import paged_attention, prefill_attention, quant_matmul
 from .counts import LAUNCHES, PLAIN_CALLS, variant
+from .quant_matmul import ROUTE_NAMES as GEMM_ROUTE_NAMES
 from .quant_matmul import WGMMA
 
 ATTENTION_KERNELS = ('paged_decode_attention_write', 'paged_decode_attention',
@@ -30,9 +31,11 @@ KERNEL_NAMES = ('w4a16_gemm',) + tuple(
 
 # Launches of one regime of a kernel, also counted under the kernel's name.
 REGIME_NAMES = (WGMMA,)
-# Launches of each route of prefill attention, also counted under the
-# kernel's name: paged_prefill_attention[bf16]:split / :wgmma / :mma.
-ROUTE_NAMES = tuple(
+# Launches of each route of the W4A16 GEMM's wgmma regime
+# (w4a16_gemm[wgmma]:splitk / :tiles) and of prefill attention
+# (paged_prefill_attention[bf16]:split / :wgmma / :mma), also counted
+# under the kernel's (and the regime's) name.
+ROUTE_NAMES = GEMM_ROUTE_NAMES + tuple(
     f'{variant("paged_prefill_attention", kv_bits)}:{route}'
     for kv_bits in KV_WIDTHS for route in prefill_attention.ROUTES)
 
@@ -46,7 +49,8 @@ def launch_counts(regimes: bool = False) -> dict:
 
 
 def route_counts() -> dict:
-    """{route name: launches} of prefill attention's routes."""
+    """{route name: launches} of the GEMM's and prefill attention's
+    routes."""
     return {name: LAUNCHES[name] for name in ROUTE_NAMES}
 
 

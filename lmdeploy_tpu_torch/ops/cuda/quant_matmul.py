@@ -23,11 +23,26 @@ prefill chunk the 2*M*K*N operations.  Two kernels, chosen by M at
   launch leaves at zero), so a call gives the same bits on every run.  It
   takes N % 16 == 0, K % 16 == 0 and any group that is a multiple of 16
   dividing K/2.
-- prefill (M > DECODE_MAX_M): wgmma with the weight as the register
-  operand (nibbles to bf16 in registers) and x tiles brought by TMA into
-  a ring of shared-memory stages, one f32 partial per group folded with
-  its scales (group 128, deterministic; see the source's header).  Its
-  launches also count under ``w4a16_gemm[wgmma]``.
+- wgmma (M > DECODE_MAX_M, group 128): wgmma with the weight as the
+  register operand (nibbles to bf16 in registers) and x tiles of M rows
+  rounded up to 8 (up to 64; else 128, :func:`wgmma_rows`) brought by TMA
+  into a ring of shared-memory stages, one f32 partial per group folded
+  with its scales, on a persistent grid of one block per SM (its two
+  consumer warpgroups issue their products in turn at 128-row tiles).  Two
+  routes, picked by :func:`gemm_route` from shapes alone (no host sync):
+
+  - ``splitk`` (the plan :func:`splitk_splits` cuts the half groups into
+    S > 1 splits where the output tiles fill at most half the SMs: wo and
+    w2 of Llama-2-7B up to M = 128, a tp = 2 rank's projections at the
+    verify): each split writes an f32 partial to a workspace and the last
+    of a tile's splits to arrive (a self-resetting ticket per tile) sums
+    them in split order: deterministic.
+  - ``tiles`` (S = 1: tiles that fill the card, and the 512-row bucket):
+    one item per output tile, walked persistently in an order that keeps x
+    and the weight's column tiles in L2.
+
+  Its launches also count under ``w4a16_gemm[wgmma]`` and
+  ``w4a16_gemm[wgmma]:<route>``.
 
 On a CPU tensor the wrapper runs :func:`w4a16_gemm_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -40,21 +55,88 @@ from . import build
 from .counts import LAUNCHES, PLAIN_CALLS
 
 NAME = 'w4a16_gemm'
-WGMMA = 'w4a16_gemm[wgmma]'      # the prefill regime's own launch count
-# The largest M that takes the decode kernel; above it the wgmma kernel
-# (one Llama-2-7B layer on an H100 80GB HBM3 at 700 W: decode 0.103 ms at
-# M = 8 and 0.157 at M = 16, wgmma 0.143 and 0.140; chip_smoke.py phase 3).
+WGMMA = 'w4a16_gemm[wgmma]'      # the M > DECODE_MAX_M regime's own count
+# The largest M that takes the decode kernel; above it the wgmma kernel.
+# chip_smoke.py phase 3's crossover line (one Llama-2-7B layer, H100 80GB
+# HBM3 at 700 W) now has the wgmma kernel on its plan faster at every M it
+# times: 0.0748 against 0.0945 ms at M = 1, 0.0751 against 0.1017 at M = 8,
+# and no measured workload has the decode kernel winning at group 128.  The
+# boundary stays at 8 until the decode regime is redesigned or its group-128
+# use deleted (ROADMAP.md, Queue 2); other groups keep the decode kernel.
 DECODE_MAX_M = 8
-REGIMES = ('decode', 'wgmma')
+ROUTES = ('decode', 'splitk', 'tiles')
+WGMMA_ROUTES = ('splitk', 'tiles')
+ROUTE_NAMES = tuple(f'{WGMMA}:{r}' for r in WGMMA_ROUTES)
+SPLITK_MAX = 8        # splits of K at most
+GROUP = 128           # the wgmma kernel's quantisation group
+TILE_N = 128          # output columns of a wgmma tile
 
-_counters: dict = {}      # device -> the decode regime's ticket counters
+_counters: dict = {}      # device -> the ticket counters of both regimes
 _splits: dict = {}        # (K, group) -> the decode regime's split of K
+_sms: dict = {}           # device index -> streaming multiprocessors
+
+
+def wgmma_rows(m: int) -> int:
+    """Rows of x in a wgmma tile (wgmma's N): M rounded up to 8 (at least
+    16) up to 64, else 128 (the kernel's ``wgmma_rows``)."""
+    return 128 if m > 64 else max(16, -(-m // 8) * 8)
+
+
+def split_range(split: int, splits: int, g_half: int):
+    """Half groups ``[lo, hi)`` of split ``split`` of ``splits``: half group
+    gb holds groups gb (low nibbles) and g_half + gb (high nibbles)."""
+    return split * g_half // splits, (split + 1) * g_half // splits
+
+
+def splitk_splits(m: int, k: int, n: int, sms: int) -> int:
+    """The wgmma kernel's plan: the number S of splits of the K/256 half
+    groups at this shape (S > 1 is route splitk).  Where the output tiles
+    fill at most half the SMs, S is the most splits (<= SPLITK_MAX, <=
+    K/256) that keep the tiles' items in one wave; else 1.  Measured on an
+    H100 (chip_smoke.py's breakdown sweep): each split's partial costs a
+    write, a ticket and a sum, so a projection whose tiles already fill
+    most of the card (wqkv, w1, w3: 96 / 86 tiles) runs fastest unsplit,
+    and one with 32 tiles (wo, w2) fastest at S = 4."""
+    g_half = k // (2 * GROUP)
+    tiles = -(-n // TILE_N) * -(-m // wgmma_rows(m))
+    if 2 * tiles > sms:
+        return 1
+    return max(1, min(g_half, SPLITK_MAX, sms // tiles))
+
+
+def gemm_route(m: int, k: int, n: int, sms: int, group: int = GROUP) -> str:
+    """The route a call of these shapes takes: ``decode`` (M <=
+    DECODE_MAX_M, or any group but 128 up to M = 64), ``splitk`` or
+    ``tiles``.  A pure function of shapes: no host sync."""
+    if m <= DECODE_MAX_M or group != GROUP:
+        return 'decode'
+    return 'splitk' if splitk_splits(m, k, n, sms) > 1 else 'tiles'
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors, cached per device."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    sms = _sms.get(idx)
+    if sms is None:
+        sms = _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return sms
+
+
+def _ticket_counters(tiles: int, device) -> torch.Tensor:
+    """Int32 ticket counters, zeroed once when allocated; every launch of
+    either regime leaves them at zero."""
+    c = _counters.get(device)
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
 
 
 def _decode_workspace(m: int, k: int, n: int, group: int, device):
     """(partials f32 [S, M, N], ticket counters) of the decode regime, or
-    (None, None) when its grid does not split K.  The counters are zeroed
-    once when allocated; every launch leaves them at zero."""
+    (None, None) when its grid does not split K."""
     splits = _splits.get((k, group))
     if splits is None:
         splits = build.load().lmd_w4a16_decode_splits(k, group)
@@ -63,12 +145,8 @@ def _decode_workspace(m: int, k: int, n: int, group: int, device):
     if splits <= 1:
         return None, None
     tiles = -(-n // 128) * -(-m // (8 if m <= 8 else 16))
-    c = _counters.get(device)
-    if c is None or c.numel() < tiles:
-        c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _counters[device] = c
-    return torch.empty((splits, m, n), dtype=torch.float32,
-                       device=device), c
+    return (torch.empty((splits, m, n), dtype=torch.float32, device=device),
+            _ticket_counters(tiles, device))
 
 
 def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
@@ -101,34 +179,37 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if x.device.type == 'cpu':
         return w4a16_gemm_plain(x, packed, scales, layer)
     m, k = x.shape
-    # the wgmma kernel takes group 128 only; another group keeps the decode
-    # kernel up to M = 64 and raises above it
-    wgmma = m > DECODE_MAX_M and (k == 128 * scales.shape[1] or m > 64)
-    return w4a16_gemm_regime(x, packed, scales, layer,
-                             'wgmma' if wgmma else 'decode')
+    group = k // scales.shape[1]
+    if group != GROUP and m > 64:
+        raise ValueError(f'w4a16_gemm: M={m} > 64 takes group {GROUP} only, '
+                         f'not {group}')
+    return w4a16_gemm_route(x, packed, scales, layer, gemm_route(
+        m, k, packed.shape[-1], sm_count(x.device), group))
 
 
-def w4a16_gemm_regime(x: torch.Tensor, packed: torch.Tensor,
-                      scales: torch.Tensor, layer: int,
-                      regime: str) -> torch.Tensor:
-    """Launch one regime's kernel ('decode' or 'wgmma') on CUDA tensors,
-    whatever M is: :func:`w4a16_gemm` picks by M, a measurement of the
-    crossover calls both."""
+def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, layer: int,
+                     route: str) -> torch.Tensor:
+    """Launch one route's kernel ('decode', 'splitk' or 'tiles') on CUDA
+    tensors, whatever M is: :func:`w4a16_gemm` picks by shapes, a
+    measurement or a test forces one.  A forced ``splitk`` whose plan is
+    one split takes two."""
     m, k = x.shape
     l_dim, k2, n = packed.shape
     g = scales.shape[1]
     group = k // g
     if (k != 2 * k2 or m == 0 or packed.dtype != torch.uint8
             or scales.dtype != torch.bfloat16 or k2 % group
-            or scales.numel() != l_dim * g * n or regime not in REGIMES):
+            or scales.numel() != l_dim * g * n or route not in ROUTES):
         raise ValueError(f'w4a16_gemm: bad operands x{tuple(x.shape)} '
                          f'packed{tuple(packed.shape)}/{packed.dtype} '
                          f'scales{tuple(scales.shape)}/{scales.dtype} '
-                         f'regime {regime!r}')
-    if n % 16 or k % 16 or group % 16 or (regime == 'wgmma'
-                                          and group != 128):
+                         f'route {route!r}')
+    wgmma = route != 'decode'
+    if n % 16 or k % 16 or group % 16 or (wgmma and (
+            group != GROUP or (route == 'splitk' and k < 4 * GROUP))):
         raise ValueError(f'w4a16_gemm: unsupported shape M={m} K={k} N={n} '
-                         f'group={group} ({regime})')
+                         f'group={group} ({route})')
     if not (packed.is_contiguous() and scales.is_contiguous()):
         raise ValueError('w4a16_gemm: packed/scales must be contiguous')
     if not 0 <= layer < l_dim:
@@ -136,21 +217,36 @@ def w4a16_gemm_regime(x: torch.Tensor, packed: torch.Tensor,
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:                 # TMA takes 16-byte aligned rows
         xb = xb.clone()
-    wgmma = regime == 'wgmma'
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    ws, counter = (None, None) if wgmma else _decode_workspace(
-        m, k, n, group, x.device)
+    splits = 1
+    if route == 'decode':
+        ws, counter = _decode_workspace(m, k, n, group, x.device)
+    else:
+        if route == 'splitk':
+            splits = max(2, splitk_splits(m, k, n, sm_count(x.device)))
+            if splits > k // (2 * GROUP):
+                raise ValueError(f'w4a16_gemm: {splits} splits of '
+                                 f'{k // (2 * GROUP)} half groups')
+        ws = counter = None
+        if splits > 1:
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=x.device)
+            counter = _ticket_counters(
+                -(-n // TILE_N) * -(-m // wgmma_rows(m)), x.device)
     rc = build.load().lmd_w4a16_gemm(
         xb.data_ptr(), packed[layer].data_ptr(), scales[layer].data_ptr(),
         y.data_ptr(), 0 if ws is None else ws.data_ptr(),
         0 if counter is None else counter.data_ptr(), m, k, n, group,
-        int(wgmma), torch.cuda.current_stream(x.device).cuda_stream)
+        int(wgmma), splits, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, 'w4a16_gemm')
     LAUNCHES[NAME] += 1
     if wgmma:
         LAUNCHES[WGMMA] += 1
+        LAUNCHES[f'{WGMMA}:{route}'] += 1
     return y
 
 
-__all__ = ['w4a16_gemm', 'w4a16_gemm_plain', 'w4a16_gemm_regime',
-           'unpack_nibbles', 'DECODE_MAX_M', 'WGMMA']
+__all__ = ['w4a16_gemm', 'w4a16_gemm_plain', 'w4a16_gemm_route',
+           'gemm_route', 'splitk_splits', 'split_range', 'wgmma_rows',
+           'unpack_nibbles', 'DECODE_MAX_M', 'WGMMA', 'ROUTES',
+           'ROUTE_NAMES']

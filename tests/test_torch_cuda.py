@@ -15,9 +15,10 @@ from lmdeploy_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention_write, paged_decode_attention_write_plain)
 from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
     paged_prefill_attention, paged_prefill_attention_plain)
-from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (w4a16_gemm,
+from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (ROUTES, gemm_route,
+                                                      sm_count, w4a16_gemm,
                                                       w4a16_gemm_plain,
-                                                      w4a16_gemm_regime)
+                                                      w4a16_gemm_route)
 
 
 def _gemm_case(rng, m, k, n, layers=2):
@@ -215,8 +216,9 @@ GEMM_SHAPES = [(k, n, group, m)
 @pytest.mark.cuda
 @pytest.mark.parametrize('k,n,group,m', GEMM_SHAPES)
 def test_w4a16_shapes_match_plain_on_card(cuda_device, k, n, group, m):
-    """The decode regime (M <= 64, tensor-core swap-AB kernel) and the
-    prefill regime (M > 64) at ragged shapes: an odd count of half groups
+    """The decode kernel (M <= 8, and M <= 64 at a group of 48), route
+    splitk (9 <= M <= 64) and route tiles (M = 65) at ragged shapes: an odd
+    count of half groups
     (K = 2816: 11 low and 11 high groups), N not a multiple of the block's
     128 columns, and a group of 48."""
     rng = np.random.default_rng(k + n + m)
@@ -418,11 +420,10 @@ def _gemm_args(rng, m, k, n, device):
 @pytest.mark.parametrize('n', [11008, 1152, 176])
 @pytest.mark.parametrize('m', [65, 96, 128, 200, 256, 512, 1000])
 def test_w4a16_wgmma_matches_plain_on_card(cuda_device, m, n):
-    """The prefill regime (wgmma, weight as the register operand) at ragged
-    M, with every tile the kernel picks: N = 11008 takes 128 x 128 or
-    128 x 64 tiles, N = 1152 (9 column tiles) 128 x 64 or 64 x 64, N = 176
-    (a ragged 64-column tile) 64 x 64; K = 2816 gives 11 low and 11 high
-    groups, so the stage ring wraps around."""
+    """The wgmma regime at ragged M on route tiles (128-row x tiles; M =
+    1000 leaves a ragged row tile), N = 11008 (86 column tiles, more items
+    than SMs), 1152 (9) and 176 (a ragged 128-column tile); K = 2816 gives
+    11 low and 11 high groups, so the stage ring wraps around."""
     rng = np.random.default_rng(m + n)
     args = _gemm_args(rng, m, 2816, n, cuda_device)
     got = w4a16_gemm(*args)
@@ -432,18 +433,19 @@ def test_w4a16_wgmma_matches_plain_on_card(cuda_device, m, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('regime', ['decode', 'wgmma'])
+@pytest.mark.parametrize('regime', ROUTES)
 @pytest.mark.parametrize('m', [1, 16, 40, 64, 128])
 def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, regime):
-    """Both kernels at the M where the crossover is measured, whichever the
-    wrapper would pick, and each kernel twice (deterministic)."""
+    """Every route (the decode kernel, wgmma's splitk and tiles) at the M
+    where the crossover is measured, whichever the wrapper would pick, and
+    each twice (deterministic)."""
     rng = np.random.default_rng(300 + m)
     args = _gemm_args(rng, m, 4096, 1024, cuda_device)
-    got = w4a16_gemm_regime(*args, regime)
+    got = w4a16_gemm_route(*args, regime)
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
     assert (got - want).abs().max().item() <= tol
-    assert torch.equal(got, w4a16_gemm_regime(*args, regime))
+    assert torch.equal(got, w4a16_gemm_route(*args, regime))
 
 
 @pytest.mark.cuda
@@ -455,12 +457,82 @@ def test_w4a16_decode_is_bit_identical_across_calls(cuda_device, m, k):
     same bits, as the JAX kernel's sequential K loop does."""
     rng = np.random.default_rng(500 + m + k)
     args = _gemm_args(rng, m, k, 4096, cuda_device)
-    first = w4a16_gemm_regime(*args, 'decode')
+    first = w4a16_gemm_route(*args, 'decode')
     for _ in range(9):
-        assert torch.equal(first, w4a16_gemm_regime(*args, 'decode'))
+        assert torch.equal(first, w4a16_gemm_route(*args, 'decode'))
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
     assert (first - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['splitk', 'tiles'])
+@pytest.mark.parametrize('k,n', [(4096, 12288), (11008, 4096)])
+@pytest.mark.parametrize('m', [40, 64, 512])
+def test_w4a16_routes_are_bit_identical_across_calls(cuda_device, m, k, n,
+                                                     route):
+    """Both wgmma routes at the verify's M = 40, the 64-row bucket and the
+    512-row bucket, at wqkv's and w2's shapes: splitk sums its splits'
+    partials in split order (K = 11008: 43 half groups in uneven splits),
+    tiles writes each tile once, so five calls give the same bits."""
+    rng = np.random.default_rng(700 + m + k)
+    args = _gemm_args(rng, m, k, n, cuda_device)
+    first = w4a16_gemm_route(*args, route)
+    for _ in range(4):
+        assert torch.equal(first, w4a16_gemm_route(*args, route))
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (first - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['splitk', 'tiles'])
+@pytest.mark.parametrize('m', [9, 16, 17, 25, 33, 40, 48, 50, 63, 64, 65,
+                               130, 512])
+def test_w4a16_forced_route_matches_plain_on_card(cuda_device, m, route):
+    """Each wgmma route forced at every M, across the x tile heights (16,
+    24, 32, 40, 48, 56, 64, 128) and the 64-row boundary, at a ragged N
+    (400: a column tile of 16) and K = 2816 (11 half groups)."""
+    rng = np.random.default_rng(800 + m)
+    args = _gemm_args(rng, m, 2816, 400, cuda_device)
+    got = w4a16_gemm_route(*args, route)
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_w4a16_plan_mirrors_the_kernel_on_card(cuda_device):
+    """The wrapper's x tile height (which sizes the ticket counters) is the
+    kernel's own at every M."""
+    from lmdeploy_tpu_torch.ops.cuda import build
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import wgmma_rows
+    lib = build.load()
+    assert all(lib.lmd_w4a16_wgmma_rows(m) == wgmma_rows(m)
+               for m in range(9, 700))
+
+
+@pytest.mark.cuda
+def test_w4a16_route_counts_on_card(cuda_device):
+    """Every launch counts under the kernel, the wgmma regime and the
+    route gemm_route picks from the shapes: decode at M <= 8, splitk at
+    the verify's 40 and the 64 bucket, tiles at 512."""
+    import lmdeploy_tpu_torch.ops.cuda as K
+    rng = np.random.default_rng(900)
+    K.reset_launch_counts()
+    want = {}
+    for m in (1, 8, 9, 40, 64, 512):
+        args = _gemm_args(rng, m, 4096, 4096, cuda_device)
+        w4a16_gemm(*args)
+        route = gemm_route(m, 4096, 4096, sm_count(cuda_device))
+        assert route == ('decode' if m <= 8 else
+                         'splitk' if m <= 64 else 'tiles')
+        if route != 'decode':
+            key = f'w4a16_gemm[wgmma]:{route}'
+            want[key] = want.get(key, 0) + 1
+    assert {n: c for n, c in K.route_counts().items() if c} == want
+    assert K.launch_counts(True)['w4a16_gemm'] == (6, 0)
+    assert K.launch_counts(True)['w4a16_gemm[wgmma]'] == (4, 0)
 
 
 def _split_case(rng, ctxs, kv_bits, kh, page, device):
