@@ -13,12 +13,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                card at Llama-2-7B main-path shapes, with its time, the plain
                version's time, one PyTorch library call's time and the bound;
                the kernels line reports the shapes the engine launches in
-               decode (all 8 batch slots: GEMM M=8, attention B=8); the GEMM
-               at every GEMM_ROWS M on every route that takes M (decode up
-               to 64; splitk and tiles above 8), each line naming the route
+               decode (all 8 batch slots: GEMM M=8, which takes the wgmma
+               routes as every M at group 128 does, attention B=8); every
+               timing cycles enough layers that the timed weights or K/V
+               (at least 100 MB between two reads of a layer: hbm_layers)
+               come from HBM, not the 50 MB L2; the GEMM
+               at every GEMM_ROWS M on the route gemm_route picks and, up
+               to GEMM_CROSS_MAX_M, on the decode route too (the crossover),
+               each line naming the route
                gemm_route picks, with its split plan, and timing the parent
                (--parent TREE: that checkout's kernel 1 through its own
-               wrapper and build), torch.matmul and the bound beside it; the
+               wrapper and build), torch.matmul and the bound beside it;
+               decode attention (kernels 2, 4, 5) per mode and width over
+               DECODE_CASES (B = 8 with a masked slot, bs1 at 80 / 512 /
+               2048 (80 and 2048 on the bf16 pool only), a bs1 request
+               among masked slots, G = 8), each called
+               twice (the same bits), with the parent's kernel (--parent)
+               and SDPA; each wrapper's host us a call beside the parent's
+               (eager calls, no synchronise); the
                kernels line has one entry per GEMM route (splitk with the
                launches of the verify's M=40, tiles with those of the 512
                bucket); prefill attention also at the verify's T=5 (B=8 all live, one live slot with 7 padding
@@ -58,7 +70,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                decode step / prefill pass of the selected decode kernel and
                0 / 32 of prefill attention, all of it on route wgmma by
                the route counters, and the GEMM's 160 a pass on the bucket's
-               routes (the 512 bucket: all tiles).  Then
+               routes (the 512 bucket: all tiles) and 160 a decode step on
+               the routes gemm_route picks at M = 8 (tiles for wqkv, w1,
+               w3; splitk for wo, w2).  Then
                speculative decoding
                (k=4, n-gram 3 down to 2) on the bf16 engine: greedy bs1 of
                256 tokens from prompt [1] (bench.py's headline path) and
@@ -120,14 +134,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                same checks) and `--kv-bits 4` per layer (kernels 2 and 3 at
                int4 launch as before); then the 32-layer model of phase 5 on
                a dynamic and a static int4 pool (4 concurrent requests of 32
-               new, bs1 128, a bs1 request of 16 under a CUDA-only profile:
+               new, bs1 32, a bs1 request of 8 under a CUDA-only profile:
                tok/s, TTFT, peak memory, device ms per forward pass, which at
                bs1 is a token).  Phases 5 and 7 keep sessions in the native C++
                store; phase 5's prefix-hit follower also runs on the Python
                one (LMDEPLOY_TPU_NATIVE=0) and must prefill the same tokens.
   8. parallel — phase 5's 32-layer model at tp = 1 and tp = 2 (a second rank
                process spawned by the engine on the same card; the device
-               collectives go through gloo): bs1 64 new on plain and on
+               collectives go through gloo): bs1 32 new on plain and on
                speculative rounds, 4 concurrent requests, prompt logits of
                300 and a seeded sampled pair.  tp = 2's greedy streams equal
                tp = 1's up to near-ties, its logits lie within 5% of
@@ -223,8 +237,9 @@ ENGINE_SLOTS = 8     # phase 5's max_batch_size: every decode step runs all
 SPEC_K = 4           # phase 5's speculative_k, as bench.py's headline run
 GEMM_ROWS = (1, ENGINE_SLOTS, 16, 32, ENGINE_SLOTS * (SPEC_K + 1), 64, 128,
              256, 512)
-# M at which check_gemm also times the wgmma route gemm_route does not pick
-SPLIT_CROSS_ROWS = (ENGINE_SLOTS * (SPEC_K + 1), 64, 128)
+# the largest M at which check_gemm times both sides of the crossover:
+# the decode route and the wgmma kernel on its plan
+GEMM_CROSS_MAX_M = 16
 REPLACES = {
     'w4a16_gemm': 'lmdeploy_tpu/ops/pallas/quant_matmul.py:177',
     'paged_decode_attention_write':
@@ -269,6 +284,42 @@ def bound_ms(nbytes: float, ops: float):
     """(least time in ms, 'bytes' | 'operations') on the published peaks."""
     tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
     return max(tb, to) * 1e3, ('bytes' if tb >= to else 'operations')
+
+
+HBM_SET_BYTES = 100e6   # a timed case's working set: 2 x the H100's L2
+
+
+def hbm_layers(nbytes: float, least: int = 2) -> int:
+    """Layers to cycle when timing a call that reads ``nbytes`` of one
+    layer (a projection's weight, a pool's attended K/V), so that the
+    calls between two reads of a layer read at least HBM_SET_BYTES and the
+    timed data comes from HBM, not from the 50 MB L2.  Time with at least
+    this many calls in the graph (``iters``)."""
+    return max(least, -(-int(HBM_SET_BYTES) // max(int(nbytes), 1)))
+
+
+def host_us(torch, fns: dict, calls: int = 50, rounds: int = 20) -> dict:
+    """Host microseconds a call of each ``fns[key]`` takes to return (eager
+    calls, no synchronise between them: the wrapper's and the launch's
+    host cost): the least over ``rounds`` rounds of ``calls`` calls, the
+    functions taking turns in every round, first and last by turns, so
+    that host noise between calls does not decide a comparison."""
+    best = {}
+    for fn in fns.values():
+        for i in range(3):
+            fn(i)
+    items = list(fns.items())
+    for r in range(rounds):
+        for key, fn in (items if r % 2 == 0 else items[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(calls):
+                fn(i)
+            t1 = time.perf_counter()
+            best[key] = min(best.get(key, float('inf')),
+                            (t1 - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
 
 
 class Timer:
@@ -402,24 +453,24 @@ def gemm_parent_ms(torch, ctx, timer, x, packed, scales, layer, want, tol,
     if not e <= tol:
         raise AssertionError(f'parent w4a16_gemm {label}: max abs err {e}')
     return timer.graph(lambda i: qm.w4a16_gemm(x, packed, scales,
-                                               i % n_layers), iters)
+                                               i % n_layers),
+                       max(iters, n_layers))
 
 
 def check_gemm(torch, ctx, timer):
     """The W4A16 GEMM at every GEMM_ROWS M over one Llama-2-7B layer's five
     projections: every route that takes M (decode up to M = 64, splitk and
-    tiles above DECODE_MAX_M) against the plain version; the route that
+    tiles at every M) against the plain version; the route that
     gemm_route picks timed beside the parent's kernel (--parent), the
     library call (torch.matmul on the dequantised weight) and the bound;
-    the decode kernel also timed up to M = 64 and route splitk at M =
-    DECODE_MAX_M (the crossover), and the other wgmma route at
-    SPLIT_CROSS_ROWS (the splitk / tiles boundary)."""
+    the decode route and the wgmma kernel on its plan also timed up to
+    GEMM_CROSS_MAX_M (the crossover).  Every timing
+    cycles enough layers that the weights come from HBM (hbm_layers)."""
     from lmdeploy_tpu_torch.ops.cuda import build
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
-        DECODE_MAX_M, ROUTES, gemm_route, sm_count, splitk_splits,
+        ROUTES, gemm_route, sm_count, splitk_splits, w4a16_gemm,
         w4a16_gemm_plain, w4a16_gemm_route, wgmma_rows)
     gen = torch.Generator(device='cuda').manual_seed(1)
-    n_layers = 8          # timing cycles layers so weights come from HBM
     sms = sm_count('cuda')
     rows, worst = [], 0.0
     zero = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
@@ -430,6 +481,9 @@ def check_gemm(torch, ctx, timer):
     wgmma_plan = {}       # M -> the wgmma regime on its plan's routes
     lib = build.load()
     for name, k, n in LLAMA2_7B_GEMMS:
+        # timing cycles layers so weights come from HBM
+        n_layers = hbm_layers(k * n // 2)
+        iters = max(16, n_layers)
         packed, scales, deq = _gemm_weights(torch, gen, k, n, n_layers)
         for m in GEMM_ROWS:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
@@ -439,18 +493,14 @@ def check_gemm(torch, ctx, timer):
             tol = 1e-3 * scale + 1e-3
             route = gemm_route(m, k, n, sms)
             timed = {route}
-            if m <= 64:
+            if m <= GEMM_CROSS_MAX_M:
                 timed.add('decode')
-            if m in SPLIT_CROSS_ROWS:
-                timed |= {'splitk', 'tiles'}
             plan = ('splitk' if splitk_splits(m, k, n, sms) > 1
                     else 'tiles')
-            if m <= DECODE_MAX_M:
+            if m <= GEMM_CROSS_MAX_M:
                 timed.add(plan)         # the crossover's other side
             errs, times = {}, {}
-            for r in [r for r in ROUTES if (
-                    m <= 64 if r == 'decode' else
-                    m > DECODE_MAX_M or r in timed)]:
+            for r in [r for r in ROUTES if r != 'decode' or m <= 64]:
                 got = w4a16_gemm_route(x, packed, scales, 3, r)
                 torch.cuda.synchronize()
                 errs[r] = (got - want).abs().max().item()
@@ -460,18 +510,32 @@ def check_gemm(torch, ctx, timer):
                 worst = max(worst, errs[r])
                 if r in timed:
                     t = times[r] = timer.graph(lambda i: w4a16_gemm_route(
-                        x, packed, scales, i % n_layers, r), 16)
+                        x, packed, scales, i % n_layers, r), iters)
                     by_route[r][m] = by_route[r].get(m, 0.0) + t
                     if r == route:
                         ms = t
                     if r == plan:
                         wgmma_plan[m] = wgmma_plan.get(m, 0.0) + t
             parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 3,
-                                    want, tol, f'{name} M={m}', n_layers)
+                                    want, tol, f'{name} M={m}', n_layers,
+                                    iters)
             lib_ms = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
-                                 16)
+                                 iters)
             plain = timer.events(lambda i: w4a16_gemm_plain(
                 x, packed, scales, i % n_layers), 3, warmup=1)
+            if m == ENGINE_SLOTS and name == 'wqkv':
+                # each wrapper's host cost a call, eager, the parent's too
+                qm = ctx.get('parent_qm')
+                fns = {'host_us': lambda i: w4a16_gemm(
+                    x, packed, scales, i % n_layers)}
+                if qm is not None:
+                    fns['parent_host_us'] = lambda i: qm.w4a16_gemm(
+                        x, packed, scales, i % n_layers)
+                layer[m].update(dict(parent_host_us=None),
+                                **host_us(torch, fns))
+                log(f'  w4a16_gemm host: {layer[m]["host_us"]:.1f} us a call'
+                    + (f', parent {layer[m]["parent_host_us"]:.1f}'
+                       if qm is not None else '') + f' (M={m}, {name})')
             bms, by = gemm_bound(m, k, n)
             shape = ('' if route == 'decode' else
                      f', S={splitk_splits(m, k, n, sms)}, x tile '
@@ -509,8 +573,9 @@ def check_gemm(torch, ctx, timer):
             f'{layer[m]["bound_ms"]:.4f} ms ({layer[m]["bound_by"]}), '
             f'{layer[m]["bound_ms"] / layer[m]["ms"]:.0%} of the bound')
     log('  crossover, one layer (ms): ' + '; '.join(
-        f'M={m} decode {by_route["decode"][m]:.4f} wgmma (plan) '
-        f'{wgmma_plan[m]:.4f}' for m in GEMM_ROWS if m <= 64))
+        f'M={m} decode {by_route["decode"][m]:.4f}'
+        + (f' wgmma (plan) {wgmma_plan[m]:.4f}' if m in wgmma_plan else '')
+        for m in GEMM_ROWS if m <= GEMM_CROSS_MAX_M))
     log('  routes, one layer (ms; a route summed over the projections timed '
         'on it): ' + '; '.join(
             f'M={m} ' + ' '.join(f'{r} {by_route[r][m]:.4f}' for r in ROUTES
@@ -595,21 +660,27 @@ def _dequant_gather(torch, kc, vc, pt, n_tok, qp):
     return out
 
 
-# decode attention cases: (label, per-slot contexts, valid=0 slots); the
-# first is the kernels line's row (the engine's decode shape), the second
-# its bs1 row; the last is the engine's state during a bs1 request after
-# longer ones: one live slot, the others masked with stale contexts
+# decode attention cases: (label, per-slot contexts, valid=0 slots, kv
+# heads of H = 32); the first is the kernels line's row (the engine's
+# decode shape), the second its bs1 row; the sixth is the engine's state
+# during a bs1 request after longer ones: one live slot, the others masked
+# with stale contexts; the last is GQA at G = 8 (recorded, not on phase
+# 5's path)
 DECODE_CASES = (
-    ('B=8 ctx~512, slot 3 valid=0', [512 - 7 * i for i in range(8)], (3,)),
-    ('B=1 ctx 512', [512], ()),
-    ('B=8 ctx~512, all valid', [512 - 7 * i for i in range(8)], ()),
-    ('B=1 ctx 80', [80], ()),
-    ('B=1 ctx 2048', [2048], ()),
+    ('B=8 ctx~512, slot 3 valid=0', [512 - 7 * i for i in range(8)], (3,),
+     32),
+    ('B=1 ctx 512', [512], (), 32),
+    ('B=8 ctx~512, all valid', [512 - 7 * i for i in range(8)], (), 32),
+    ('B=1 ctx 80', [80], (), 32),
+    ('B=1 ctx 2048', [2048], (), 32),
     ('B=8, slot 0 ctx 80, slots 1-7 valid=0 at ctx ~500',
-     [80] + [500 + 9 * i for i in range(7)], tuple(range(1, 8))),
+     [80] + [500 + 9 * i for i in range(7)], tuple(range(1, 8)), 32),
+    ('G=8 (KH=4 of H=32), B=8 ctx~512, slot 3 valid=0',
+     [512 - 7 * i for i in range(8)], (3,), 4),
 )
-# splits per slot timed against the automatic choice (None)
-SPLIT_SWEEP = (1, 2, 4, 8, 16, None)
+# cases timed on the bf16 pool only (the quantised pools' rows at these
+# contexts add nothing the engine's shapes do not show)
+DECODE_BF16_ONLY = ('B=1 ctx 80', 'B=1 ctx 2048')
 
 
 def _decode_inputs(torch, gen, ctxs, masked, kh, h, dh, n_layers, kv_bits):
@@ -643,22 +714,70 @@ def _decode_call(PA, mode, fn_name, d, k, v, layer, qp):
               v, layer, d['pt'], d['cl'], d['valid'], qp, half=64)
 
 
+def decode_parent(torch, ctx, timer, mode, d, qp, live, n_layers, iters,
+                  ours, label):
+    """The parent checkout's kernel ``mode`` (--parent) through its own
+    wrapper on these inputs (its own copy of the pool), held to this
+    tree's output ``ours`` within 1e-2 on the attended slots, then timed
+    cycling n_layers layers: its ms, or None without --parent."""
+    pa = ctx.get('parent_pa')
+    if pa is None:
+        return None
+    k3, v3 = d['kc'].clone(), d['vc'].clone()
+    theirs = _decode_call(pa, mode, mode, d, k3, v3, 2, qp)
+    torch.cuda.synchronize()
+    diff = (theirs[live].float() - ours[live].float()).abs().max().item()
+    if not diff <= 1e-2:
+        raise AssertionError(f'parent {label}: differs from this tree by '
+                             f'{diff}')
+    del k3, v3
+    return timer.graph(lambda i: _decode_call(
+        pa, mode, mode, d, d['kc'], d['vc'], i % n_layers, qp), iters)
+
+
+def decode_bytes(mode, ctxs, live, b, h, kh, elem_bytes):
+    """Kernels 2 / 4 / 5's bytes for this run's data: the attended slots'
+    K/V once, q and out, and in the storing modes k_new / v_new and the
+    stored rows (mode 2: the rope tables and qscale too)."""
+    dh = 128
+    tok = sum(ctxs[i] for i in live)
+    nbytes = 2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
+    if mode != 'paged_decode_attention':
+        nbytes += 2 * b * kh * dh * 2 + 2 * len(live) * kh * dh * elem_bytes
+    if mode == 'paged_decode_attention_rope_write':
+        nbytes += 2 * b * dh * 4 + b * 4
+    return nbytes, 4.0 * tok * h * dh
+
+
 def check_decode(torch, ctx, timer):
     """Kernels 2, 4 and 5 at each KV width over DECODE_CASES, against the
     plain version (pool bit-identical after the store, valid rows within
-    1e-2), each called twice in a row (the ticket counter resets), with
-    SDPA and the bound; then a sweep of tokens per split."""
+    1e-2), each called twice in a row (the ticket counter resets, the
+    same bits), with the parent's kernel (--parent, through its own
+    wrapper), SDPA and the bound; every timing cycles enough layers that
+    the attended K/V comes from HBM (hbm_layers).  At the first case on
+    the bf16 pool also each wrapper's host us a call, beside the
+    parent's."""
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
     gen = torch.Generator(device='cuda').manual_seed(2)
-    kh, h, dh, page, n_layers = 32, 32, 128, 64, 4
+    h, dh, page = 32, 128, 64
     for kv_bits, (width, _, elem_bytes) in KV_WIDTHS.items():
         qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
               if kv_bits else None)
         for mode in DECODE_MODES:
             worst, rows = 0.0, {}
-            for label, ctxs, masked in DECODE_CASES:
+            for label, ctxs, masked, kh in DECODE_CASES:
+                if kv_bits and label in DECODE_BF16_ONLY:
+                    continue
                 b = len(ctxs)
+                live = [i for i in range(b)
+                        if mode == 'paged_decode_attention' or i not in masked]
+                nbytes, ops = decode_bytes(mode, ctxs, live, b, h, kh,
+                                           elem_bytes)
+                n_layers = hbm_layers(2 * sum(ctxs[i] for i in live) * kh * dh
+                                      * elem_bytes, least=3)
+                iters = max(32, n_layers)
                 d = _decode_inputs(torch, gen, ctxs, masked, kh, h, dh,
                                    n_layers, kv_bits)
                 kc, vc = d['kc'], d['vc']
@@ -682,54 +801,67 @@ def check_decode(torch, ctx, timer):
                     if not torch.equal(k1[2, phys, pm % page],
                                        kc[2, phys, pm % page]):
                         raise AssertionError('valid=0 slot wrote its KV row')
-                ok = (d['valid'].bool() if mode != 'paged_decode_attention'
-                      else torch.ones_like(d['valid'], dtype=torch.bool))
-                err = (got.float() - want.float())[ok].abs().max().item()
+                    if not (got[i] == 0).all():
+                        raise AssertionError(f'{name}: a valid=0 slot is '
+                                             'not zero')
+                err = (got.float() - want.float())[live].abs().max().item()
                 if not err <= 1e-2:
                     raise AssertionError(f'{name}: max abs err {err} > 1e-2')
                 worst = max(worst, err)
+                del k1, v1
                 ms = timer.graph(lambda i: _decode_call(
-                    PA, mode, mode, d, kc, vc, i % n_layers, qp), 32)
+                    PA, mode, mode, d, kc, vc, i % n_layers, qp), iters)
+                parent = decode_parent(
+                    torch, ctx, timer, mode, d, qp, live, n_layers, iters,
+                    got, name)
                 plain = timer.events(lambda i: _decode_call(
                     PA, mode, mode + '_plain', d, k2, v2, i % n_layers, qp),
                     3, warmup=1)
+                del k2, v2
                 # yardstick: SDPA over the K/V of the slots the kernel
                 # attends (masked slots of the storing modes do no work),
                 # gathered to [B, H, ctx, Dh] and dequantised beforehand (no
                 # store, no rope, no dequant); for unequal contexts over the
-                # longest
-                live = [i for i in range(b)
-                        if mode == 'paged_decode_attention' or i not in masked]
-                att = [ctxs[i] for i in live]
-                n_kv = max(att)
+                # longest; GQA through enable_gqa
+                n_kv = max(ctxs[i] for i in live)
                 kvg = [(kk[live, :, :n_kv], vv[live, :, :n_kv]) for kk, vv in
                        _dequant_gather(torch, kc, vc, d['pt'],
                                        -(-n_kv // page) * page, qp)]
                 q4 = d['q'][live][:, :, None]
+                gqa = dict(enable_gqa=True) if kh != h else {}
                 lib = timer.graph(lambda i: torch.nn.functional
                                   .scaled_dot_product_attention(
-                                      q4, *kvg[i % n_layers]), 32)
-                # bytes this run needs: the attended slots read their
-                # context
-                tok = sum(att)
-                nbytes = 2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
-                if mode != 'paged_decode_attention':
-                    nbytes += (2 * b * kh * dh * 2          # k_new, v_new
-                               + 2 * len(att) * kh * dh * elem_bytes)
-                if mode == 'paged_decode_attention_rope_write':
-                    nbytes += 2 * b * dh * 4 + b * 4        # tables, qscale
-                ops = 4.0 * tok * h * dh
+                                      q4, *kvg[i % n_layers], **gqa), iters)
                 bms, by = bound_ms(nbytes, ops)
+                row = dict(ms=ms, parent_ms=parent, plain_ms=plain,
+                           library_ms=lib, bound_ms=bms, bound_by=by,
+                           hbm_layers=n_layers)
+                if label == DECODE_CASES[0][0] and kv_bits == 0:
+                    # each wrapper's host cost a call, eager, the parent's
+                    # too (--parent), taking turns
+                    pa = ctx.get('parent_pa')
+                    fns = {'host_us': lambda i: _decode_call(
+                        PA, mode, mode, d, kc, vc, i % n_layers, qp)}
+                    if pa is not None:
+                        fns['parent_host_us'] = lambda i: _decode_call(
+                            pa, mode, mode, d, kc, vc, i % n_layers, qp)
+                    row.update(dict(parent_host_us=None),
+                               **host_us(torch, fns))
                 want = PA.decode_want(mode, kv_bits, h // kh, b * kh)
                 splits = PA.decode_splits(d['pt'].shape[1], page, want)
                 log(f'  {name}: kernel {ms:.4f} ms (grid of {splits} splits,'
-                    f' up to {want} a slot), plain {plain:.3f} ms, SDPA '
-                    f'{lib:.4f} ms, '
+                    f' up to {want} a slot, {n_layers} layers cycled), '
+                    + (f'parent {parent:.4f} ms, ' if parent else '')
+                    + f'plain {plain:.3f} ms, SDPA {lib:.4f} ms, '
                     f'bound {bms:.4f} ms ({by}), {bms / ms:.0%} of the bound, '
-                    f'max abs err {err:.2e} (tol 1e-2), pool identical')
-                rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                   bound_ms=bms, bound_by=by)
-                del kvg, kc, vc, k1, v1, k2, v2, d
+                    f'max abs err {err:.2e} (tol 1e-2), pool identical'
+                    + (f'; host {row["host_us"]:.1f} us a call'
+                       + (f' (parent {row["parent_host_us"]:.1f})'
+                          if row['parent_host_us'] else '')
+                       if 'host_us' in row else ''))
+                rows[label] = row
+                del kvg, kc, vc, d
+                torch.cuda.empty_cache()
             first, second = DECODE_CASES[0][0], DECODE_CASES[1][0]
             ctx['kernels'][f'{mode}[{width}]'] = dict(
                 shape=f'Llama-2-7B layer, {width} pool, B={ENGINE_SLOTS} '
@@ -741,39 +873,6 @@ def check_decode(torch, ctx, timer):
                 tolerance='1e-2 abs on bf16 outputs; pool bit-identical',
                 library='SDPA on K/V gathered and dequantised beforehand '
                         '(no store, rope or dequant inside)')
-            torch.cuda.empty_cache()
-    sweep_splits(torch, timer, gen, kh, h, dh, n_layers)
-
-
-def sweep_splits(torch, timer, gen, kh, h, dh, n_layers):
-    """Kernel 2 at each width with a fixed number of splits per slot
-    against the automatic choice, at bs1 ctx 80 / 512 / 2048 and B=8 ctx
-    512 / 2048."""
-    from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
-    mode = 'paged_decode_attention_write'
-    for kv_bits in (0, 8, 4):
-        qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
-              if kv_bits else None)
-        for ctxs in ([80], [512], [2048], [512] * 8, [2048] * 8):
-            d = _decode_inputs(torch, gen, ctxs, (), kh, h, dh, n_layers,
-                               kv_bits)
-            times = []
-            for want in SPLIT_SWEEP:
-                PA.SPLITS_WANTED = want
-                try:
-                    times.append(timer.graph(lambda i: _decode_call(
-                        PA, mode, mode, d, d['kc'], d['vc'], i % n_layers,
-                        qp), 32))
-                finally:
-                    PA.SPLITS_WANTED = None
-            auto = PA.decode_want(mode, kv_bits, h // kh, len(ctxs) * kh)
-            width = {0: 'bf16', 8: 'int8', 4: 'int4'}[kv_bits]
-            log(f'  split sweep {mode}[{width}] B={len(ctxs)} ctx '
-                f'{ctxs[0]}: ' + ', '.join(
-                    f'{w or f"auto ({auto})"} a slot {ms:.4f} ms'
-                    for w, ms in zip(SPLIT_SWEEP, times)))
-            del d
-        torch.cuda.empty_cache()
 
 
 def prefill_bound(starts, lens, h, kh, elem_bytes):
@@ -788,14 +887,16 @@ def prefill_bound(starts, lens, h, kh, elem_bytes):
 
 
 def load_parent(ctx, tree):
-    """Kernels 1 and 3 of another checkout (the parent commit's, say)
-    through that checkout's own wrappers, for the parent column of every
-    kernel-1 and kernel-3 line: its package is imported under another
-    name, so its build.py builds its own sources into its own csrc/build/
-    and loads them with its own C signatures; ctx['parent_pf'] is its
-    ops/cuda/prefill_attention module and ctx['parent_qm'] its
-    ops/cuda/quant_matmul module, whose ``paged_prefill_attention`` and
-    ``w4a16_gemm`` take the same arguments in every version."""
+    """Kernels 1-5 of another checkout (the parent commit's, say) through
+    that checkout's own wrappers, for the parent column of every kernel
+    line: its package is imported under another name, so its build.py
+    builds its own sources into its own csrc/build/ and loads them with
+    its own C signatures; ctx['parent_pf'] is its
+    ops/cuda/prefill_attention module, ctx['parent_qm'] its
+    ops/cuda/quant_matmul module and ctx['parent_pa'] its
+    ops/cuda/paged_attention module, whose ``paged_prefill_attention``,
+    ``w4a16_gemm`` and three decode wrappers take the same arguments in
+    every version."""
     import importlib
     import importlib.util
     root = os.path.join(os.path.abspath(tree), 'lmdeploy_tpu_torch')
@@ -812,6 +913,8 @@ def load_parent(ctx, tree):
         f'{name}.ops.cuda.prefill_attention')
     ctx['parent_qm'] = importlib.import_module(
         f'{name}.ops.cuda.quant_matmul')
+    ctx['parent_pa'] = importlib.import_module(
+        f'{name}.ops.cuda.paged_attention')
     log(f'parent kernels from {root}: built in {time.monotonic() - t0:.1f} s')
 
 
@@ -1061,9 +1164,11 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
     row each, keyed by shape."""
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
         gemm_route, sm_count, w4a16_gemm, w4a16_gemm_plain)
-    n_layers = 4
     rows = {}
     for name, k, n in gemms:
+        # timing cycles layers so weights come from HBM
+        n_layers = hbm_layers(k * n // 2)
+        iters = max(16, n_layers)
         packed, scales, deq = _gemm_weights(torch, gen, k, n, n_layers)
         for m in m_rows:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
@@ -1078,12 +1183,17 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
                                      f'abs err {err} > {tol}')
             route = gemm_route(m, k, n, sm_count('cuda'))
             ms = timer.graph(lambda i: w4a16_gemm(x, packed, scales,
-                                                  i % n_layers), 16)
+                                                  i % n_layers), iters)
+            again = w4a16_gemm(x, packed, scales, 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f'w4a16_gemm {label} {name} M={m}: a '
+                                     'second call differs')
             parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 1,
                                     want, tol, f'{label} {name} M={m}',
-                                    n_layers)
+                                    n_layers, iters)
             lib = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
-                              16)
+                              iters)
             plain = timer.events(lambda i: w4a16_gemm_plain(
                 x, packed, scales, i % n_layers), 2, warmup=1)
             bms, by = gemm_bound(m, k, n)
@@ -1112,36 +1222,48 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
     return rows
 
 
-def check_decode_write(torch, gen, timer, kh, ctxs, masked, kv_bits, label):
+def check_decode_write(torch, ctx, gen, timer, kh, ctxs, masked, kv_bits,
+                       label):
     """Kernel 2 (mode 1) at H = KH = ``kh`` over slots of contexts
     ``ctxs`` (``masked`` at valid = 0) against its plain version (pool
-    bit-identical, valid rows within 1e-2), with SDPA on the live slots
-    and the bound; returns its row."""
+    bit-identical, valid rows within 1e-2, a second call identical), with
+    the parent's kernel (--parent), SDPA on the live slots and the bound,
+    cycling enough layers that the K/V comes from HBM; returns its row."""
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     from lmdeploy_tpu_torch.ops.cuda import paged_attention as PA
     width, _, elem_bytes = KV_WIDTHS[kv_bits]
-    h, dh, page, n_layers = kh, 128, 64, 4
+    h, dh, page = kh, 128, 64
     mode = 'paged_decode_attention_write'
     qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
           if kv_bits else None)
+    live = [i for i in range(len(ctxs)) if i not in masked]
+    b = len(ctxs)
+    n_layers = hbm_layers(2 * sum(ctxs[i] for i in live) * kh * dh
+                          * elem_bytes, least=3)
+    iters = max(32, n_layers)
     d = _decode_inputs(torch, gen, ctxs, masked, kh, h, dh, n_layers,
                        kv_bits)
     k1, v1, k2, v2 = (x.clone() for x in (d['kc'], d['vc'], d['kc'],
                                           d['vc']))
     got = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
+    again = _decode_call(PA, mode, mode, d, k1, v1, 2, qp)
     want = _decode_call(PA, mode, mode + '_plain', d, k2, v2, 2, qp)
     torch.cuda.synchronize()
-    ok = d['valid'].bool()
-    err = (got.float() - want.float())[ok].abs().max().item()
-    if not (torch.equal(k1, k2) and torch.equal(v1, v2) and err <= 1e-2):
-        raise AssertionError(f'{mode}[{width}] {label}: err {err} or the '
-                             'pool differs')
+    err = (got.float() - want.float())[live].abs().max().item()
+    if not (torch.equal(k1, k2) and torch.equal(v1, v2) and err <= 1e-2
+            and torch.equal(got, again)
+            and all((got[i] == 0).all() for i in masked)):
+        raise AssertionError(f'{mode}[{width}] {label}: err {err}, the '
+                             'pool, a second call or a valid=0 slot differs')
+    del k1, v1
     ms = timer.graph(lambda i: _decode_call(
-        PA, mode, mode, d, d['kc'], d['vc'], i % n_layers, qp), 32)
+        PA, mode, mode, d, d['kc'], d['vc'], i % n_layers, qp), iters)
+    parent = decode_parent(torch, ctx, timer, mode, d, qp, live, n_layers,
+                           iters, got, f'{mode}[{width}] {label}')
     plain = timer.events(lambda i: _decode_call(
         PA, mode, mode + '_plain', d, k2, v2, i % n_layers, qp), 2,
         warmup=1)
-    live = [i for i in range(len(ctxs)) if i not in masked]
+    del k2, v2
     n_kv = max(ctxs[i] for i in live)
     kvg = [(kk[live, :, :n_kv], vv[live, :, :n_kv]) for kk, vv in
            _dequant_gather(torch, d['kc'], d['vc'], d['pt'],
@@ -1149,18 +1271,18 @@ def check_decode_write(torch, gen, timer, kh, ctxs, masked, kv_bits, label):
     q4 = d['q'][live][:, :, None]
     lib = timer.graph(lambda i: torch.nn.functional
                       .scaled_dot_product_attention(
-                          q4, *kvg[i % n_layers]), 32)
-    tok = sum(ctxs[i] for i in live)
-    b = len(ctxs)
-    bms, by = bound_ms(2 * tok * kh * dh * elem_bytes + 2 * b * h * dh * 2
-                       + 2 * b * kh * dh * 2
-                       + 2 * len(live) * kh * dh * elem_bytes,
-                       4.0 * tok * h * dh)
-    log(f'  {mode}[{width}] {label}: kernel {ms:.4f} ms, plain {plain:.3f} '
-        f'ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}), max abs err '
-        f'{err:.2e} (tol 1e-2), pool identical')
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, max_abs_err=err, shape=label)
+                          q4, *kvg[i % n_layers]), iters)
+    bms, by = bound_ms(*decode_bytes(mode, ctxs, live, b, h, kh, elem_bytes))
+    log(f'  {mode}[{width}] {label}: kernel {ms:.4f} ms ({n_layers} layers '
+        f'cycled), ' + (f'parent {parent:.4f} ms, ' if parent else '')
+        + f'plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms '
+        f'({by}), {bms / ms:.0%} of the bound, max abs err {err:.2e} (tol '
+        f'1e-2), pool identical')
+    del kvg, d
+    torch.cuda.empty_cache()
+    return dict(ms=ms, parent_ms=parent, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, max_abs_err=err, shape=label,
+                hbm_layers=n_layers)
 
 
 def check_rank_shapes(torch, ctx, timer):
@@ -1168,23 +1290,23 @@ def check_rank_shapes(torch, ctx, timer):
     gives them: the GEMM at TP2_GEMMS x TP2_ROWS (the regime the wrapper
     picks), decode attention (mode 1) and prefill attention (a 512-token
     chunk, the T = 5 verify) at H = KH = 16, each KV width, against the
-    plain versions, with times, SDPA / torch.matmul and the bound."""
+    plain versions, with times, SDPA / torch.matmul and the bound; every
+    timing cycles enough layers that weights and K/V come from HBM."""
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     from lmdeploy_tpu_torch.ops.cuda.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
     gen = torch.Generator(device='cuda').manual_seed(11)
-    n_layers = 4
     ctx['kernels'].setdefault('w4a16_gemm', {})['tp2'] = check_gemm_rows(
         torch, ctx, gen, timer, TP2_GEMMS, TP2_ROWS, 'tp=2')
     kh = h = 16
     dh, page, mode = 128, 64, 'paged_decode_attention_write'
-    label, ctxs, masked = DECODE_CASES[0]
+    label, ctxs, masked, _ = DECODE_CASES[0]
     for kv_bits, (width, _, elem_bytes) in KV_WIDTHS.items():
         qp = (torch.tensor(KERNEL_QPARAMS[kv_bits], device='cuda')
               if kv_bits else None)
         ctx['kernels'].setdefault(f'{mode}[{width}]', {})['tp2'] = \
-            check_decode_write(torch, gen, timer, kh, ctxs, masked, kv_bits,
-                               f'tp=2 rank H=KH=16, {label}')
+            check_decode_write(torch, ctx, gen, timer, kh, ctxs, masked,
+                               kv_bits, f'tp=2 rank H=KH=16, {label}')
         pre = {}
         for case, starts, ends, t in (
                 ('512-token chunk from 0', [0], [512], 512),
@@ -1192,6 +1314,10 @@ def check_rank_shapes(torch, ctx, timer):
                  [512 - 7 * i - 5 for i in range(8)],
                  [512 - 7 * i for i in range(8)], 5)):
             bb = len(starts)
+            # layers cycled so the K/V comes from HBM
+            n_layers = hbm_layers(2 * sum(ends) * kh * dh * elem_bytes,
+                                  least=4)
+            iters = max(8, n_layers)
             kc, vc, pt = _paged_case(torch, gen, bb, ends, n_layers,
                                      pages=sum(-(-e // page) for e in ends)
                                      + 8, kh=kh, kv_bits=kv_bits)
@@ -1208,11 +1334,12 @@ def check_rank_shapes(torch, ctx, timer):
                 raise AssertionError(f'paged_prefill_attention[{width}] '
                                      f'tp=2 {case}: max abs err {err}')
             route, ms, parent, plabel = time_prefill(
-                torch, ctx, timer, q, kc, vc, pt, sp, ce, qp, n_layers, 8)
+                torch, ctx, timer, q, kc, vc, pt, sp, ce, qp, n_layers,
+                iters)
             plain = timer.events(lambda i: paged_prefill_attention_plain(
                 q, kc, vc, i % n_layers, pt, sp, ce, qp), 2, warmup=1)
             lib = sdpa_ms(torch, timer, q, kc, vc, pt, starts, ends, qp,
-                          n_layers, 8)
+                          n_layers, iters)
             bms, by = bound_ms(
                 2 * bb * t * h * dh * 2 + 2 * sum(ends) * kh * dh
                 * elem_bytes,
@@ -1252,14 +1379,15 @@ def check_pp_shapes(torch, ctx, timer):
         torch, ctx, gen, timer, TP2_GEMMS, PP2_ROWS,
         'pp=2 x tp=2').items()})
     ctx['kernels'].setdefault('w4a16_gemm', {})['pp2'] = gemm
-    _, ctxs, _ = DECODE_CASES[0]
+    _, ctxs, _, _ = DECODE_CASES[0]
     for kv_bits, (width, _, _) in KV_WIDTHS.items():
         rows = {}
         for kh, b in ((32, 4), (16, 4), (16, 2)):
             label = (f'pp=2 microbatch B={b} H=KH={kh} ctx~512, slot '
                      f'{b - 1} valid=0')
-            rows[label] = check_decode_write(torch, gen, timer, kh, ctxs[:b],
-                                             (b - 1,), kv_bits, label)
+            rows[label] = check_decode_write(torch, ctx, gen, timer, kh,
+                                             ctxs[:b], (b - 1,), kv_bits,
+                                             label)
         ctx['kernels'].setdefault(
             f'paged_decode_attention_write[{width}]', {})['pp2'] = rows
         torch.cuda.empty_cache()
@@ -1975,7 +2103,7 @@ def phase_engine(torch, ctx):
     from lmdeploy_tpu_torch.models.llama import random_packed_params
     from lmdeploy_tpu_torch.ops import cuda as K
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
-        DECODE_MAX_M, WGMMA, gemm_route, sm_count)
+        WGMMA, gemm_route, sm_count)
     cfg = llama2_7b()
     nl = cfg.num_layer
     t0 = time.monotonic()
@@ -2047,10 +2175,10 @@ def phase_engine(torch, ctx):
 
     def gemm_routes(rows):
         """{GEMM route counter: launches} of one pass of ``rows`` rows
-        through the layers' five projections (none at M <= DECODE_MAX_M:
-        the decode kernel has no route counter)."""
+        through the layers' five projections (every M at group 128 takes
+        the wgmma regime)."""
         want = {}
-        for _, k, n in (LLAMA2_7B_GEMMS if rows > DECODE_MAX_M else ()):
+        for _, k, n in LLAMA2_7B_GEMMS:
             key = f'{WGMMA}:{gemm_route(rows, k, n, sm_count("cuda"))}'
             want[key] = want.get(key, 0) + nl
         return want
@@ -2139,8 +2267,7 @@ def phase_engine(torch, ctx):
         their two windows separate decode steps from prefill passes: the
         switches' decode kernel 32 launches per decode step and none per
         pass, prefill attention 32 per pass and none per step, the GEMM
-        160 per each, 160 of them per pass in the wgmma regime when the
-        prompt's bucket has more rows than DECODE_MAX_M."""
+        160 per each, all of them in the wgmma regime."""
         prompt = prompt or bs1_prompt
         decode = f'{decode_kernel_of(env)}[{width}]'
         prefill = f'paged_prefill_attention[{width}]'
@@ -2159,18 +2286,19 @@ def phase_engine(torch, ctx):
         label = (f'{width} bs1 {env or "defaults"}, {len(prompt)}-token '
                  f'prompt')
         check_route(counts, solved,
-                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl,
+                                      WGMMA: 5 * nl},
                      'prefill_passes': {
                          'w4a16_gemm': 5 * nl, prefill: nl,
-                         WGMMA: 5 * nl if rows > DECODE_MAX_M else 0}},
+                         WGMMA: 5 * nl}},
                     label, need=('decode_steps', 'prefill_passes'))
         per_step, per_pass = per['decode_steps'], per['prefill_passes']
         # chunks take route wgmma at every width; the bucket's GEMMs the
         # route gemm_route picks (splitk at 64 rows, tiles at 512)
         route = f'{prefill}:wgmma'
         routes = check_routes(
-            rmarks, {'prefill_passes': {route: nl, **gemm_routes(rows)}},
-            label)
+            rmarks, {'prefill_passes': {route: nl, **gemm_routes(rows)},
+                     'decode_steps': gemm_routes(ENGINE_SLOTS)}, label)
         ctx['kernels'].setdefault(prefill, {}).setdefault(
             'route_launches', {})[f'per prefill pass, {rows}-row bucket'] = \
             {n: v for n, v in routes['prefill_passes'].items()
@@ -2211,7 +2339,8 @@ def phase_engine(torch, ctx):
         prefill = f'paged_prefill_attention[{width}]'
         want = {'spec_rounds': {'w4a16_gemm': 5 * nl, WGMMA: 5 * nl,
                                 prefill: nl},
-                'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl}}
+                'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl,
+                                 WGMMA: 5 * nl}}
         K.reset_launch_counts()
         marks, out, stats = [mark(eng)], [], []
         rmarks = [route_mark(eng)]
@@ -2232,7 +2361,8 @@ def phase_engine(torch, ctx):
         # splitk
         routes = check_routes(
             rmarks, {'spec_rounds': {f'{prefill}:split': nl, **gemm_routes(
-                ENGINE_SLOTS * (SPEC_K + 1))}}, f'{width} spec')
+                ENGINE_SLOTS * (SPEC_K + 1))},
+                'decode_steps': gemm_routes(ENGINE_SLOTS)}, f'{width} spec')
         ctx['kernels'].setdefault(prefill, {}).setdefault(
             'route_launches', {})['per verify round'] = {
                 n: v for n, v in routes['spec_rounds'].items()
@@ -2423,7 +2553,8 @@ def phase_engine(torch, ctx):
         decode = f'paged_decode_attention_write[{width}]'
         prefill = f'paged_prefill_attention[{width}]'
         check_route(counts, solved,
-                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                    {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl,
+                                      WGMMA: 5 * nl},
                      'prefill_passes': {'w4a16_gemm': 5 * nl, WGMMA: 5 * nl,
                                         prefill: nl}},
                     f'{width} prefix hit', need=('decode_steps',
@@ -3023,7 +3154,9 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
                         need=('decode_steps', 'prefill_passes'))
             # the two bs1 windows: one pass of the 512 bucket each
             check_route(counts, launches_per_kind(marks[1:]),
-                        {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                        {'decode_steps': {
+                            'w4a16_gemm': 5 * nl, decode: nl,
+                            WGMMA: 5 * nl},
                          'prefill_passes': {'w4a16_gemm': 5 * nl,
                                             WGMMA: 5 * nl, prefill: nl}},
                         'doors int4 engine, 300-token prompts',
@@ -3363,8 +3496,8 @@ def phase_quant(torch, ctx):
 
 
 def quant(torch, ctx, cfg, device, deep_cfg=None, samples=16, seqlen=512,
-          lens=(16, 100, 300, 500), n_new=64, bs1_new=256, deep_new=128,
-          deep_conc_new=32, prompt_len=300, prof_new=16):
+          lens=(16, 100, 300, 500), n_new=64, bs1_new=256, deep_new=32,
+          deep_conc_new=32, prompt_len=300, prof_new=8):
     """A user quantises the doors phase's HF checkpoint on ``device``
     through ``cli.main lite`` and serves it: ``lite calibrate``
     (``samples`` x ``seqlen`` synthetic ids; the first 2 samples' stats
@@ -3920,7 +4053,7 @@ def ms_or_dash(ms):
     return '-' if ms is None else f'{ms:.4f}'
 
 
-def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
+def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=32, **rig_kw):
     """Tensor and data parallelism at ``cfg``'s width on ``device``: a
     tp = 1 engine, then tp = 2 (two ranks, the second a spawned process),
     each serving
@@ -4167,7 +4300,7 @@ def phase_pipeline(torch, ctx):
     pipeline(torch, ctx, llama2_7b(), 'cuda')
 
 
-def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=64, **rig_kw):
+def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=32, **rig_kw):
     """Pipeline parallelism at ``cfg``'s width on ``device`` against tp = 1
     (phase parallel's run in this call when there is one, else its own).
     pp = 2 (two ranks, the second a spawned process) serves a bs1 greedy
@@ -4943,11 +5076,11 @@ def main(argv=None) -> int:
                     help=f'comma-separated subset of {PHASES} and of '
                          f'{OPTIONAL_PHASES} (not run by default)')
     ap.add_argument('--parent', metavar='TREE',
-                    help='kernels phase: time kernels 1 and 3 of the '
+                    help='kernels phase: time kernels 1-5 of the '
                          'checkout at TREE (through its own wrappers, built '
                          "by its own build.py) beside this tree's; without "
                          "it kernel 3's parent column is this tree's route "
-                         "mma and kernel 1 has none")
+                         "mma and kernels 1, 2, 4, 5 have none")
     ap.add_argument('--profile', action='store_true',
                     help='engine phase: also profile one bs1 request on '
                          'the bf16 and on the int8 pool')
@@ -4996,6 +5129,7 @@ def main(argv=None) -> int:
             routes=k.get('routes'), route_launches=k.get('route_launches'),
             bound_ms=k.get('bound_ms'), bound_by=k.get('bound_by'),
             library_ms=k.get('library_ms'), library=k.get('library'),
+            host_us=k.get('host_us'), parent_host_us=k.get('parent_host_us'),
             shape=k.get('shape'), at_bs1=k.get('m1') or k.get('b1'),
             chunk64_over300=k.get('chunk64_over300'),
             layer_by_m=k.get('layer_by_m'), crossover=k.get('crossover'),

@@ -12,10 +12,13 @@
 // holds logical row k' in its low nibble and row K/2 + k' in its high
 // nibble; scales s[g, n] (bf16), group size `group` along K.  x is bf16.
 //
-// Two regimes; the wrapper (ops/cuda/quant_matmul.py) picks one by M at the
-// crossover measured on the H100 (DECODE_MAX_M):
-//  * decode (small M): w4a16_decode.  Bound by the packed weight bytes
-//    (K*N/2: Llama-2-7B wqkv 25.2 MB, ~7.5 us at 3.35 TB/s).  Tensor cores
+// Two regimes; the wrapper (ops/cuda/quant_matmul.py::gemm_route) picks one
+// by the quantisation group: at group 128 w4a16_wgmma takes every M (on the
+// H100 its plan beat w4a16_decode at M = 1 and M = 8 too, 0.0748 against
+// 0.0942 / 0.1015 ms a Llama-2-7B layer), and w4a16_decode the other groups:
+//  * decode (groups other than 128, M <= 64): w4a16_decode.  Bound by the
+//    packed weight bytes (K*N/2: Llama-2-7B wqkv 25.2 MB, ~7.5 us at 3.35
+//    TB/s).  Tensor cores
 //    on mma.sync.m16n8k16 bf16 -> f32 with A and B swapped: the weight is
 //    the A operand (16 output columns x 16 k) and x^T the B operand (16 k x
 //    8 rows of x), so M = 8, the engine's decode shape, fills one n8 tile;
@@ -46,8 +49,8 @@
 //    w2's 22 splits would need the non-portable size 16 or a new split of
 //    K, while the ticket pattern keeps the split and tile as they were.
 //    y is written, not accumulated, so no zero-fill launch precedes it.
-//  * M > 8: w4a16_wgmma, on two routes that the wrapper picks from shapes
-//    alone (ops/cuda/quant_matmul.py::gemm_route).  Bound by the weight's
+//  * group 128, every M: w4a16_wgmma, on two routes that the wrapper picks
+//    from shapes alone (ops/cuda/quant_matmul.py::gemm_route).  Bound by the weight's
 //    bytes at the verify's M = 40 and the 64-row bucket (one Llama-2-7B
 //    layer: 101 MB, 0.030 ms at 3.35 TB/s) and by operations from M ~ 80
 //    (2*M*K*N; M = 512: 207 GFLOP, 0.21 ms at 989 TF/s).  One kernel body:
@@ -146,7 +149,7 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t v) {
 }
 
 // ---------------------------------------------------------------------------
-// M > 8 regime: wgmma with the weight as the register operand
+// group-128 regime: wgmma with the weight as the register operand
 // ---------------------------------------------------------------------------
 
 constexpr int kGroup = 128;     // the wgmma regime's quantisation group

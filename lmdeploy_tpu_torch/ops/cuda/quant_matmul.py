@@ -11,38 +11,43 @@ JAX kernel.
 
 Bound on an H100 SXM (3.35 TB/s, 989 TF/s bf16): at decode the packed
 weight bytes K*N/2 (Llama-2-7B wqkv 25.2 MB ~ 7.5 us); at a 512-row
-prefill chunk the 2*M*K*N operations.  Two kernels, chosen by M at
-:data:`DECODE_MAX_M` (the crossover measured on the H100):
+prefill chunk the 2*M*K*N operations.  Two kernels, chosen by the
+quantisation group (the wgmma kernel takes group 128 only):
 
-- decode (M <= DECODE_MAX_M): tensor cores (mma.sync m16n8k16) with the
-  weight as the A operand and x^T as B, so M = 8 fills one n8 tile; it
-  reads every packed byte once, 16 bytes per load, turns nibbles into
-  exact bf16 by a mantissa trick.  Its grid splits K; the splits' f32
-  partials go to a workspace and the last block of each column tile sums
-  them in index order (a ticket counter per tile, zeroed once, that every
-  launch leaves at zero), so a call gives the same bits on every run.  It
-  takes N % 16 == 0, K % 16 == 0 and any group that is a multiple of 16
-  dividing K/2.
-- wgmma (M > DECODE_MAX_M, group 128): wgmma with the weight as the
-  register operand (nibbles to bf16 in registers) and x tiles of M rows
-  rounded up to 8 (up to 64; else 128, :func:`wgmma_rows`) brought by TMA
-  into a ring of shared-memory stages, one f32 partial per group folded
-  with its scales, on a persistent grid of one block per SM (its two
-  consumer warpgroups issue their products in turn at 128-row tiles).  Two
-  routes, picked by :func:`gemm_route` from shapes alone (no host sync):
+- wgmma (group 128, every M): wgmma with the weight as the register
+  operand (nibbles to bf16 in registers) and x tiles of M rows rounded up
+  to 8 (at least 16, up to 64; else 128, :func:`wgmma_rows`) brought by
+  TMA into a ring of shared-memory stages, one f32 partial per group
+  folded with its scales, on a persistent grid of one block per SM (its
+  two consumer warpgroups issue their products in turn at 128-row tiles).
+  It serves the decode steps' M <= 8 too: chip_smoke.py phase 3 (one
+  Llama-2-7B layer, five projections, weights from HBM; H100 80GB HBM3 at
+  700 W) has it, on its plan, faster than the decode kernel that took M <=
+  8 before (0.0748 against 0.0942 ms a layer at M = 1, 0.0748 against
+  0.1015 at M = 8).  Two routes, picked by :func:`gemm_route` from
+  shapes alone (no host sync):
 
   - ``splitk`` (the plan :func:`splitk_splits` cuts the half groups into
     S > 1 splits where the output tiles fill at most half the SMs: wo and
-    w2 of Llama-2-7B up to M = 128, a tp = 2 rank's projections at the
-    verify): each split writes an f32 partial to a workspace and the last
-    of a tile's splits to arrive (a self-resetting ticket per tile) sums
-    them in split order: deterministic.
+    w2 of Llama-2-7B up to M = 128, a tp = 2 rank's projections at decode
+    and at the verify): each split writes an f32 partial to a workspace
+    and the last of a tile's splits to arrive (a self-resetting ticket per
+    tile) sums them in split order: deterministic.
   - ``tiles`` (S = 1: tiles that fill the card, and the 512-row bucket):
     one item per output tile, walked persistently in an order that keeps x
     and the weight's column tiles in L2.
 
   Its launches also count under ``w4a16_gemm[wgmma]`` and
   ``w4a16_gemm[wgmma]:<route>``.
+- decode (route ``decode``: every group but 128, M <= 64): tensor cores
+  (mma.sync m16n8k16) with the weight as the A operand and x^T as B, so
+  M = 8 fills one n8 tile; it reads every packed byte once, 16 bytes per
+  load, turns nibbles into exact bf16 by a mantissa trick.  Its grid
+  splits K; the splits' f32 partials go to a workspace and the last block
+  of each column tile sums them in index order (a ticket counter per
+  tile, zeroed once, that every launch leaves at zero), so a call gives
+  the same bits on every run.  It takes N % 16 == 0, K % 16 == 0 and any
+  group that is a multiple of 16 dividing K/2.
 
 On a CPU tensor the wrapper runs :func:`w4a16_gemm_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -55,15 +60,7 @@ from . import build
 from .counts import LAUNCHES, PLAIN_CALLS
 
 NAME = 'w4a16_gemm'
-WGMMA = 'w4a16_gemm[wgmma]'      # the M > DECODE_MAX_M regime's own count
-# The largest M that takes the decode kernel; above it the wgmma kernel.
-# chip_smoke.py phase 3's crossover line (one Llama-2-7B layer, H100 80GB
-# HBM3 at 700 W) now has the wgmma kernel on its plan faster at every M it
-# times: 0.0748 against 0.0945 ms at M = 1, 0.0751 against 0.1017 at M = 8,
-# and no measured workload has the decode kernel winning at group 128.  The
-# boundary stays at 8 until the decode regime is redesigned or its group-128
-# use deleted (ROADMAP.md, Queue 2); other groups keep the decode kernel.
-DECODE_MAX_M = 8
+WGMMA = 'w4a16_gemm[wgmma]'      # the group-128 kernel's own count
 ROUTES = ('decode', 'splitk', 'tiles')
 WGMMA_ROUTES = ('splitk', 'tiles')
 ROUTE_NAMES = tuple(f'{WGMMA}:{r}' for r in WGMMA_ROUTES)
@@ -105,10 +102,10 @@ def splitk_splits(m: int, k: int, n: int, sms: int) -> int:
 
 
 def gemm_route(m: int, k: int, n: int, sms: int, group: int = GROUP) -> str:
-    """The route a call of these shapes takes: ``decode`` (M <=
-    DECODE_MAX_M, or any group but 128 up to M = 64), ``splitk`` or
-    ``tiles``.  A pure function of shapes: no host sync."""
-    if m <= DECODE_MAX_M or group != GROUP:
+    """The route a call of these shapes takes: ``decode`` (any group but
+    128, up to M = 64), else ``splitk`` or ``tiles``.  A pure function of
+    shapes: no host sync."""
+    if group != GROUP:
         return 'decode'
     return 'splitk' if splitk_splits(m, k, n, sms) > 1 else 'tiles'
 
@@ -248,5 +245,5 @@ def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
 
 __all__ = ['w4a16_gemm', 'w4a16_gemm_plain', 'w4a16_gemm_route',
            'gemm_route', 'splitk_splits', 'split_range', 'wgmma_rows',
-           'unpack_nibbles', 'DECODE_MAX_M', 'WGMMA', 'ROUTES',
+           'unpack_nibbles', 'WGMMA', 'ROUTES',
            'ROUTE_NAMES']

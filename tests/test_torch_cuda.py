@@ -216,8 +216,8 @@ GEMM_SHAPES = [(k, n, group, m)
 @pytest.mark.cuda
 @pytest.mark.parametrize('k,n,group,m', GEMM_SHAPES)
 def test_w4a16_shapes_match_plain_on_card(cuda_device, k, n, group, m):
-    """The decode kernel (M <= 8, and M <= 64 at a group of 48), route
-    splitk (9 <= M <= 64) and route tiles (M = 65) at ragged shapes: an odd
+    """The route gemm_route picks (decode at a group of 48 up to M = 64;
+    the wgmma routes at group 128, every M) at ragged shapes: an odd
     count of half groups
     (K = 2816: 11 low and 11 high groups), N not a multiple of the block's
     128 columns, and a group of 48."""
@@ -515,8 +515,10 @@ def test_w4a16_plan_mirrors_the_kernel_on_card(cuda_device):
 @pytest.mark.cuda
 def test_w4a16_route_counts_on_card(cuda_device):
     """Every launch counts under the kernel, the wgmma regime and the
-    route gemm_route picks from the shapes: decode at M <= 8, splitk at
-    the verify's 40 and the 64 bucket, tiles at 512."""
+    route gemm_route picks from the shapes: at group 128 no M takes the
+    decode route; a 4096 x 4096 projection takes splitk up to the 64
+    bucket (its 32 column tiles would leave the card idle) and tiles at
+    512."""
     import lmdeploy_tpu_torch.ops.cuda as K
     rng = np.random.default_rng(900)
     K.reset_launch_counts()
@@ -525,14 +527,12 @@ def test_w4a16_route_counts_on_card(cuda_device):
         args = _gemm_args(rng, m, 4096, 4096, cuda_device)
         w4a16_gemm(*args)
         route = gemm_route(m, 4096, 4096, sm_count(cuda_device))
-        assert route == ('decode' if m <= 8 else
-                         'splitk' if m <= 64 else 'tiles')
-        if route != 'decode':
-            key = f'w4a16_gemm[wgmma]:{route}'
-            want[key] = want.get(key, 0) + 1
+        assert route == ('splitk' if m <= 64 else 'tiles')
+        key = f'w4a16_gemm[wgmma]:{route}'
+        want[key] = want.get(key, 0) + 1
     assert {n: c for n, c in K.route_counts().items() if c} == want
     assert K.launch_counts(True)['w4a16_gemm'] == (6, 0)
-    assert K.launch_counts(True)['w4a16_gemm[wgmma]'] == (4, 0)
+    assert K.launch_counts(True)['w4a16_gemm[wgmma]'] == (6, 0)
 
 
 def _split_case(rng, ctxs, kv_bits, kh, page, device):
@@ -699,14 +699,15 @@ TP2_GEMMS = ((4096, 6144), (2048, 4096), (4096, 5632), (5632, 4096))
 @pytest.mark.parametrize('k,n', TP2_GEMMS)
 def test_w4a16_at_tp_rank_shapes_matches_plain_on_card(cuda_device, k, n,
                                                        m):
-    """The GEMM at a tp = 2 rank's projections, in the regime the wrapper
-    picks for M (the decode kernel at M <= 8, wgmma above)."""
+    """The GEMM at a tp = 2 rank's projections, on the route the wrapper
+    picks for M, and on the decode route at M <= 8."""
     rng = np.random.default_rng(k + n + m)
     args = _gemm_args(rng, m, k, n, cuda_device)
-    got = w4a16_gemm(*args)
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
-    assert (got - want).abs().max().item() <= tol
+    for got in [w4a16_gemm(*args)] + (
+            [w4a16_gemm_route(*args, 'decode')] if m <= 8 else []):
+        assert (got - want).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
@@ -829,3 +830,59 @@ def test_debug_hook_off_has_no_host_sync_on_card(cuda_device, monkeypatch,
     finally:
         monkeypatch.delenv('LMDEPLOY_TPU_DEBUG')
         importlib.reload(debug)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_bits', [0, 8, 4])
+@pytest.mark.parametrize('mode', ['attend', 'write', 'rope_write'])
+def test_decode_engine_and_gqa8_shapes_bit_identical_on_card(cuda_device,
+                                                             mode, kv_bits):
+    """Decode attention at the engine's B = 8 (ctx ~512, one valid = 0
+    slot), at a bs1 request among 7 masked slots and at G = 8 (KH = 4 of H
+    = 32), 64-token pages: two calls give the same bits, the pool is
+    bit-identical to the plain version's after the store, valid rows lie
+    within 1e-2 and masked slots come back as zeros."""
+    rng = np.random.default_rng(700 + kv_bits + len(mode))
+    bf, page = torch.bfloat16, 64
+    qp = (torch.tensor(QPARAMS[kv_bits], device=cuda_device)
+          if kv_bits else None)
+    cases = (([512 - 7 * i for i in range(8)], (3,), 32),
+             ([600] + [500] * 7, tuple(range(1, 8)), 32),
+             ([512 - 7 * i for i in range(8)], (3,), 4))
+    for ctxs, masked, kh in cases:
+        b, h = len(ctxs), 32
+        kc, vc, pt, cl = _split_case(rng, ctxs, kv_bits, kh, page,
+                                     cuda_device)
+        valid = torch.ones(b, dtype=torch.int32, device=cuda_device)
+        valid[list(masked)] = 0
+        q, kn, vn = (torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32) * 2).to(cuda_device, bf)
+            for shape in ((b, h, 128), (b, kh, 128), (b, kh, 128)))
+        pos = cl.float() - 1
+        inv = 10000.0 ** (-torch.arange(64, device=cuda_device).float() / 64)
+        cos_f, sin_f = PA.rope_full_tables(torch.cos(pos[:, None] * inv),
+                                           torch.sin(pos[:, None] * inv),
+                                           128)
+        qs = torch.linspace(0.9, 1.2, b, device=cuda_device)
+
+        def call(fn, k, v):
+            if mode == 'attend':
+                return getattr(PA, fn)(q, k, v, 1, pt, cl, qp)
+            fn = fn.replace('attention', f'attention_{mode}')
+            if mode == 'write':
+                return getattr(PA, fn)(q, kn, vn, k, v, 1, pt, cl, valid, qp)
+            return getattr(PA, fn)(q, kn, vn, cos_f, sin_f, qs, k, v, 1, pt,
+                                   cl, valid, qp, half=64)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = call('paged_decode_attention', k1, v1)
+        again = call('paged_decode_attention', k1, v1)
+        want = call('paged_decode_attention_plain', k2, v2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (ctxs, kh)
+        assert torch.equal(k1, k2) and torch.equal(v1, v2), (ctxs, kh)
+        ok = valid.bool() if mode != 'attend' else torch.ones_like(
+            valid, dtype=torch.bool)
+        err = (got.float() - want.float())[ok].abs().max().item()
+        assert err <= 1e-2, (ctxs, kh, err)
+        if mode != 'attend':
+            assert (got[~ok] == 0).all()

@@ -17,7 +17,8 @@ Each emulation is held to ``packed_int4_matmul`` (Pallas in interpret
 mode, as the JAX package's own tests run it on the CPU) and to the port's
 plain version on identical numpy inputs, within 1e-3 max|y| + 1e-3, the
 tolerance ``chip_smoke.py`` and the card tests hold the kernel to.  The
-route rule (``gemm_route``) and the split plan (``splitk_splits``,
+route rule (``gemm_route``: at group 128 every M, the decode steps' M <= 8
+too, takes the wgmma regime) and the split plan (``splitk_splits``,
 ``split_range``) are pure functions of shapes, tested here at the main
 path's shapes.
 """
@@ -32,8 +33,8 @@ import jax.numpy as jnp
 from lmdeploy_tpu.ops.pallas.quant_matmul import \
     packed_int4_matmul as jax_packed_matmul
 from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
-    DECODE_MAX_M, SPLITK_MAX, gemm_route, split_range,
-    splitk_splits, unpack_nibbles, w4a16_gemm_plain, wgmma_rows)
+    SPLITK_MAX, gemm_route, split_range, splitk_splits, unpack_nibbles,
+    w4a16_gemm_plain, wgmma_rows)
 
 torch.set_num_threads(1)
 
@@ -84,12 +85,13 @@ def emulate_route(x, packed, scales, layer, splits):
 
 
 @pytest.mark.parametrize('route', ['splitk', 'tiles'])
-@pytest.mark.parametrize('m', [9, 40, 64, 130, 512])
+@pytest.mark.parametrize('m', [1, 4, 8, 9, 40, 64, 130, 512])
 def test_route_sum_order_matches_pallas_and_plain(m, route):
     """Each route's emulated order (splitk at the plan's S, or two splits
     where the plan takes one; tiles in one sum) and the plain version
     agree with packed_int4_matmul (interpret) within 1e-3 max|y| + 1e-3, at
-    ragged N and at M on both sides of the 64-row tiles."""
+    ragged N, at the decode steps' M <= 8 and at M on both sides of the
+    64-row tiles."""
     x, packed, scales, want = _case(m)
     splits = (max(2, splitk_splits(m, K, N, SMS)) if route == 'splitk'
               else 1)
@@ -115,18 +117,42 @@ def test_split_orders_agree_with_each_other(splits):
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize('k', [4096, 11008])
+@pytest.mark.parametrize('m', [1, 4, 8])
+def test_decode_rows_sum_order_matches_pallas(m, k):
+    """The decode steps' rows at Llama-2-7B's K: the order of route tiles
+    (wqkv, w1, w3) and of route splitk at the plan's S for wo and w2 (N =
+    4096: four splits), on 272 columns of such a projection, agree with
+    packed_int4_matmul (interpret) within 1e-3 max|y| + 1e-3."""
+    rng = np.random.default_rng(1400 + m + k)
+    n = 272
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    packed = rng.integers(0, 256, size=(1, k // 2, n), dtype=np.uint8)
+    scales = _bf16(torch.from_numpy(rng.uniform(
+        0.01, 0.1, size=(1, k // 128, 1, n)).astype(np.float32))).numpy()
+    want = torch.from_numpy(np.array(jax_packed_matmul(
+        jnp.asarray(x), jnp.asarray(packed),
+        jnp.asarray(scales, jnp.bfloat16), 0, interpret=True), np.float32))
+    args = (torch.from_numpy(x), torch.from_numpy(packed),
+            torch.from_numpy(scales).to(torch.bfloat16), 0)
+    splits = splitk_splits(m, k, 4096, SMS)
+    assert splits == 4 and gemm_route(m, k, 4096, SMS) == 'splitk'
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    for s in (1, splits):
+        assert (emulate_route(*args, s) - want).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize('k,n', LLAMA2_7B + TP2)
 def test_gemm_route_at_main_path_shapes(k, n):
-    """Decode steps (M = 8) and a bs1 step (M = 1) take the decode kernel,
-    the pp = 2 ring's microbatches (M = 4, 2) too; the 512-row bucket takes
-    tiles; in between (the verify of 8 slots x (k + 1) = 40 rows, the
-    64-row bucket) the route is splitk exactly where the output tiles fill
-    at most half the card, at every 7B and tp = 2 rank projection."""
-    for m in (1, 2, 4, 8):
-        assert gemm_route(m, k, n, SMS) == 'decode'
+    """At group 128 every M takes the wgmma kernel: decode steps (M = 8),
+    a bs1 step (M = 1) and the pp = 2 ring's microbatches (M = 4, 2) as
+    much as the verify (8 slots x (k + 1) = 40 rows) and the buckets; the
+    route is splitk exactly where the output tiles fill at most half the
+    card, at every 7B and tp = 2 rank projection, and the 512-row bucket
+    takes tiles."""
     assert gemm_route(512, k, n, SMS) == 'tiles'
     assert splitk_splits(512, k, n, SMS) == 1
-    for m in (9, 16, 40, 64, 65, 128, 256):
+    for m in (1, 2, 4, 8, 9, 16, 40, 64, 65, 128, 256):
         tiles = -(-n // 128) * -(-m // wgmma_rows(m))
         s = splitk_splits(m, k, n, SMS)
         assert gemm_route(m, k, n, SMS) == ('splitk' if s > 1 else 'tiles')
@@ -148,11 +174,12 @@ def test_gemm_route_at_the_verify():
 
 def test_gemm_route_keeps_other_groups_on_the_decode_kernel():
     """A group other than 128 keeps the decode kernel (the wrapper raises
-    above M = 64, as before the routes)."""
-    for m in (1, 9, 40, 64):
+    above M = 64, as before the routes); at group 128 no M takes it."""
+    for m in (1, 8, 9, 40, 64):
         assert gemm_route(m, 1536, 256, SMS, group=48) == 'decode'
-    assert gemm_route(DECODE_MAX_M, 4096, 4096, SMS) == 'decode'
-    assert gemm_route(DECODE_MAX_M + 1, 4096, 4096, SMS) == 'splitk'
+        assert gemm_route(m, 1536, 256, SMS, group=64) == 'decode'
+        assert gemm_route(m, 4096, 4096, SMS) != 'decode'
+    assert gemm_route(1, 4096, 4096, SMS) == 'splitk'
 
 
 def test_tiles_that_underfill_the_card_split():
