@@ -45,7 +45,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                attention at H = KH = 16); kernels 1 and 2 at the pp = 2
                ring's microbatch (the kernels line's pp2 key: the GEMM at
                M = 4 and 2 over one layer and one tp = 2 rank's, decode
-               attention at B = 4, H = KH = 32 / 16, and B = 2, 16)
+               attention at B = 4, H = KH = 32 / 16, and B = 2, 16); and
+               the GEMM over the rest of its TPU function's domain: groups
+               64, 32 and 256 over one Llama-2-7B layer at M = 1 / 8 / 40 /
+               64 / 512 and group 128 over Qwen-14B's projections at M = 1
+               / 8 / 40 / 512 (the kernels line's groups and qwen14b keys).
+               With --parent every group-128 GEMM case must give the
+               parent's bits
   4. model   — a 2-layer full-width W4A16 model: one 64-token prefill chunk
                + 4 decode steps + one T=5 speculative verify forward (every
                row's logits) through the kernels on the card against the
@@ -119,7 +125,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                server's core over AsyncEngine without aiohttp (every route,
                a 404 and a 400), `cli.main chat` in a subprocess and
                cli/decode.py's perplexity, and a RouterEngine over the
-               engine and a peer process on the same card.
+               engine and a peer process on the same card.  The checkpoint
+               also goes through the converter's command line at
+               --group-size 64: an engine on that workspace serves 4
+               concurrent requests (the 512 bucket) and a speculative one,
+               every GEMM launch on a wgmma route, prompt logits within 5%
+               (cosine 0.999) of the CPU's.
   7. quant   — a user quantises that checkpoint on the card and serves it:
                `lite calibrate` (16 x 512 synthetic ids, bf16 through the
                prefill-attention kernel: 32 launches; the first 2 samples'
@@ -134,7 +145,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                same checks) and `--kv-bits 4` per layer (kernels 2 and 3 at
                int4 launch as before); then the 32-layer model of phase 5 on
                a dynamic and a static int4 pool (4 concurrent requests of 32
-               new, bs1 32, a bs1 request of 8 under a CUDA-only profile:
+               new, bs1 32, a bs1 request of 4 under a CUDA-only profile:
                tok/s, TTFT, peak memory, device ms per forward pass, which at
                bs1 is a token).  Phases 5 and 7 keep sessions in the native C++
                store; phase 5's prefix-hit follower also runs on the Python
@@ -173,17 +184,34 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                (quant_matmul_a8) at the five projections and M = 1 / 8 /
                40 / 512 on the card against the CPU (1e-3 of max|ref|),
                timed beside the byte form's product and kernel 1; phase
-               5's 32-layer weights served packed, byte-per-int4
-               (LMDEPLOY_TPU_PACKED_INT4=0) and byte + LMDEPLOY_TPU_W4A8=1
-               (bs1 32 new from 100 tokens, prompt logits of 300; the byte
-               stream equals the packed one up to near-ties, logits within
-               5% / cosine 0.999; the byte and W4A8 engines launch no GEMM,
-               32 decode attention a step and 32 prefill attention a pass;
+               5's weights cut to TOOLS_LAYERS layers served packed,
+               byte-per-int4 (LMDEPLOY_TPU_PACKED_INT4=0) and byte +
+               LMDEPLOY_TPU_W4A8=1 (bs1 32 new from 100 tokens, prompt
+               logits of 300; the byte stream equals the packed one up to
+               near-ties, logits within 5% / cosine 0.999; the byte and
+               W4A8 engines launch no GEMM, L decode attention a step and
+               L prefill attention a pass;
                tok/s, device ms a step, peak memory); W4A8 prompt logits of
                a 2-layer cut, card against CPU (5% / 0.999); the debugger
                (LMDEPLOY_TPU_DEBUG=dump, then cmp on the card, then cmp of
                the CPU's run) on that cut; trace() and annotate() around a
                bs1 request.  Alone: --phases probe,build,tools.
+ 11. families — Qwen-14B's widths (hidden 5120, 40 heads = KV heads,
+               inter 13696: w2 has 107 groups of 128, which the tp = 1
+               engine pads to 108 and packs; vocab 152064, qkv bias,
+               dynamic NTK and logn past seq_length 2048) cut to
+               FAMILY_LAYERS of its 40 layers, random packed weights at
+               group 128: 4 concurrent greedy requests and two bs1 ones
+               (launches per decode step 5L GEMM + L decode attention, per
+               prefill pass 5L + L prefill attention, no plain call, every
+               W4A16 weight packed), a seeded sampled pair (identical), a
+               speculative request (verify rounds ran, every GEMM on a
+               wgmma route), a 2040-token prompt + 24 new under
+               LMDEPLOY_TPU_FUSED_ROPE=1 (kernel 5's L launches a step,
+               logn on) and the defaults (streams equal up to a near-tie),
+               prefix caching off, and prompt logits of a 2-layer cut
+               against the CPU (5%, cosine 0.999).  Alone: --phases
+               probe,build,families.
 Not run by default:
   breakdown — where kernels 1 and 3's time goes.  Kernel 1: one layer's
                projections at M = 40, 64 and 512 and at a tp = 2 rank's M =
@@ -226,7 +254,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PHASES = ('probe', 'build', 'kernels', 'model', 'engine', 'doors', 'quant',
-          'parallel', 'pipeline', 'tools')
+          'parallel', 'pipeline', 'tools', 'families')
 OPTIONAL_PHASES = ('breakdown',)
 LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w1', 4096, 11008), ('w3', 4096, 11008),
@@ -418,32 +446,38 @@ def _rand_packed(torch, gen, shape):
                          device='cuda')
 
 
-def _gemm_weights(torch, gen, k, n, n_layers):
-    """A random packed weight [L, K/2, N], its bf16 scales and each layer's
-    dequantised bf16 weight (torch.matmul's operand)."""
+def _gemm_weights(torch, gen, k, n, n_layers, group=128):
+    """A random packed weight [L, K/2, N], its bf16 scales (group
+    ``group``) and each layer's dequantised bf16 weight (torch.matmul's
+    operand)."""
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import unpack_nibbles
-    g = k // 128
+    g = k // group
     packed = _rand_packed(torch, gen, (n_layers, k // 2, n))
     scales = (torch.rand((n_layers, g, 1, n), generator=gen,
                          device='cuda') * 0.01 + 0.001).to(torch.bfloat16)
-    deq = [(unpack_nibbles(packed[i]).float().reshape(g, 128, n)
+    deq = [(unpack_nibbles(packed[i]).float().reshape(g, group, n)
             * scales[i].float()).reshape(k, n).to(torch.bfloat16)
            for i in range(n_layers)]
     return packed, scales, deq
 
 
-def gemm_bound(m, k, n):
-    """Kernel 1's bound: x, the packed weight, the scales and y once
-    (bytes); 2 M K N (operations)."""
-    return bound_ms(m * k * 2 + k * n // 2 + k // 128 * n * 2 + m * n * 4,
-                    2.0 * m * k * n)
+def gemm_bytes(m, k, n, group=128):
+    """Kernel 1's bytes: x, the packed weight, the scales and y once."""
+    return m * k * 2 + k * n // 2 + k // group * n * 2 + m * n * 4
+
+
+def gemm_bound(m, k, n, group=128):
+    """Kernel 1's bound: :func:`gemm_bytes` (bytes); 2 M K N
+    (operations)."""
+    return bound_ms(gemm_bytes(m, k, n, group), 2.0 * m * k * n)
 
 
 def gemm_parent_ms(torch, ctx, timer, x, packed, scales, layer, want, tol,
-                   label, n_layers, iters=16):
+                   label, n_layers, iters=16, mine=None):
     """The parent checkout's kernel 1 (--parent) through its own wrapper on
-    these inputs, held to the plain version at ``layer`` (``want``), timed
-    cycling n_layers layers; None without --parent."""
+    these inputs, held to the plain version at ``layer`` (``want``) and,
+    where ``mine`` (this tree's output at ``layer``) is given, to it bit
+    for bit, timed cycling n_layers layers; None without --parent."""
     qm = ctx.get('parent_qm')
     if qm is None:
         return None
@@ -452,6 +486,11 @@ def gemm_parent_ms(torch, ctx, timer, x, packed, scales, layer, want, tol,
     e = (theirs - want).abs().max().item()
     if not e <= tol:
         raise AssertionError(f'parent w4a16_gemm {label}: max abs err {e}')
+    if mine is not None and not torch.equal(theirs, mine):
+        raise AssertionError(
+            f'w4a16_gemm {label}: not bit-identical to the parent\'s '
+            f'(max abs difference '
+            f'{(theirs - mine).abs().max().item():.3e})')
     return timer.graph(lambda i: qm.w4a16_gemm(x, packed, scales,
                                                i % n_layers),
                        max(iters, n_layers))
@@ -491,17 +530,17 @@ def check_gemm(torch, ctx, timer):
             want = w4a16_gemm_plain(x, packed, scales, 3)
             scale = want.abs().max().item()
             tol = 1e-3 * scale + 1e-3
-            route = gemm_route(m, k, n, sms)
+            route = gemm_route(m, k, n, sms, 128)
             timed = {route}
             if m <= GEMM_CROSS_MAX_M:
                 timed.add('decode')
-            plan = ('splitk' if splitk_splits(m, k, n, sms) > 1
+            plan = ('splitk' if splitk_splits(m, k, n, sms, 128) > 1
                     else 'tiles')
             if m <= GEMM_CROSS_MAX_M:
                 timed.add(plan)         # the crossover's other side
-            errs, times = {}, {}
+            errs, times, outs = {}, {}, {}
             for r in [r for r in ROUTES if r != 'decode' or m <= 64]:
-                got = w4a16_gemm_route(x, packed, scales, 3, r)
+                got = outs[r] = w4a16_gemm_route(x, packed, scales, 3, r)
                 torch.cuda.synchronize()
                 errs[r] = (got - want).abs().max().item()
                 if not errs[r] <= tol:
@@ -516,9 +555,10 @@ def check_gemm(torch, ctx, timer):
                         ms = t
                     if r == plan:
                         wgmma_plan[m] = wgmma_plan.get(m, 0.0) + t
+            # at group 128 the parent's kernel 1 gives the same bits
             parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 3,
                                     want, tol, f'{name} M={m}', n_layers,
-                                    iters)
+                                    iters, mine=outs[route])
             lib_ms = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
                                  iters)
             plain = timer.events(lambda i: w4a16_gemm_plain(
@@ -538,7 +578,7 @@ def check_gemm(torch, ctx, timer):
                        if qm is not None else '') + f' (M={m}, {name})')
             bms, by = gemm_bound(m, k, n)
             shape = ('' if route == 'decode' else
-                     f', S={splitk_splits(m, k, n, sms)}, x tile '
+                     f', S={splitk_splits(m, k, n, sms, 128)}, x tile '
                      f'{wgmma_rows(m)} rows')
             rows.append((name, m, k, n, route, ms, parent, plain, lib_ms, bms,
                          by, errs[route]))
@@ -554,8 +594,7 @@ def check_gemm(torch, ctx, timer):
             layer[m]['routes'][name] = route
             for key, val in (('ms', ms), ('plain_ms', plain),
                              ('library_ms', lib_ms), ('parent_ms', parent),
-                             ('bytes', m * k * 2 + k * n // 2
-                              + k // 128 * n * 2 + m * n * 4),
+                             ('bytes', gemm_bytes(m, k, n)),
                              ('ops', 2.0 * m * k * n)):
                 if key in layer[m]:
                     layer[m][key] += val
@@ -602,8 +641,8 @@ def check_gemm(torch, ctx, timer):
                            ('tiles', 512, 'the 512-token bucket')):
         mine = [r for r in rows if r[1] == m and r[4] == route]
         names = '+'.join(r[0] for r in mine)
-        bms, by = bound_ms(sum(mm * k * 2 + k * n // 2 + k // 128 * n * 2
-                               + mm * n * 4 for _, mm, k, n, *_ in mine),
+        bms, by = bound_ms(sum(gemm_bytes(mm, k, n)
+                               for _, mm, k, n, *_ in mine),
                            sum(2.0 * mm * k * n for _, mm, k, n, *_ in mine))
         parents = [r[6] for r in mine]
         ctx['kernels'][f'w4a16_gemm[wgmma]:{route}'] = dict(
@@ -1157,11 +1196,16 @@ TP2_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 512)
 PP2_ROWS = (ENGINE_SLOTS // 2, ENGINE_SLOTS // 4)
 
 
-def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
-    """The W4A16 GEMM at ``gemms`` x ``m_rows`` (the route the wrapper
-    picks) against its plain version, with the parent's kernel
-    (--parent), torch.matmul on the dequantised weight and the bound; a
-    row each, keyed by shape."""
+def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label,
+                    group=128):
+    """The W4A16 GEMM at ``gemms`` x ``m_rows`` at quantisation group
+    ``group`` (the route the wrapper picks) against its plain version,
+    with the parent's kernel (--parent) wherever the parent took the
+    shape: group 128 at every M, other groups at M <= 64 (its decode
+    kernel); at 128 and at the groups that stay on the decode kernel
+    (not multiples of 64) with the same bits, as the code is the same.
+    Also torch.matmul on the dequantised weight and the bound; a row
+    each, keyed by shape."""
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
         gemm_route, sm_count, w4a16_gemm, w4a16_gemm_plain)
     rows = {}
@@ -1169,7 +1213,8 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
         # timing cycles layers so weights come from HBM
         n_layers = hbm_layers(k * n // 2)
         iters = max(16, n_layers)
-        packed, scales, deq = _gemm_weights(torch, gen, k, n, n_layers)
+        packed, scales, deq = _gemm_weights(torch, gen, k, n, n_layers,
+                                            group)
         for m in m_rows:
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
@@ -1181,7 +1226,7 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
             if not err <= tol:
                 raise AssertionError(f'w4a16_gemm {label} {name} M={m}: max '
                                      f'abs err {err} > {tol}')
-            route = gemm_route(m, k, n, sm_count('cuda'))
+            route = gemm_route(m, k, n, sm_count('cuda'), group)
             ms = timer.graph(lambda i: w4a16_gemm(x, packed, scales,
                                                   i % n_layers), iters)
             again = w4a16_gemm(x, packed, scales, 1)
@@ -1189,18 +1234,21 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
             if not torch.equal(got, again):
                 raise AssertionError(f'w4a16_gemm {label} {name} M={m}: a '
                                      'second call differs')
-            parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 1,
-                                    want, tol, f'{label} {name} M={m}',
-                                    n_layers, iters)
+            same = group == 128 or group % 64 != 0
+            parent = gemm_parent_ms(
+                torch, ctx, timer, x, packed, scales, 1, want, tol,
+                f'{label} {name} M={m}', n_layers, iters,
+                mine=got if same else None) if (
+                    group == 128 or m <= 64) else None
             lib = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
                               iters)
             plain = timer.events(lambda i: w4a16_gemm_plain(
                 x, packed, scales, i % n_layers), 2, warmup=1)
-            bms, by = gemm_bound(m, k, n)
+            bms, by = gemm_bound(m, k, n, group)
             rows[f'{name} K={k} N={n} M={m}'] = dict(
                 route=route, ms=ms, parent_ms=parent, plain_ms=plain,
                 library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err)
-            log(f'  w4a16_gemm {label} rank {name:4s} M={m:3d} K={k:5d} '
+            log(f'  w4a16_gemm {label} {name:4s} M={m:3d} K={k:5d} '
                 f'N={n:5d} (route {route}): kernel {ms:.4f} ms, '
                 + (f'parent {parent:.4f} ms, ' if parent is not None else '')
                 + f'plain {plain:.3f} ms, torch.matmul {lib:.4f} ms, bound '
@@ -1210,16 +1258,62 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label):
     # one layer: w1's shape stands for w3 too where ``gemms`` lists it once
     times = {name: 2 if name == 'w1' and len(gemms) == 4 else 1
              for name, _, _ in gemms}
+    layers = {}
     for m in m_rows:
         mine = [(times[key.split()[0]], r) for key, r in rows.items()
                 if key.endswith(f' M={m}')]
-        layer = {key: (None if any(r[key] is None for _, r in mine) else
-                       sum(c * r[key] for c, r in mine))
-                 for key in ('ms', 'parent_ms', 'library_ms')}
-        log(f'  w4a16_gemm {label} rank, one layer M={m} (w1 counted for '
-            f'w3 too): ' + ', '.join(f'{key} {v:.4f}' for key, v in
-                                     layer.items() if v is not None))
+        layer = layers[f'M={m}'] = {
+            key: (None if any(r[key] is None for _, r in mine) else
+                  sum(c * r[key] for c, r in mine))
+            for key in ('ms', 'parent_ms', 'library_ms', 'plain_ms')}
+        layer['bound_ms'], layer['bound_by'] = bound_ms(
+            sum(times[name] * gemm_bytes(m, k, n, group)
+                for name, k, n in gemms),
+            sum(times[name] * 2.0 * m * k * n for name, k, n in gemms))
+        log(f'  w4a16_gemm {label}, one layer M={m} (w1 counted for w3 '
+            'where w3 is not listed): ' + ', '.join(
+                f'{key} {v:.4f}' for key, v in layer.items()
+                if isinstance(v, float)))
+    rows['one layer'] = layers
     return rows
+
+
+# Kernel 1 over the rest of the JAX kernel's domain: the other groups it
+# takes (a multiple of 64 runs the wgmma kernel, any other multiple of 16
+# the decode kernel, at every M) over one Llama-2-7B layer (w1 stands for
+# w3; w2's K = 11008 is 43 groups of 256, an odd count, so at group 256
+# it is the 11264 the engine pads it to; at group 48 K pads to a multiple
+# of 96: 4128 and 11040), and Qwen-14B's projections at group 128 (inter
+# 13696, 107 groups, padded to 13824).  Groups 32 and 48 (the decode
+# kernel's tasks of two and of one k16 step) are also the parent's
+# code at M <= 64, so --parent holds them to its bits there
+GEMM_GROUPS = (64, 32, 256, 48)
+GROUP_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 64, 512)
+QWEN14B_GEMMS = (('wqkv', 5120, 15360), ('wo', 5120, 5120),
+                 ('w1', 5120, 13824), ('w2', 13824, 5120))
+QWEN14B_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 512)
+
+
+def check_gemm_groups(torch, ctx, timer):
+    """Kernel 1 at GEMM_GROUPS over one Llama-2-7B layer at GROUP_ROWS,
+    and at group 128 over Qwen-14B's projections at QWEN14B_ROWS, each on
+    the route the wrapper picks against its plain version, with
+    torch.matmul on the dequantised weight and the bound (the parent's
+    kernel too where it took the shape, see check_gemm_rows), under the
+    kernels line's ``groups`` and ``qwen14b`` keys."""
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    entry = ctx['kernels'].setdefault('w4a16_gemm', {})
+    groups = entry['groups'] = {}
+    for group in GEMM_GROUPS:
+        gemms = tuple((name, k + (-k) % (2 * group), n) for name, k, n in
+                      LLAMA2_7B_GEMMS if name != 'w3')
+        groups[group] = check_gemm_rows(torch, ctx, gen, timer, gemms,
+                                        GROUP_ROWS, f'group {group}', group)
+        torch.cuda.empty_cache()
+    entry['qwen14b'] = check_gemm_rows(torch, ctx, gen, timer,
+                                       QWEN14B_GEMMS, QWEN14B_ROWS,
+                                       'Qwen-14B group 128')
+    torch.cuda.empty_cache()
 
 
 def check_decode_write(torch, ctx, gen, timer, kh, ctxs, masked, kv_bits,
@@ -1297,7 +1391,7 @@ def check_rank_shapes(torch, ctx, timer):
         paged_prefill_attention, paged_prefill_attention_plain)
     gen = torch.Generator(device='cuda').manual_seed(11)
     ctx['kernels'].setdefault('w4a16_gemm', {})['tp2'] = check_gemm_rows(
-        torch, ctx, gen, timer, TP2_GEMMS, TP2_ROWS, 'tp=2')
+        torch, ctx, gen, timer, TP2_GEMMS, TP2_ROWS, 'tp=2 rank')
     kh = h = 16
     dh, page, mode = 128, 64, 'paged_decode_attention_write'
     label, ctxs, masked, _ = DECODE_CASES[0]
@@ -1374,10 +1468,11 @@ def check_pp_shapes(torch, ctx, timer):
     from lmdeploy_tpu_torch.kvcache.paged import KV_WIDTHS
     gen = torch.Generator(device='cuda').manual_seed(12)
     gemm = {f'tp=1 {k}': v for k, v in check_gemm_rows(
-        torch, ctx, gen, timer, LLAMA2_7B_GEMMS, PP2_ROWS, 'pp=2').items()}
+        torch, ctx, gen, timer, LLAMA2_7B_GEMMS, PP2_ROWS,
+        'pp=2 rank').items()}
     gemm.update({f'tp=2 {k}': v for k, v in check_gemm_rows(
         torch, ctx, gen, timer, TP2_GEMMS, PP2_ROWS,
-        'pp=2 x tp=2').items()})
+        'pp=2 x tp=2 rank').items()})
     ctx['kernels'].setdefault('w4a16_gemm', {})['pp2'] = gemm
     _, ctxs, _, _ = DECODE_CASES[0]
     for kv_bits, (width, _, _) in KV_WIDTHS.items():
@@ -1568,6 +1663,12 @@ GEMM_BREAKDOWN_CASES = (
     ('7B layer M=512 (bucket)', LLAMA2_7B_GEMMS, 512),
     ('tp=2 rank layer M=40', None, ENGINE_SLOTS * (SPEC_K + 1)),
     ('tp=2 rank layer M=512', None, 512),
+    # group 64 folds twice as often: whether ping-pong (on at 128-row
+    # tiles: no_order turns it off; all_order on below) still pays
+    ('7B layer M=40 group 64', LLAMA2_7B_GEMMS,
+     ENGINE_SLOTS * (SPEC_K + 1), 64),
+    ('7B layer M=128 group 64', LLAMA2_7B_GEMMS, 128, 64),
+    ('7B layer M=512 group 64', LLAMA2_7B_GEMMS, 512, 64),
 )
 
 
@@ -1587,14 +1688,15 @@ def gemm_breakdown(torch, ctx, timer, libs):
         gemm_route, sm_count, w4a16_gemm_route)
     gen = torch.Generator(device='cuda').manual_seed(2)
     out = {}
-    for label, gemms, m in GEMM_BREAKDOWN_CASES:
+    for label, gemms, m, *group in GEMM_BREAKDOWN_CASES:
         gemms = gemms or TP2_GEMMS
+        group = group[0] if group else 128
         row = {}
         for name, k, n in gemms:
-            packed, scales, _ = _gemm_weights(torch, gen, k, n, 4)
+            packed, scales, _ = _gemm_weights(torch, gen, k, n, 4, group)
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
-            route = gemm_route(m, k, n, sm_count('cuda'))
+            route = gemm_route(m, k, n, sm_count('cuda'), group)
             other = 'tiles' if route == 'splitk' else 'splitk'
             row.setdefault('routes', []).append(route)
             for variant, lib in libs.items():
@@ -1652,6 +1754,7 @@ def phase_kernels(torch, ctx):
     check_verify(torch, ctx, timer)
     check_rank_shapes(torch, ctx, timer)
     check_pp_shapes(torch, ctx, timer)
+    check_gemm_groups(torch, ctx, timer)
 
 
 def llama2_7b(num_layer: int = 32):
@@ -2179,7 +2282,7 @@ def phase_engine(torch, ctx):
         the wgmma regime)."""
         want = {}
         for _, k, n in LLAMA2_7B_GEMMS:
-            key = f'{WGMMA}:{gemm_route(rows, k, n, sm_count("cuda"))}'
+            key = f'{WGMMA}:{gemm_route(rows, k, n, sm_count("cuda"), 128)}'
             want[key] = want.get(key, 0) + nl
         return want
 
@@ -3102,14 +3205,21 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
                  'prefill_passes': eng.stats['prefill_passes']})
 
     tmp = tempfile.mkdtemp(prefix='lmdeploy-doors-')
-    ws_q, awq, ws_awq = (os.path.join(tmp, n) for n in (
-        'ws-int4', 'llama2-awq', 'ws-awq'))
-    engines, proc = [], None
+    ws_q, awq, ws_awq, ws_64 = (os.path.join(tmp, n) for n in (
+        'ws-int4', 'llama2-awq', 'ws-awq', 'ws-int4-g64'))
+    engines, proc, conv64 = [], None, None
     try:
         # 1. an HF checkpoint (shared with phase quant), 2. convert_hf
         # --quantize
         hf_info = hf_checkpoint(torch, ctx, cfg)
         hf, size = hf_info['path'], hf_info['bytes']
+        # the group-64 conversion of step 2b, by the converter's command
+        # line in a process of its own, runs while this one converts and
+        # serves at group 128 (numpy quantisation takes one core)
+        conv64 = Conversion([sys.executable, '-m',
+                             'lmdeploy_tpu_torch.convert.converter', hf,
+                             ws_64, '--model-name', name, '--quantize',
+                             '--group-size', '64'])
         times['hf_write_s'] = hf_info['write_s']
         timed('convert_s', convert_hf, hf, ws_q, name, quantize=True,
               group_size=cfg.group_size or 128)
@@ -3175,6 +3285,14 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
             f'{out["int4"]["tok_s_4_concurrent"]:.1f} tok/s; bs1 '
             f'{len(long_prompt)}-token prompt: TTFT {bs1[0][1]:.3f} s, '
             f'{bs1[0][2]:.1f} tok/s; launches {out["int4"].get("launches")}')
+
+        # 2b. the same checkpoint quantised at group 64 (the converter's
+        # command line, --group-size 64): every GEMM of 4 concurrent
+        # requests (the 512 bucket) and of a speculative request on a
+        # kernel, prompt logits against the CPU's
+        out['group64'] = doors_group64(
+            torch, ctx, conv64, ws_64, ecfg, prompts, long_prompt, n_new,
+            device, stream)
 
         # 3. AWQ: the workspace's own quantisation, exported and converted
         timed('awq_write_s', write_awq_checkpoint, torch, ws_q, awq, cfg)
@@ -3437,14 +3555,133 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
             f'engine\'s, in {times["router_s"]:.2f} s; a continued session '
             f'stayed on the peer')
     finally:
-        if proc is not None:
-            proc.kill()
-            proc.wait(timeout=60)
+        for p in (proc, conv64 and conv64.proc):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
         for e in engines:
             e.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     out['times_s'] = times
     ctx['doors'] = out
+
+
+class Conversion:
+    """A command run in a process of its own from the repo's root, and
+    the seconds it took (a thread waits on it, so :meth:`wait` does not
+    count time spent elsewhere)."""
+
+    def __init__(self, argv):
+        self.t0, self.seconds = time.monotonic(), None
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        self._err = []
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self):
+        self._err.append(self.proc.communicate()[1])
+        self.seconds = time.monotonic() - self.t0
+
+    def wait(self, timeout=600):
+        """Seconds the command took; raises unless it exited 0."""
+        self._waiter.join(timeout)
+        if self.proc.returncode != 0:
+            raise RuntimeError(f'{self.proc.args}: rc {self.proc.returncode}'
+                               f'\n{"".join(self._err)[-2000:]}')
+        return self.seconds
+
+
+def doors_group64(torch, ctx, conversion, ws, ecfg, prompts, long_prompt,
+                  n_new, device, stream):
+    """Phase doors' group-64 door: ``conversion`` (``python -m
+    lmdeploy_tpu_torch.convert.converter --quantize --group-size 64`` of
+    the phase's HF checkpoint into ``ws``) awaited, an engine on it serving
+    ``prompts`` concurrently and one speculative request (k = SPEC_K,
+    prompt [1]), every GEMM launch on a wgmma route with no plain call,
+    and prompt logits of ``long_prompt`` within 5% of max|logit| (cosine
+    >= 0.999) of a CPU engine's on the same workspace."""
+    from lmdeploy_tpu_torch import build_engine
+    from lmdeploy_tpu_torch.config import EngineConfig
+    from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
+    from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
+    convert_s = conversion.wait()
+    t0 = time.monotonic()
+    eng = build_engine(ws, engine_config=EngineConfig(**ecfg),
+                       device=device)
+    load_s = time.monotonic() - t0
+    try:
+        weights = {n: w for n, w in eng.params['layers'].items()
+                   if n in ('wqkv', 'wo', 'w1', 'w3', 'w2')}
+        if eng.cfg.group_size != 64 or not all(
+                isinstance(w, PackedInt4Weight)
+                and w.k // w.scales.shape[1] == 64 for w in weights.values()):
+            raise AssertionError(f'group-64 workspace: group '
+                                 f'{eng.cfg.group_size}, weights {weights}')
+        inst = eng.create_instance()
+        K.reset_launch_counts()
+        results = [None] * len(prompts)
+
+        def worker(i):
+            results[i] = stream(inst, prompts[i], n_new)
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(r is None for r in results):
+            raise AssertionError('doors group 64: concurrent requests failed')
+        conc_s = time.monotonic() - t0
+        eng.ecfg.speculative_k = SPEC_K
+        eng._spec_cooloff, eng._spec_accept_ema = 0, None   # gate open
+        rounds = eng.stats['spec_rounds']
+        spec = stream(inst, [1], n_new)
+        rounds = eng.stats['spec_rounds'] - rounds
+        eng.ecfg.speculative_k = 0
+        counts, routes = K.launch_counts(True), K.route_counts()
+        gemm = counts['w4a16_gemm']
+        on_routes = {n: v for n, v in routes.items()
+                     if n.startswith(f'{WGMMA}:') and v}
+        plain = {n: c[1] for n, c in counts.items() if c[1]}
+        if device == 'cuda' and (
+                plain or not gemm[0] or counts[WGMMA][0] != gemm[0]
+                or sum(on_routes.values()) != gemm[0] or not rounds):
+            raise AssertionError(
+                f'doors group 64: GEMM launches {gemm[0]}, on the wgmma '
+                f'routes {on_routes}, plain calls {plain}, verify rounds '
+                f'{rounds}')
+        lg = inst.decode(long_prompt)
+    finally:
+        eng.shutdown()
+    cpu = build_engine(ws, engine_config=EngineConfig(**dict(
+        ecfg, max_batch_size=1, session_len=512)), device='cpu')
+    try:
+        ref = cpu.create_instance().decode(long_prompt)
+    finally:
+        cpu.shutdown()
+    rel, cos = logits_gate(torch, lg, ref, 'doors group-64 engine prompt '
+                           'logits')
+    out = dict(convert_s=convert_s, load_s=load_s,
+               ttft_s=[r[1] for r in results],
+               tok_s_4_concurrent=len(prompts) * (n_new - 1) / conc_s,
+               spec_rounds=rounds, spec_tok_s=spec[2],
+               gemm_launches=gemm[0], route_launches=on_routes,
+               max_rel_err=rel, min_cosine=cos)
+    log(f'  group 64 [{ctx.get("card", "?")}]: convert_hf --quantize '
+        f'--group-size 64 {convert_s:.1f} s (its own process, beside step '
+        f'2), load {load_s:.1f} s; 4 '
+        f'concurrent requests (prompts {[len(p) for p in prompts]}, {n_new} '
+        f'new): TTFT {[round(r[1], 3) for r in results]} s, '
+        f'{out["tok_s_4_concurrent"]:.1f} tok/s; a speculative request: '
+        f'{rounds} verify rounds, {spec[2]:.1f} tok/s; GEMM launches '
+        f'{gemm[0]}, by route {on_routes}; prompt logits of '
+        f'{len(long_prompt)} tokens vs the CPU: max err / max|logit| '
+        f'{rel:.3e}, min cosine {cos:.6f}')
+    return out
 
 
 def cast_tree(torch, tree, dtype, device):
@@ -3497,7 +3734,7 @@ def phase_quant(torch, ctx):
 
 def quant(torch, ctx, cfg, device, deep_cfg=None, samples=16, seqlen=512,
           lens=(16, 100, 300, 500), n_new=64, bs1_new=256, deep_new=32,
-          deep_conc_new=32, prompt_len=300, prof_new=8):
+          deep_conc_new=32, prompt_len=300, prof_new=4):
     """A user quantises the doors phase's HF checkpoint on ``device``
     through ``cli.main lite`` and serves it: ``lite calibrate``
     (``samples`` x ``seqlen`` synthetic ids; the first 2 samples' stats
@@ -4571,10 +4808,14 @@ def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=32, **rig_kw):
 # phase tools: the byte-per-int4 form, W4A8, the debugger and the profiler
 # ---------------------------------------------------------------------------
 
+TOOLS_LAYERS = 16     # of Llama-2-7B's 32: what the time limit leaves
+
+
 def phase_tools(torch, ctx):
     """The last modules of the port at Llama-2-7B width (see
     :func:`tools`)."""
-    tools(torch, ctx, llama2_7b(), llama2_7b(num_layer=2), 'cuda')
+    tools(torch, ctx, llama2_7b(num_layer=TOOLS_LAYERS),
+          llama2_7b(num_layer=2), 'cuda', draw_layers=llama2_7b().num_layer)
 
 
 def byte_form(torch, params):
@@ -4609,7 +4850,7 @@ def depth_cut(torch, params, n):
 
 def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
           gemms=LLAMA2_7B_GEMMS, rows=(1, ENGINE_SLOTS, 40, 512),
-          lens=(100, 300), trace_new=8, ecfg_kw=None):
+          lens=(100, 300), trace_new=8, ecfg_kw=None, draw_layers=None):
     """On ``device`` (the card; the CPU for a rehearsal, where the card's
     side runs on the CPU too and nothing is timed):
 
@@ -4617,9 +4858,11 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
        ``rows`` against the same function on the CPU on identical inputs
        (within 1e-3 of max|ref|), timed beside the byte form's group /
        dequant product and kernel 1 (not a main-path run).
-    2. Engines on ``cfg`` (phase 5's weights, seed 5): packed (the
-       reference), byte-per-int4 (``LMDEPLOY_TPU_PACKED_INT4=0``) and byte
-       + ``LMDEPLOY_TPU_W4A8=1``, each serving bs1 greedy ``n_new`` and
+    2. Engines on ``cfg`` (phase 5's weights, seed 5: the first
+       ``cfg.num_layer`` layers of the draw of ``draw_layers``, by default
+       ``cfg.num_layer``): packed (the reference), byte-per-int4
+       (``LMDEPLOY_TPU_PACKED_INT4=0``) and byte + ``LMDEPLOY_TPU_W4A8=1``,
+       each serving bs1 greedy ``n_new`` and
        then ``short_new`` from a ``lens[0]``-token prompt, whose two
        windows solve launches (packed: 5L GEMM + L decode attention a step,
        5L + L prefill attention a pass; byte and W4A8: no GEMM, L and L),
@@ -4753,8 +4996,13 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
     summary['layer_ms_by_m'] = by_m
     K.reset_launch_counts()
 
-    # 2. the 32-layer engines: packed, byte form, byte form + W4A8
-    params = random_packed_params(cfg, 5, device)
+    # 2. the deep engines: packed, byte form, byte form + W4A8, on the
+    # first nl layers of the seeded draw (a cut of its depth keeps the
+    # layers, and the 2-layer cut of step 3, of the full draw)
+    params = random_packed_params(dataclasses.replace(
+        cfg, num_layer=draw_layers or nl), 5, device)
+    if (draw_layers or nl) != nl:
+        params = depth_cut(torch, params, nl)
     byte_params = byte_form(torch, params)
     sync()
 
@@ -5070,6 +5318,274 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
     log(f'  tools: {summary["seconds"]:.1f} s')
 
 
+# ---------------------------------------------------------------------------
+# phase families: a second model family at its published widths
+# ---------------------------------------------------------------------------
+
+FAMILY_LAYERS = 4     # of Qwen-14B's 40: what the time limit leaves
+
+
+def qwen_14b(num_layer: int = 40):
+    """Qwen-14B's published widths (hidden 5120, 40 heads = KV heads,
+    Dh 128, intermediate_size 27392 halved to 13696 as convert/hf.py
+    does, vocab 152064, qkv bias, dynamic NTK and logn attention past its
+    seq_length 2048) at W4A16 group 128; sessions of 4096 tokens so that
+    requests cross 2048."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    return ModelConfig(model_name='qwen-14b', head_num=40, kv_head_num=40,
+                       size_per_head=128, inter_size=13696,
+                       num_layer=num_layer, vocab_size=152064,
+                       rotary_embedding=128, max_position_embeddings=2048,
+                       session_len=4096, attn_bias=True, qkv_bias_only=True,
+                       use_dynamic_ntk=True, use_logn_attn=True,
+                       weight_type='int4', group_size=128)
+
+
+def qwen_params(torch, cfg, seed, device):
+    """Random packed W4A16 weights of ``cfg`` (random_packed_params, w2 at
+    its 107 groups as a checkpoint holds it) with a seeded qkv bias."""
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
+    params = random_packed_params(cfg, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    qkv = (cfg.head_num + 2 * cfg.kv_head_num) * cfg.size_per_head
+    params['layers']['bqkv'] = (torch.randn(
+        (cfg.num_layer, qkv), generator=gen, device=device) * 0.02).to(
+            torch.bfloat16)
+    return params
+
+
+def phase_families(torch, ctx):
+    """Qwen-14B's widths at FAMILY_LAYERS layers (see :func:`families`)."""
+    families(torch, ctx, qwen_14b(FAMILY_LAYERS), qwen_14b(2), 'cuda')
+
+
+def families(torch, ctx, cfg, cut_cfg, device, lens=(16, 100, 300, 500),
+             n_new=32, long_len=2040, long_new=24, ecfg_kw=None):
+    """A second model family on ``device``: Qwen-14B's widths (``cfg``,
+    depth cut) from random packed weights at tp = 1, whose w2 (inter
+    13696: 107 groups of 128) the engine pads with exact zeros to 13824
+    and packs.  It serves 4 concurrent greedy requests (prompts ``lens``),
+    two bs1 requests (``n_new`` and 8 new), a seeded sampled pair, a
+    speculative request (k = SPEC_K) and one bs1 request of ``long_len``
+    prompt tokens and ``long_new`` new ones, which crosses seq_length 2048
+    (dynamic NTK and logn on), under LMDEPLOY_TPU_FUSED_ROPE=1 (kernel 5)
+    and under the defaults.  Gates: launches per decode step 5L GEMM + L
+    decode attention and per prefill pass 5L GEMM + L prefill attention,
+    no plain call, every W4A16 weight nibble-packed (so no byte-form
+    product), w2 at K = 13824, prefix caching off, the seeded pair
+    identical, verify rounds ran, kernel 5's L launches a decode step,
+    the long request's two streams equal up to a near-tie, and prompt
+    logits of ``lens[1]`` tokens through a 2-layer cut (``cut_cfg``)
+    within 5% of max|logit| (cosine >= 0.999) of the CPU's."""
+    import dataclasses
+
+    from lmdeploy_tpu_torch.config import EngineConfig
+    from lmdeploy_tpu_torch.engine.engine import TorchEngine
+    from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+    from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
+    from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
+    on_card = device == 'cuda'
+    card = ctx.get('card', '?')
+    nl = cfg.num_layer
+    t_phase = time.monotonic()
+    ecfg = EngineConfig(**(ecfg_kw or dict(
+        max_batch_size=8, session_len=4096, page_size=64, num_pages=128,
+        max_context_token_num=512, prefill_buckets=(64, 512),
+        step_length=16, speculative_k=0, enable_prefix_caching=True)))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in lens]
+    long_prompt = rng.integers(3, cfg.vocab_size, size=long_len).tolist()
+    sid = iter(range(1, 10 ** 6))
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def stream(inst, prompt, gen):
+        """One request: (tokens, seconds to the first token, tok/s after
+        it)."""
+        t0, first = time.monotonic(), None
+        for last in inst.stream_infer(next(sid), prompt, gen):
+            if last.num_generated and first is None:
+                first = time.monotonic()
+        if last.status != ResponseType.FINISH or \
+                last.num_generated != gen.max_new_tokens:
+            raise AssertionError(f'families: request of {len(prompt)} '
+                                 f'tokens: {last.num_generated} tokens, '
+                                 f'{last.status}')
+        t1 = time.monotonic()
+        n = gen.max_new_tokens
+        return (list(last.token_ids), (first or t1) - t0,
+                (n - 1) / max(t1 - (first or t1), 1e-9))
+
+    def greedy(n):
+        return GenerationConfig(max_new_tokens=n, top_k=1, ignore_eos=True)
+
+    def mark(eng):
+        return ({n: c[0] for n, c in K.launch_counts(True).items()},
+                {'decode_steps': eng.stats['decode_steps'], 'spec_rounds': 0,
+                 'prefill_passes': eng.stats['prefill_passes']})
+
+    params = qwen_params(torch, cfg, 8, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.monotonic()
+    eng = TorchEngine(cfg, ecfg, params, device=device)
+    sync()
+    start_s = time.monotonic() - t0
+    try:
+        layers = eng.params['layers']
+        w2 = layers['w2']
+        if not all(isinstance(layers[n], PackedInt4Weight)
+                   for n in ('wqkv', 'wo', 'w1', 'w3', 'w2')) or \
+                w2.k != cfg.inter_size + (-cfg.inter_size) % (
+                    2 * cfg.group_size) or \
+                layers['w1'].n != w2.k:
+            raise AssertionError(f'families: weights not all packed at the '
+                                 f'padded inter (w2 {type(w2).__name__} '
+                                 f'K={w2.k})')
+        if eng.ecfg.enable_prefix_caching:
+            raise AssertionError('families: prefix caching stayed on under '
+                                 'dynamic NTK')
+        inst = eng.create_instance()
+        # 4 concurrent greedy requests, then two bs1 windows
+        K.reset_launch_counts()
+        marks = [mark(eng)]
+        results = [None] * len(prompts)
+
+        def worker(i):
+            results[i] = stream(inst, prompts[i], greedy(n_new))
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(r is None for r in results):
+            raise AssertionError('families: concurrent requests failed')
+        conc_s = time.monotonic() - t0
+        marks.append(mark(eng))
+        bs1 = []
+        for n in (n_new, 8):
+            bs1.append(stream(inst, prompts[1], greedy(n)))
+            marks.append(mark(eng))
+        counts = K.launch_counts(True)
+        decode, prefill = ('paged_decode_attention_write[bf16]',
+                           'paged_prefill_attention[bf16]')
+        if on_card:
+            check_route(counts, launches_per_kind(marks, skip=(WGMMA,)),
+                        {'decode_steps': {'w4a16_gemm': 5 * nl, decode: nl},
+                         'prefill_passes': {'w4a16_gemm': 5 * nl,
+                                            prefill: nl}},
+                        'families Qwen-14B engine',
+                        need=('decode_steps', 'prefill_passes'))
+        if on_card:
+            for n in ('w4a16_gemm', decode, prefill):
+                ctx['kernels'].setdefault(n, {})['families_launches'] = \
+                    counts[n][0]
+        out['greedy'] = dict(
+            ttft_s=[r[1] for r in results],
+            tok_s_4_concurrent=len(prompts) * (n_new - 1) / conc_s,
+            ttft_bs1_s=bs1[0][1], tok_s_bs1=bs1[0][2],
+            launches={n: c[0] for n, c in counts.items() if c[0]})
+        # a seeded sampled pair
+        sampled = GenerationConfig(max_new_tokens=n_new, top_k=40,
+                                   top_p=0.9, temperature=0.8,
+                                   random_seed=99, ignore_eos=True)
+        pair = [stream(inst, prompts[0], sampled)[0] for _ in range(2)]
+        if pair[0] != pair[1]:
+            raise AssertionError(f'families: seeded pair differs: {pair}')
+        # speculative rounds
+        K.reset_launch_counts()
+        eng.ecfg.speculative_k = SPEC_K
+        eng._spec_cooloff, eng._spec_accept_ema = 0, None   # gate open
+        rounds = eng.stats['spec_rounds']
+        spec = stream(inst, [1], greedy(n_new))
+        rounds = eng.stats['spec_rounds'] - rounds
+        eng.ecfg.speculative_k = 0
+        counts = K.launch_counts(True)
+        routes = {n: v for n, v in K.route_counts().items()
+                  if n.startswith(f'{WGMMA}:') and v}
+        if on_card and (not rounds or counts['w4a16_gemm'][1]
+                        or sum(routes.values()) != counts['w4a16_gemm'][0]):
+            raise AssertionError(f'families spec: {rounds} verify rounds, '
+                                 f'GEMM {counts["w4a16_gemm"]}, routes '
+                                 f'{routes}')
+        out['spec'] = dict(rounds=rounds, tok_s=spec[2],
+                           gemm_routes=routes)
+        # the long request past seq_length, under both rope routes
+        streams = {}
+        for label, env in (('FUSED_ROPE=1',
+                            {'LMDEPLOY_TPU_FUSED_ROPE': '1'}),
+                           ('defaults', {})):
+            with env_vars(env):
+                K.reset_launch_counts()
+                steps = eng.stats['decode_steps']
+                streams[label] = stream(inst, long_prompt, greedy(long_new))
+                steps = eng.stats['decode_steps'] - steps
+                kernel = f'{decode_kernel_of(env)}[bf16]'
+                got = K.launch_counts()[kernel]
+                if on_card and (got != (steps * nl, 0) or not steps):
+                    raise AssertionError(
+                        f'families {label}: {kernel} {got} over {steps} '
+                        f'decode steps of {nl} layers')
+                if on_card and env:
+                    ctx['kernels'].setdefault(kernel, {})[
+                        'families_launches'] = got[0]
+        agree = agree_up_to_near_tie(
+            torch, eng.params, cfg, long_prompt, streams['defaults'][0],
+            streams['FUSED_ROPE=1'][0], 'families long request, '
+            'FUSED_ROPE=1 vs defaults', dev=device)
+        out['long'] = dict(prompt=long_len, new=long_new, agree=agree,
+                           ttft_s=streams['defaults'][1],
+                           tok_s=streams['defaults'][2],
+                           fused_rope_tok_s=streams['FUSED_ROPE=1'][2])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card \
+            else None
+    finally:
+        eng.shutdown()
+        K.reset_launch_counts()
+    del params
+    # prompt logits of a 2-layer cut, the card's against the CPU's
+    cut = qwen_params(torch, cut_cfg, 8, device)
+    logits = {}
+    for dev in (device, 'cpu'):
+        tree = cut if dev == device else _to(cut, 'cpu')
+        e = TorchEngine(cut_cfg, dataclasses.replace(
+            ecfg, max_batch_size=1, session_len=1024, num_pages=16,
+            speculative_k=0), tree, device=dev)
+        try:
+            logits[dev] = e.create_instance().decode(prompts[1])
+        finally:
+            e.shutdown()
+    rel, cos = logits_gate(torch, logits[device], logits['cpu'],
+                           'families 2-layer cut prompt logits')
+    del cut
+    if on_card:
+        torch.cuda.empty_cache()
+    out.update(start_s=start_s, w2_k=w2.k, cut_rel=rel, cut_cos=cos,
+               peak_gib=peak, seconds=time.monotonic() - t_phase)
+    ctx['families'] = out
+    log(f'  families [{card}]: Qwen-14B widths, {nl} of 40 layers, group '
+        f'128, w2 packed at K = {w2.k}; start {start_s:.1f} s; 4 concurrent '
+        f'(prompts {list(lens)}, {n_new} new): TTFT '
+        f'{[round(t, 3) for t in out["greedy"]["ttft_s"]]} s, '
+        f'{out["greedy"]["tok_s_4_concurrent"]:.1f} tok/s; bs1 TTFT '
+        f'{bs1[0][1]:.3f} s, {bs1[0][2]:.1f} tok/s; seeded pair identical; '
+        f'speculative: {rounds} verify rounds, {spec[2]:.1f} tok/s, GEMM '
+        f'routes {routes}; {long_len}-token prompt + {long_new} new past '
+        f'{cfg.max_position_embeddings}: {agree} steps agree (FUSED_ROPE=1 '
+        f'vs defaults), '
+        f'{streams["defaults"][2]:.1f} tok/s; 2-layer cut prompt logits '
+        f'vs the CPU: max err / max|logit| {rel:.3e}, min cosine '
+        f'{cos:.6f}; peak {peak} GiB; {out["seconds"]:.1f} s')
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -5122,6 +5638,7 @@ def main(argv=None) -> int:
             doors_launches=k.get('doors_launches'),
             quant_launches=k.get('quant_launches'),
             tools_launches=k.get('tools_launches'),
+            families_launches=k.get('families_launches'),
             launches_per_verify_round=k.get('launches_per_verify_round'),
             max_abs_err=k.get('max_abs_err'), tolerance=k.get('tolerance'),
             ms=k.get('ms'), kernel_ms=k.get('ms'), plain_ms=k.get('plain_ms'),
@@ -5136,6 +5653,7 @@ def main(argv=None) -> int:
             cases=k.get('cases'), verify=k.get('verify'),
             verify_m40=k.get('verify_m40'), tp2=k.get('tp2'),
             tp2_launches=k.get('tp2_launches'), pp2=k.get('pp2'),
+            groups=k.get('groups'), qwen14b=k.get('qwen14b'),
             pp2_launches=k.get('pp2_launches'),
             card=ctx.get('card')))
     log(f'total {time.monotonic() - t_all:.1f} s')

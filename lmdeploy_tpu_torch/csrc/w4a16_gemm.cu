@@ -13,19 +13,23 @@
 // nibble; scales s[g, n] (bf16), group size `group` along K.  x is bf16.
 //
 // Two regimes; the wrapper (ops/cuda/quant_matmul.py::gemm_route) picks one
-// by the quantisation group: at group 128 w4a16_wgmma takes every M (on the
-// H100 its plan beat w4a16_decode at M = 1 and M = 8 too, 0.0748 against
-// 0.0942 / 0.1015 ms a Llama-2-7B layer), and w4a16_decode the other groups:
-//  * decode (groups other than 128, M <= 64): w4a16_decode.  Bound by the
-//    packed weight bytes (K*N/2: Llama-2-7B wqkv 25.2 MB, ~7.5 us at 3.35
-//    TB/s).  Tensor cores
+// by the quantisation group, every M taking a kernel at every group that
+// is a multiple of 16: at a group that is a multiple of 64 w4a16_wgmma
+// takes every M (at group 128 on the H100 its plan beat w4a16_decode at M
+// = 1 and M = 8 too, 0.0748 against 0.0942 / 0.1015 ms a Llama-2-7B
+// layer), and w4a16_decode the other groups (16, 32, 48, 80, ...):
+//  * decode (groups that are not a multiple of 64, every M): w4a16_decode.
+//    Bound by the packed weight bytes at small M (K*N/2: Llama-2-7B wqkv
+//    25.2 MB, ~7.5 us at 3.35 TB/s).  Tensor cores
 //    on mma.sync.m16n8k16 bf16 -> f32 with A and B swapped: the weight is
 //    the A operand (16 output columns x 16 k) and x^T the B operand (16 k x
 //    8 rows of x), so M = 8, the engine's decode shape, fills one n8 tile;
-//    M <= 8 takes one n8 tile, larger M two per pass (grid z over 16-row
-//    slabs).  The packed layout is kept: a lane builds its A fragments
-//    from 16-byte loads along N of 4 packed rows, 8 lanes covering 128
-//    contiguous bytes of a row, and the kernel owns the order of its
+//    M <= 8 takes one n8 tile, larger M two per pass, a block covering a
+//    16-row slab of M (grid z) up to M = 64 and a 64-row slab above, in
+//    passes of 16 rows over the same weight registers.  The packed layout
+//    is kept: a lane builds its A fragments from 16-byte loads along N of
+//    4 packed rows, 8 lanes covering 128 contiguous bytes of a row, and
+//    the kernel owns the order of its
 //    output columns (see w4a16_decode).  Nibbles become bf16 without cvt:
 //    OR into the mantissa of bf16 128 and subtract 128 (exact, two per
 //    32-bit op).  A byte's low and high nibbles belong to groups gb and
@@ -49,7 +53,8 @@
 //    w2's 22 splits would need the non-portable size 16 or a new split of
 //    K, while the ticket pattern keeps the split and tile as they were.
 //    y is written, not accumulated, so no zero-fill launch precedes it.
-//  * group 128, every M: w4a16_wgmma, on two routes that the wrapper picks
+//  * groups that are multiples of 64, every M: w4a16_wgmma, on two routes
+//    that the wrapper picks
 //    from shapes alone (ops/cuda/quant_matmul.py::gemm_route).  Bound by the weight's
 //    bytes at the verify's M = 40 and the 64-row bucket (one Llama-2-7B
 //    layer: 101 MB, 0.030 ms at 3.35 TB/s) and by operations from M ~ 80
@@ -71,15 +76,19 @@
 //      columns: scales come as one bf16 pair, results leave as float2.
 //    - Half-split K: a pipeline stage holds 64 packed rows of the tile's
 //      128 columns and the two x tiles they multiply (low nibbles: x
-//      columns k'.., high nibbles: K/2 + k'..).  A half group (128 packed
-//      rows) is two stages; its low and high halves are groups gb and
-//      G/2 + gb.
-//    - Exact per-group scaling, as in the TPU kernel: each group's 8 k16
-//      steps run into one f32 partial that the first step resets (scale-d
-//      0), and after wgmma.wait_group the partial is folded into the
-//      running sum with s[g, n] (n is the accumulator's row, so a thread
-//      reads one scale pair per group).  Nibbles and x are exact in bf16
-//      and their products exact in f32, as in the decode kernel.
+//      columns k'.., high nibbles: K/2 + k'..).  A half group (`group`
+//      packed rows) is group / 64 stages; its low and high halves are
+//      groups gb and G/2 + gb.
+//    - Exact per-group scaling, as in the TPU kernel: a consumer takes a
+//      half group's stages in pieces of P (two where their count is even,
+//      else one; wgmma_piece), and each nibble half's 4P k16 steps of a
+//      piece run into one f32 partial that the first step resets (scale-d
+//      0); after wgmma.wait_group the partial is folded into the running
+//      sum with s[g, n] (n is the accumulator's row, so a thread reads one
+//      scale pair per group).  So a group of 64 or 128 is one partial;
+//      256 is two partials of 128 rows, each folded with the group's
+//      scales.  Nibbles and x are exact
+//      in bf16 and their products exact in f32, as in the decode kernel.
 //    - Persistent grid: min(items, SMs) blocks of 384 threads, one an SM,
 //      each walking work items b, b + grid, ... of (column tile, row tile,
 //      split) in an order that keeps a column tile's weight and a row
@@ -89,7 +98,7 @@
 //      full across item boundaries, so an item's epilogue overlaps the
 //      next one's loads and no wave of blocks waits on a tail.
 //    - Ping-pong at 128-row tiles: the two consumer warpgroups (64 columns
-//      each) issue their 8 products of a group in turn, ordered by two
+//      each) issue their products of a piece in turn, ordered by two
 //      named barriers, so that one folds its partial while the other's
 //      products keep the tensor cores busy.  At <= 64 rows the products
 //      are short and the ordering measured slower, so they issue freely.  A second partial in flight (wait_group 1) would
@@ -152,8 +161,8 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t v) {
 // group-128 regime: wgmma with the weight as the register operand
 // ---------------------------------------------------------------------------
 
-constexpr int kGroup = 128;     // the wgmma regime's quantisation group
-constexpr int kChunk = 64;      // packed rows per pipeline stage
+constexpr int kChunk = 64;      // packed rows per pipeline stage: the
+                                // wgmma regime's groups are multiples of it
 constexpr int kBN = 128;        // output columns of a tile: 2 x 64
 constexpr int kMaxStages = 12;
 constexpr int kMaxSplits = 8;   // route splitk's splits of K at most
@@ -427,13 +436,13 @@ struct Item {
 // global load.  With S > 1 each item writes its f32 partial tile to
 // ws[split] and the last of a tile's S items to arrive sums ws[0..S-1]
 // into y in split order.
-template <int BM>
+template <int BM, int P, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
             const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_s, float* __restrict__ y,
             float* __restrict__ ws, int* __restrict__ counter, int M, int K,
-            int N, int splits) {
+            int N, int group, int splits) {
   using T = Tile<BM>;
   constexpr int kS = T::kStages;
   constexpr int kD = BM / 2;                // accumulator floats per thread
@@ -448,7 +457,11 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
   uint64_t* empty = full + kS;
 
   const int half_k = K >> 1;
-  const int g_half = half_k / kGroup;
+  const int g_half = half_k / group;
+  // stages per half group: C where the launch fixes it at compile time
+  // (group 128, the converters' default: the loops below unroll to one
+  // piece and no runtime trip count), else group / 64
+  const int chunks = C > 0 ? C : group / kChunk;
   const int tiles_m = (M + BM - 1) / BM;
   const int items = (N + kBN - 1) / kBN * tiles_m * splits;
   const int tid = threadIdx.x;
@@ -474,12 +487,13 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const Item it(item, splits, tiles_m, BM, g_half);
         for (int gb = it.gb0; gb < it.gb1; ++gb) {
-          for (int c = 0; c < 2; ++c, ++i) {
+#pragma unroll
+          for (int c = 0; c < chunks; ++c, ++i) {
             const int st = i % kS;
             if (i >= kS) mbar_wait(&empty[st], ((i / kS) - 1) & 1);
             mbar_expect_tx(&full[st], T::kWBytes + 2 * T::kXBytes +
                                           (c == 0 ? T::kSBytes : 0));
-            const int krow = gb * kGroup + c * kChunk;
+            const int krow = gb * group + c * kChunk;
             uint8_t* base = smem + st * T::kStage;
             tma_load_2d(base, &tm_w, it.n0, krow, &full[st]);
             tma_load_2d(base + T::kWBytes, &tm_x, krow, it.m0, &full[st]);
@@ -514,21 +528,25 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
   const uint32_t w_lane = w_off(lrow, wg * 64 + warp * 16);
   const size_t mn = (size_t)M * N;
 
-  // Wait for the two stages of the half group at ring index i and read
-  // this lane's packed bytes of them, columns (2 gid, 2 gid + 1) of rows
-  // (2t4, 2t4+1) and (2t4+8, 2t4+9) of each k16 step as [row a | row b <<
-  // 16], and its two groups' scale pairs of columns n, n + 1 (zero past
-  // N).
-  auto load = [&](int i, uint32_t (&v01)[2][4], uint32_t (&v23)[2][4],
-                  uint32_t (&sc)[2]) {
-    mbar_wait(&full[i % kS], (i / kS) & 1);
-    mbar_wait(&full[(i + 1) % kS], ((i + 1) / kS) & 1);
-    const uint8_t* sb = smem + (i % kS) * T::kStage + T::kWBytes +
-                        2 * T::kXBytes + col * 2;
-    sc[0] = *reinterpret_cast<const uint32_t*>(sb);
-    sc[1] = *reinterpret_cast<const uint32_t*>(sb + kBN * 2);
+  // Wait for the P stages of a half group's piece at ring index i and
+  // read this lane's packed bytes of them, columns (2 gid, 2 gid + 1) of
+  // rows (2t4, 2t4+1) and (2t4+8, 2t4+9) of each k16 step as [row a | row
+  // b << 16], and, for the piece that opens the half group (its first
+  // stage brought them), its two groups' scale pairs of columns n, n + 1
+  // (zero past N).
+  auto load = [&](int i, uint32_t (&v01)[P][4], uint32_t (&v23)[P][4],
+                  uint32_t (&sc)[2], bool first) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < P; ++c)
+      mbar_wait(&full[(i + c) % kS], ((i + c) / kS) & 1);
+    if (first) {
+      const uint8_t* sb = smem + (i % kS) * T::kStage + T::kWBytes +
+                          2 * T::kXBytes + col * 2;
+      sc[0] = *reinterpret_cast<const uint32_t*>(sb);
+      sc[1] = *reinterpret_cast<const uint32_t*>(sb + kBN * 2);
+    }
+#pragma unroll
+    for (int c = 0; c < P; ++c) {
       const uint32_t wt = smem_u32(smem + ((i + c) % kS) * T::kStage) + w_lane;
 #pragma unroll
       for (int p = 0; p < 2; ++p)         // k16 steps 2p and 2p + 1
@@ -536,16 +554,16 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
                       v01[c][2 * p + 1], v23[c][2 * p + 1]);
     }
   };
-  // Issue the 8 products of nibble half h (0: low, group gb; 1: high,
-  // group G/2 + gb) of the half group at ring index i into the partial d
-  // (the first one overwrites it), as one commit group; stage 1's A
-  // fragments are built while stage 0's products run.
-  auto issue = [&](float (&d)[kD], const uint32_t (&v01)[2][4],
-                   const uint32_t (&v23)[2][4], int i, int h) {
+  // Issue the 4P products of nibble half h (0: low, group gb; 1: high,
+  // group G/2 + gb) of the piece at ring index i into the partial d (the
+  // first one overwrites it), as one commit group; a stage's A fragments
+  // are built while the previous stage's products run.
+  auto issue = [&](float (&d)[kD], const uint32_t (&v01)[P][4],
+                   const uint32_t (&v23)[P][4], int i, int h) {
 #pragma unroll
     for (int j = 0; j < kD; ++j) pin(d[j]);
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < P; ++c) {
       uint32_t a[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -590,24 +608,31 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
     float acc[kD], part[kD];
 #pragma unroll
     for (int j = 0; j < kD; ++j) acc[j] = 0.f;
-    for (int gb = it.gb0; gb < it.gb1; ++gb, i += 2) {
-      uint32_t v01[2][4], v23[2][4], sc[2];
-      load(i, v01, v23, sc);
+    for (int gb = it.gb0; gb < it.gb1; ++gb) {
+      uint32_t sc[2];
+      // a half group's stages in pieces of P: each piece's products of a
+      // nibble half run into one partial, folded with its group's scales
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {       // low nibbles, then high
-        // ping-pong: the warpgroups issue their products in turn, so one
-        // folds while the other's products keep the tensor cores busy
-        if (kPingPong && (wg == 1 || issues > 0))
-          named_sync(wg == 0 ? kBarTurn0 : kBarTurn1);
-        issue(part, v01, v23, i, h);
-        if (kPingPong) named_arrive(wg == 0 ? kBarTurn1 : kBarTurn0);
-        ++issues;
-        wgmma_wait0();
-        fold(acc, part, sc[h]);
-      }
-      if (lane == 0) {
-        mbar_arrive(&empty[i % kS]);
-        mbar_arrive(&empty[(i + 1) % kS]);
+      for (int c0 = 0; c0 < chunks; c0 += P, i += P) {
+        uint32_t v01[P][4], v23[P][4];
+        load(i, v01, v23, sc, c0 == 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {     // low nibbles, then high
+          // ping-pong: the warpgroups issue their products in turn, so
+          // one folds while the other's products keep the tensor cores
+          // busy
+          if (kPingPong && (wg == 1 || issues > 0))
+            named_sync(wg == 0 ? kBarTurn0 : kBarTurn1);
+          issue(part, v01, v23, i, h);
+          if (kPingPong) named_arrive(wg == 0 ? kBarTurn1 : kBarTurn0);
+          ++issues;
+          wgmma_wait0();
+          fold(acc, part, sc[h]);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < P; ++c) mbar_arrive(&empty[(i + c) % kS]);
+        }
       }
     }
 
@@ -704,24 +729,30 @@ int wgmma_rows(int M) {
   return M <= 16 ? 16 : M <= 64 ? (M + 7) / 8 * 8 : 128;
 }
 
-template <int BM>
+// Stages a partial spans (the kernel's P): two where a half group has an
+// even count of stages (group 128: one partial a group; 256: two), else
+// one (64: one a group).  Two stages are the most a consumer holds, so at
+// every group the ring (5-12 stages) stays free to fill ahead.
+int wgmma_piece(int group) { return (group / kChunk) % 2 == 0 ? 2 : 1; }
+
+template <int BM, int P, int C>
 cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w,
                          const __nv_bfloat16* s, float* y, float* ws,
-                         int* counter, int M, int K, int N, int splits,
-                         cudaStream_t stream) {
+                         int* counter, int M, int K, int N, int group,
+                         int splits, cudaStream_t stream) {
   using T = Tile<BM>;
   CUtensorMap tm_x, tm_w, tm_s;
   if (!encode_2d(&tm_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, BM,
                  kChunk, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(&tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
                  kChunk, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(&tm_s, s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K / kGroup,
+      !encode_2d(&tm_s, s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K / group,
                  N, 1, kBN, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w4a16_wgmma<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        w4a16_wgmma<BM, P, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::kSmem);
     if (e != cudaSuccess) return e;
     attr = true;
@@ -729,9 +760,24 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w,
   const int items =
       (N + kBN - 1) / kBN * ((M + BM - 1) / BM) * splits;
   const int grid = items < sm_count() ? items : sm_count();
-  w4a16_wgmma<BM><<<grid, kThreads, T::kSmem, stream>>>(
-      tm_x, tm_w, tm_s, y, ws, counter, M, K, N, splits);
+  w4a16_wgmma<BM, P, C><<<grid, kThreads, T::kSmem, stream>>>(
+      tm_x, tm_w, tm_s, y, ws, counter, M, K, N, group, splits);
   return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w,
+                         const __nv_bfloat16* s, float* y, float* ws,
+                         int* counter, int M, int K, int N, int group,
+                         int splits, cudaStream_t stream) {
+  if (group == 2 * kChunk)            // 128: the stage count fixed at 2
+    return launch_wgmma<BM, 2, 2>(x, w, s, y, ws, counter, M, K, N, group,
+                                  splits, stream);
+  return wgmma_piece(group) == 2
+             ? launch_wgmma<BM, 2, 0>(x, w, s, y, ws, counter, M, K, N,
+                                      group, splits, stream)
+             : launch_wgmma<BM, 1, 0>(x, w, s, y, ws, counter, M, K, N,
+                                      group, splits, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -743,16 +789,25 @@ constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecCols = 128;             // output columns per block
 constexpr int kDecMaxSteps = 4;           // k16 steps of packed rows per warp
 
+// Passes of 8 MT rows of x a decode block makes (its slab of M, grid z):
+// one at M <= 64 (a grid over 8- or 16-row slabs, as before larger M was
+// served, so these calls keep their code, bits and time); above, four
+// 16-row passes that reuse the block's weight registers, so a 512-row
+// call reads each weight byte 8 times and not 32.
+int decode_passes(int M) { return M <= 64 ? 1 : 4; }
+
 // One warp task: 128 output columns x `steps` k16 steps of packed rows
-// (all inside one group), both nibble halves, MT n8 tiles of x rows.
-// The weight is the A operand: A row i < 8 is column 16*i + 2t of the
-// warp's 128, row i + 8 is column 16*i + 2t + 1 (tile t = 0..7), so lane
-// (gid, tig) builds its A fragments from the 16-byte chunk of columns
-// 16*gid .. 16*gid + 15 of packed rows 2tig, 2tig+1, 2tig+8 and 2tig+9 of
-// a step: 8 lanes read 128 contiguous bytes of a row.  x^T is the B
-// operand (k16 x 8 rows of x).  Partials are per group (the nibbles and x
-// are exact in bf16, their products exact in f32) and scaled once.
-template <int MT>
+// (all inside one group), both nibble halves, MT n8 tiles of x rows a
+// pass, the block's P passes (decode_passes) over the same weight
+// registers.  The weight is the A operand: A row i < 8 is column 16*i +
+// 2t of the warp's 128, row i + 8 is column 16*i + 2t + 1 (tile t =
+// 0..7), so lane (gid, tig) builds its A fragments from the 16-byte chunk
+// of columns 16*gid .. 16*gid + 15 of packed rows 2tig, 2tig+1, 2tig+8
+// and 2tig+9 of a step: 8 lanes read 128 contiguous bytes of a row.  x^T
+// is the B operand (k16 x 8 rows of x).  Partials are per group (the
+// nibbles and x are exact in bf16, their products exact in f32) and
+// scaled once.
+template <int MT, int P>
 __global__ void __launch_bounds__(kDecThreads)
 w4a16_decode(const __nv_bfloat16* __restrict__ x,
              const uint8_t* __restrict__ w,
@@ -760,7 +815,8 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
              float* __restrict__ ws, int* __restrict__ counter, int M, int K,
              int N, int group, int steps) {
   constexpr int kFrag = 8 * MT * 4;       // f32 partials per lane
-  constexpr int kRows = 8 * MT;           // rows of x in the tile
+  constexpr int kRows = 8 * MT;           // rows of x in a pass
+  constexpr int kSlab = kRows * P;        // rows of x in the block
   constexpr int kStride = kDecCols + kDecCols / 16;  // a pad per 16 columns
   constexpr int kVecs = kDecCols / 4;     // float4 columns of the tile
   __shared__ float red[kDecWarps][kFrag][32];
@@ -775,25 +831,18 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int n0 = blockIdx.x * kDecCols;
-  const int m0 = blockIdx.z * 8 * MT;
+  const int mz = blockIdx.z * kSlab;      // the block's first row
   const int kr0 = (blockIdx.y * kDecWarps + warp) * steps * 16;  // packed row
   const int col = n0 + gid * 16;          // this lane's 16 columns
   const bool active = kr0 < half_k;
   const bool col_ok = col < N;            // N % 16 == 0
+  const int splits = gridDim.y;
+  float* dst = splits > 1 ? ws + (size_t)blockIdx.y * M * N : y;
 
-  // every load of the task in flight at once: weight chunks and x
-  uint4 raw[kDecMaxSteps][4];
+  // x of step st for the pass from row m0
   uint32_t xb[2][kDecMaxSteps][MT][2];
-#pragma unroll
-  for (int st = 0; st < kDecMaxSteps; ++st) {
+  auto load_x = [&](int st, int m0) {
     const bool ok = active && st < steps;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = kr0 + st * 16 + 2 * tig + (r & 1) + ((r >> 1) << 3);
-      raw[st][r] = ok && col_ok ? *reinterpret_cast<const uint4*>(
-                                      w + (size_t)row * N + col)
-                                : make_uint4(0u, 0u, 0u, 0u);
-    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -807,120 +856,147 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
             okm ? *reinterpret_cast<const uint32_t*>(xr + 8) : 0u;
       }
     }
+  };
+  // every load of the first pass in flight at once: weight chunks (kept
+  // for every pass) and x
+  uint4 raw[kDecMaxSteps][4];
+#pragma unroll
+  for (int st = 0; st < kDecMaxSteps; ++st) {
+    const bool ok = active && st < steps;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = kr0 + st * 16 + 2 * tig + (r & 1) + ((r >> 1) << 3);
+      raw[st][r] = ok && col_ok ? *reinterpret_cast<const uint4*>(
+                                      w + (size_t)row * N + col)
+                                : make_uint4(0u, 0u, 0u, 0u);
+    }
+    load_x(st, mz);
   }
 
-  float out[8][MT][4];
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int p = 0; p < P; ++p) {
+    const int m0 = mz + p * kRows;
+    if (m0 >= M) break;
+    if (p > 0) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[t][mt][e] = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {           // low nibbles, then high
-    float part[8][MT][4];
+      for (int st = 0; st < kDecMaxSteps; ++st) load_x(st, m0);
+    }
+
+    float out[8][MT][4];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[t][mt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) out[t][mt][e] = 0.f;
 #pragma unroll
-    for (int st = 0; st < kDecMaxSteps; ++st) {
-      if (st >= steps) break;
-      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&raw[st][0]);
-      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&raw[st][1]);
-      const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&raw[st][2]);
-      const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&raw[st][3]);
+    for (int h = 0; h < 2; ++h) {         // low nibbles, then high
+      float part[8][MT][4];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        // bytes 2t, 2t+1 of rows (2tig, 2tig+1) and (2tig+8, 2tig+9)
-        const uint32_t b = (t & 1) * 2;
-        const uint32_t sel = b | ((b + 1) << 4) | ((b + 4) << 8) |
-                             ((b + 5) << 12);
-        uint32_t v01 = __byte_perm(w0[t >> 1], w1[t >> 1], sel);
-        uint32_t v23 = __byte_perm(w2[t >> 1], w3[t >> 1], sel);
-        if (h) {
-          v01 >>= 4;
-          v23 >>= 4;
-        }
-        uint32_t a[4];
-        a[0] = nib2_bf16(v01);            // column 2t, k 2tig, 2tig+1
-        a[1] = nib2_bf16(v01 >> 8);       // column 2t+1
-        a[2] = nib2_bf16(v23);            // column 2t, k 2tig+8, 2tig+9
-        a[3] = nib2_bf16(v23 >> 8);       // column 2t+1
+      for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_bf16_16816(part[t][mt], a, xb[h][st][mt][0], xb[h][st][mt][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[t][mt][e] = 0.f;
+#pragma unroll
+      for (int st = 0; st < kDecMaxSteps; ++st) {
+        if (st >= steps) break;
+        const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&raw[st][0]);
+        const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&raw[st][1]);
+        const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&raw[st][2]);
+        const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&raw[st][3]);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          // bytes 2t, 2t+1 of rows (2tig, 2tig+1) and (2tig+8, 2tig+9)
+          const uint32_t b = (t & 1) * 2;
+          const uint32_t sel = b | ((b + 1) << 4) | ((b + 4) << 8) |
+                               ((b + 5) << 12);
+          uint32_t v01 = __byte_perm(w0[t >> 1], w1[t >> 1], sel);
+          uint32_t v23 = __byte_perm(w2[t >> 1], w3[t >> 1], sel);
+          if (h) {
+            v01 >>= 4;
+            v23 >>= 4;
+          }
+          uint32_t a[4];
+          a[0] = nib2_bf16(v01);          // column 2t, k 2tig, 2tig+1
+          a[1] = nib2_bf16(v01 >> 8);     // column 2t+1
+          a[2] = nib2_bf16(v23);          // column 2t, k 2tig+8, 2tig+9
+          a[3] = nib2_bf16(v23 >> 8);     // column 2t+1
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_bf16_16816(part[t][mt], a, xb[h][st][mt][0],
+                           xb[h][st][mt][1]);
+        }
+      }
+      // scale by this half's group: s[g, col + 2t] and s[g, col + 2t + 1]
+      const int g = (h ? g_half : 0) + kr0 / group;
+      uint4 sv[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+      if (active && col_ok) {
+        const uint4* sp =
+            reinterpret_cast<const uint4*>(s + (size_t)g * N + col);
+        sv[0] = sp[0];
+        sv[1] = sp[1];
+      }
+      const uint32_t* sw = reinterpret_cast<const uint32_t*>(sv);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float s0 = __uint_as_float(sw[t] << 16);
+        const float s1 = __uint_as_float(sw[t] & 0xFFFF0000u);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          out[t][mt][0] += part[t][mt][0] * s0;
+          out[t][mt][1] += part[t][mt][1] * s0;
+          out[t][mt][2] += part[t][mt][2] * s1;
+          out[t][mt][3] += part[t][mt][3] * s1;
+        }
       }
     }
-    // scale by this half's group: s[g, col + 2t] and s[g, col + 2t + 1]
-    const int g = (h ? g_half : 0) + kr0 / group;
-    uint4 sv[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-    if (active && col_ok) {
-      const uint4* sp = reinterpret_cast<const uint4*>(s + (size_t)g * N + col);
-      sv[0] = sp[0];
-      sv[1] = sp[1];
-    }
-    const uint32_t* sw = reinterpret_cast<const uint32_t*>(sv);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float s0 = __uint_as_float(sw[t] << 16);
-      const float s1 = __uint_as_float(sw[t] & 0xFFFF0000u);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        out[t][mt][0] += part[t][mt][0] * s0;
-        out[t][mt][1] += part[t][mt][1] * s0;
-        out[t][mt][2] += part[t][mt][2] * s1;
-        out[t][mt][3] += part[t][mt][3] * s1;
-      }
-    }
-  }
 
-  // the block's 4 warps (4 k slices) summed in shared memory in warp
-  // order into a [rows, 128] tile (padded against bank conflicts), then
-  // written with coalesced 16-byte stores: into y when the grid does not
-  // split K, else into this block's partial tile of the workspace
+    // the block's 4 warps (4 k slices) summed in shared memory in warp
+    // order into a [rows, 128] tile (padded against bank conflicts), then
+    // written with coalesced 16-byte stores: into y when the grid does
+    // not split K, else into this block's partial tile of the workspace.
+    // The next pass's writes of red and stage follow this pass's reads of
+    // them across the two barriers.
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+    for (int t = 0; t < 8; ++t)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) red[warp][(t * MT + mt) * 4 + e][lane] =
-          out[t][mt][e];
-  __syncthreads();
-  for (int i = tid; i < kFrag * 32; i += kDecThreads) {
-    const int f = i >> 5;
-    const int ln = i & 31;
-    const int t = f / (MT * 4);
-    const int mt = (f >> 2) % MT;
-    const int e = f & 3;
-    const int cc = (ln >> 2) * 16 + 2 * t + (e >> 1);  // column in the tile
-    const int r = mt * 8 + 2 * (ln & 3) + (e & 1);
-    float v = 0.f;
+        for (int e = 0; e < 4; ++e)
+          red[warp][(t * MT + mt) * 4 + e][lane] = out[t][mt][e];
+    __syncthreads();
+    for (int i = tid; i < kFrag * 32; i += kDecThreads) {
+      const int f = i >> 5;
+      const int ln = i & 31;
+      const int t = f / (MT * 4);
+      const int mt = (f >> 2) % MT;
+      const int e = f & 3;
+      const int cc = (ln >> 2) * 16 + 2 * t + (e >> 1);  // column in tile
+      const int r = mt * 8 + 2 * (ln & 3) + (e & 1);
+      float v = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kDecWarps; ++wi) v += red[wi][f][ln];
-    stage[r * kStride + cc + (cc >> 4)] = v;
-  }
-  __syncthreads();
-  const int splits = gridDim.y;
-  float* dst = splits > 1 ? ws + (size_t)blockIdx.y * M * N : y;
-  for (int i = tid; i < kRows * kVecs; i += kDecThreads) {
-    const int r = i / kVecs;
-    const int cc = (i % kVecs) * 4;
-    const int m = m0 + r;
-    const int c = n0 + cc;
-    if (m >= M || c >= N) continue;       // N % 16 == 0: c + 3 < N
-    const float* sp = stage + r * kStride + cc + (cc >> 4);
-    *reinterpret_cast<float4*>(dst + (size_t)m * N + c) =
-        make_float4(sp[0], sp[1], sp[2], sp[3]);
+      for (int wi = 0; wi < kDecWarps; ++wi) v += red[wi][f][ln];
+      stage[r * kStride + cc + (cc >> 4)] = v;
+    }
+    __syncthreads();
+    for (int i = tid; i < kRows * kVecs; i += kDecThreads) {
+      const int r = i / kVecs;
+      const int cc = (i % kVecs) * 4;
+      const int m = m0 + r;
+      const int c = n0 + cc;
+      if (m >= M || c >= N) continue;     // N % 16 == 0: c + 3 < N
+      const float* sp = stage + r * kStride + cc + (cc >> 4);
+      *reinterpret_cast<float4*>(dst + (size_t)m * N + c) =
+          make_float4(sp[0], sp[1], sp[2], sp[3]);
+    }
   }
   if (splits == 1) return;
 
-  // the last y block of this (x, z) tile sums the S partials in a fixed
-  // order.  The ticket is taken after the block's partial is visible
-  // card-wide: thread 0's fence after the barrier orders the block's
-  // stores before its atomic.
+  // the last y block of this (x, z) tile sums the S partials of its slab
+  // in a fixed order.  The ticket is taken after the block's partials are
+  // visible card-wide: thread 0's fence after the barrier orders the
+  // block's stores before its atomic.
   __syncthreads();
   const int tile = blockIdx.z * gridDim.x + blockIdx.x;
   if (tid == 0) {
@@ -930,18 +1006,18 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // q threads sum each float4 output of the tile's live rows, each over
+  // q threads sum each float4 output of the slab's live rows, each over
   // a fixed range of the splits in index order, and the q sums are added
   // in range order, so a small tile (M = 1: 32 outputs) keeps every
   // thread's loads in flight
-  const int tasks = min(kRows, M - m0) * kVecs;
+  const int tasks = min(kSlab, M - mz) * kVecs;
   const int q = max(1, kDecThreads / tasks);
   const size_t stride = (size_t)M * N / 4;
   float4* sums = reinterpret_cast<float4*>(stage);
   for (int i = tid; i < tasks * q; i += kDecThreads) {
     const int o = i % tasks;
     const int j = i / tasks;
-    const int m = m0 + o / kVecs;
+    const int m = mz + o / kVecs;
     const int c = n0 + (o % kVecs) * 4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     if (c < N) {                          // N % 16 == 0: c + 3 < N
@@ -975,7 +1051,7 @@ w4a16_decode(const __nv_bfloat16* __restrict__ x,
       }
       const int c = n0 + (tid % kVecs) * 4;
       if (c < N)
-        *reinterpret_cast<float4*>(y + (size_t)(m0 + tid / kVecs) * N + c) =
+        *reinterpret_cast<float4*>(y + (size_t)(mz + tid / kVecs) * N + c) =
             acc;
     }
   }
@@ -994,13 +1070,14 @@ int decode_splits(int K, int group) {
   return (K / 2 + rows_per_block - 1) / rows_per_block;
 }
 
-template <int MT>
+template <int MT, int P>
 void launch_decode(const __nv_bfloat16* x, const uint8_t* w,
                    const __nv_bfloat16* s, float* y, float* ws, int* counter,
                    int M, int K, int N, int group, cudaStream_t stream) {
+  constexpr int kSlab = 8 * MT * P;
   const dim3 grid((N + kDecCols - 1) / kDecCols, decode_splits(K, group),
-                  (M + 8 * MT - 1) / (8 * MT));
-  w4a16_decode<MT><<<grid, kDecThreads, 0, stream>>>(
+                  (M + kSlab - 1) / kSlab);
+  w4a16_decode<MT, P><<<grid, kDecThreads, 0, stream>>>(
       x, w, s, y, ws, counter, M, K, N, group, decode_steps(group));
 }
 
@@ -1009,12 +1086,15 @@ void launch_decode(const __nv_bfloat16* x, const uint8_t* w,
 extern "C" {
 
 // y is overwritten by both regimes.
-// regime 0: the decode kernel.  With lmd_w4a16_decode_splits(K, group) = S
-// > 1 it takes `ws`, f32 [S, M, N] (16-byte aligned), and `counter`, int32
-// with one entry per (N/128, M/16 or M/8) tile, zero before the first
-// launch; every launch leaves it at zero.  `splits` is not read.
-// regime 1: the wgmma kernel (group 128) over `splits` = S splits of the
-// K/2 / 128 half groups (1 <= S <= min(K/256, 8); the wrapper's plan).  With S > 1
+// regime 0: the decode kernel (any group that is a multiple of 16 and
+// divides K/2, every M).  With lmd_w4a16_decode_splits(K, group) = S > 1
+// it takes `ws`, f32 [S, M, N] (16-byte aligned), and `counter`, int32
+// with one entry per (N/128, M / (8 MT decode_passes(M))) tile, zero
+// before the first launch; every launch leaves it at zero.  `splits` is
+// not read.
+// regime 1: the wgmma kernel (a group that is a multiple of 64) over
+// `splits` = S splits of the K/2 / group half groups (1 <= S <= min(K /
+// (2 group), 8); the wrapper's plan).  With S > 1
 // it takes `ws`, f32 [S, M, N], and `counter`, one int32 per (column tile,
 // row tile), zero before the first launch and left at zero.
 // Returns the launch's cudaError_t.
@@ -1036,13 +1116,16 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
           (reinterpret_cast<uintptr_t>(ws) & 15) != 0)))
       return (int)cudaErrorInvalidValue;
     if (M <= 8)
-      launch_decode<1>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
+      launch_decode<1, 1>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
+    else if (decode_passes(M) == 1)
+      launch_decode<2, 1>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
     else
-      launch_decode<2>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
+      launch_decode<2, 4>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
     return (int)cudaGetLastError();
   }
-  if (regime != 1 || group != kGroup || (K / 2) % kGroup != 0 ||
-      splits < 1 || splits > K / (2 * kGroup) || splits > kMaxSplits ||
+  if (regime != 1 || group <= 0 || group % kChunk != 0 ||
+      (K / 2) % group != 0 || splits < 1 || splits > K / (2 * group) ||
+      splits > kMaxSplits ||
       (splits > 1 && (wsf == nullptr || cnt == nullptr ||
                       (reinterpret_cast<uintptr_t>(ws) & 7) != 0)) ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
@@ -1051,8 +1134,8 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
     return (int)cudaErrorInvalidValue;
 #define LMD_WGMMA_CASE(BM)                                               \
   case BM:                                                                 \
-    return (int)launch_wgmma<BM>(xb, wb, sb, yf, wsf, cnt, M, K, N, splits, \
-                                 st);
+    return (int)launch_wgmma<BM>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, \
+                                 splits, st);
   switch (wgmma_rows(M)) {
     LMD_WGMMA_CASE(16)
     LMD_WGMMA_CASE(24)
@@ -1062,8 +1145,8 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
     LMD_WGMMA_CASE(56)
     LMD_WGMMA_CASE(64)
     default:
-      return (int)launch_wgmma<128>(xb, wb, sb, yf, wsf, cnt, M, K, N, splits,
-                                    st);
+      return (int)launch_wgmma<128>(xb, wb, sb, yf, wsf, cnt, M, K, N, group,
+                                    splits, st);
   }
 #undef LMD_WGMMA_CASE
 }

@@ -83,9 +83,7 @@ from ..kvcache.native import NativeSequenceManager
 from ..kvcache.paged import KV_WIDTHS, kv_bits_named, kv_dyn_groups
 from ..messages import (EngineOutput, EngineRequest, GenerationConfig,
                         ResponseType)
-from ..models.llama import pack_params
 from ..ops import prng
-from ..ops.linear import packed_int4_enabled
 from ..ops.sampling import MAX_STOP_BAD_WORDS
 from ..parallel import multihost
 from ..parallel import pp as PP
@@ -223,13 +221,13 @@ class TorchEngine:
         self._own_group = False
         self._rank_timeout = rank_timeout
         world = self.tp * self.pp * self.dp
-        if world > 1:
-            shards = self._prepare_shards(params)
-        else:
-            # a byte-form tree packs where it can, as the JAX engine packs
-            # at start (LMDEPLOY_TPU_PACKED_INT4=0 keeps the byte form)
-            shards = [pack_params(params) if packed_int4_enabled()
-                      else params]
+        # at tp = pp = 1 this packs the tree as the JAX engine packs it at
+        # start, after padding inter with exact zeros to a multiple of 2 x
+        # group (an odd group count of w2's K, Qwen-14B's 107, cannot
+        # half-split; the JAX engine serves it byte-per-int4 with XLA,
+        # which the card has no kernel for); on the card every weight is
+        # checked against the kernels here, not in the first request
+        shards = self._prepare_shards(params)
         rank = dist.get_rank() if world > 1 and dist.is_initialized() else 0
         self.params = shards[rank % (self.tp * self.pp)]
         num_pages = engine_cfg.num_pages or self._derive_num_pages(shards)

@@ -12,14 +12,17 @@ JAX kernel.
 Bound on an H100 SXM (3.35 TB/s, 989 TF/s bf16): at decode the packed
 weight bytes K*N/2 (Llama-2-7B wqkv 25.2 MB ~ 7.5 us); at a 512-row
 prefill chunk the 2*M*K*N operations.  Two kernels, chosen by the
-quantisation group (the wgmma kernel takes group 128 only):
+quantisation group; between them every group the JAX kernel takes that
+is a multiple of 16 runs a kernel at every M:
 
-- wgmma (group 128, every M): wgmma with the weight as the register
-  operand (nibbles to bf16 in registers) and x tiles of M rows rounded up
-  to 8 (at least 16, up to 64; else 128, :func:`wgmma_rows`) brought by
-  TMA into a ring of shared-memory stages, one f32 partial per group
-  folded with its scales, on a persistent grid of one block per SM (its
-  two consumer warpgroups issue their products in turn at 128-row tiles).
+- wgmma (groups that are multiples of 64, every M): wgmma with the
+  weight as the register operand (nibbles to bf16 in registers) and x
+  tiles of M rows rounded up to 8 (at least 16, up to 64; else 128,
+  :func:`wgmma_rows`) brought by TMA into a ring of shared-memory stages
+  of 64 packed rows, one f32 partial per group of 64 or 128 (two of 128
+  rows at 256) folded with its scales, on a persistent grid of one block
+  per SM (its two consumer warpgroups issue their products in turn at
+  128-row tiles).
   It serves the decode steps' M <= 8 too: chip_smoke.py phase 3 (one
   Llama-2-7B layer, five projections, weights from HBM; H100 80GB HBM3 at
   700 W) has it, on its plan, faster than the decode kernel that took M <=
@@ -39,10 +42,12 @@ quantisation group (the wgmma kernel takes group 128 only):
 
   Its launches also count under ``w4a16_gemm[wgmma]`` and
   ``w4a16_gemm[wgmma]:<route>``.
-- decode (route ``decode``: every group but 128, M <= 64): tensor cores
-  (mma.sync m16n8k16) with the weight as the A operand and x^T as B, so
-  M = 8 fills one n8 tile; it reads every packed byte once, 16 bytes per
-  load, turns nibbles into exact bf16 by a mantissa trick.  Its grid
+- decode (route ``decode``: groups that are not a multiple of 64 (16,
+  32, 48, 80, ...), every M): tensor cores (mma.sync m16n8k16) with the
+  weight as the A operand and x^T as B, so M = 8 fills one n8 tile; a
+  block covers a slab of M (:func:`decode_slab`: 16 rows up to M = 64,
+  else 64 in 16-row passes over one read of its weight bytes), 16 bytes
+  per load, and turns nibbles into exact bf16 by a mantissa trick.  Its grid
   splits K; the splits' f32 partials go to a workspace and the last block
   of each column tile sums them in index order (a ticket counter per
   tile, zeroed once, that every launch leaves at zero), so a call gives
@@ -60,12 +65,12 @@ from . import build
 from .counts import LAUNCHES, PLAIN_CALLS
 
 NAME = 'w4a16_gemm'
-WGMMA = 'w4a16_gemm[wgmma]'      # the group-128 kernel's own count
+WGMMA = 'w4a16_gemm[wgmma]'      # the wgmma kernel's own count
 ROUTES = ('decode', 'splitk', 'tiles')
 WGMMA_ROUTES = ('splitk', 'tiles')
 ROUTE_NAMES = tuple(f'{WGMMA}:{r}' for r in WGMMA_ROUTES)
 SPLITK_MAX = 8        # splits of K at most
-GROUP = 128           # the wgmma kernel's quantisation group
+CHUNK = 64            # packed rows of a wgmma stage: its groups' quantum
 TILE_N = 128          # output columns of a wgmma tile
 
 _counters: dict = {}      # device -> the ticket counters of both regimes
@@ -79,35 +84,42 @@ def wgmma_rows(m: int) -> int:
     return 128 if m > 64 else max(16, -(-m // 8) * 8)
 
 
+def decode_slab(m: int) -> int:
+    """Rows of x a decode-kernel block covers: 8 at M <= 8, 16 up to M =
+    64, else 64 (the kernel's 8 MT rows a pass times decode_passes)."""
+    return 8 if m <= 8 else (16 if m <= 64 else 64)
+
+
 def split_range(split: int, splits: int, g_half: int):
     """Half groups ``[lo, hi)`` of split ``split`` of ``splits``: half group
     gb holds groups gb (low nibbles) and g_half + gb (high nibbles)."""
     return split * g_half // splits, (split + 1) * g_half // splits
 
 
-def splitk_splits(m: int, k: int, n: int, sms: int) -> int:
-    """The wgmma kernel's plan: the number S of splits of the K/256 half
-    groups at this shape (S > 1 is route splitk).  Where the output tiles
-    fill at most half the SMs, S is the most splits (<= SPLITK_MAX, <=
-    K/256) that keep the tiles' items in one wave; else 1.  Measured on an
+def splitk_splits(m: int, k: int, n: int, sms: int, group: int) -> int:
+    """The wgmma kernel's plan: the number S of splits of the K / (2
+    group) half groups at this shape (S > 1 is route splitk).  Where the
+    output tiles fill at most half the SMs, S is the most splits (<=
+    SPLITK_MAX, <= the half groups) that keep the tiles' items in one
+    wave; else 1.  Measured on an
     H100 (chip_smoke.py's breakdown sweep): each split's partial costs a
     write, a ticket and a sum, so a projection whose tiles already fill
     most of the card (wqkv, w1, w3: 96 / 86 tiles) runs fastest unsplit,
     and one with 32 tiles (wo, w2) fastest at S = 4."""
-    g_half = k // (2 * GROUP)
+    g_half = k // (2 * group)
     tiles = -(-n // TILE_N) * -(-m // wgmma_rows(m))
     if 2 * tiles > sms:
         return 1
     return max(1, min(g_half, SPLITK_MAX, sms // tiles))
 
 
-def gemm_route(m: int, k: int, n: int, sms: int, group: int = GROUP) -> str:
-    """The route a call of these shapes takes: ``decode`` (any group but
-    128, up to M = 64), else ``splitk`` or ``tiles``.  A pure function of
-    shapes: no host sync."""
-    if group != GROUP:
+def gemm_route(m: int, k: int, n: int, sms: int, group: int) -> str:
+    """The route a call of these shapes takes, at every M: ``splitk`` or
+    ``tiles`` (the wgmma kernel) at a group that is a multiple of 64,
+    ``decode`` at any other.  A pure function of shapes: no host sync."""
+    if group % CHUNK:
         return 'decode'
-    return 'splitk' if splitk_splits(m, k, n, sms) > 1 else 'tiles'
+    return 'splitk' if splitk_splits(m, k, n, sms, group) > 1 else 'tiles'
 
 
 def sm_count(device) -> int:
@@ -141,7 +153,7 @@ def _decode_workspace(m: int, k: int, n: int, group: int, device):
         _splits[(k, group)] = splits
     if splits <= 1:
         return None, None
-    tiles = -(-n // 128) * -(-m // (8 if m <= 8 else 16))
+    tiles = -(-n // 128) * -(-m // decode_slab(m))
     return (torch.empty((splits, m, n), dtype=torch.float32, device=device),
             _ticket_counters(tiles, device))
 
@@ -176,12 +188,8 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if x.device.type == 'cpu':
         return w4a16_gemm_plain(x, packed, scales, layer)
     m, k = x.shape
-    group = k // scales.shape[1]
-    if group != GROUP and m > 64:
-        raise ValueError(f'w4a16_gemm: M={m} > 64 takes group {GROUP} only, '
-                         f'not {group}')
     return w4a16_gemm_route(x, packed, scales, layer, gemm_route(
-        m, k, packed.shape[-1], sm_count(x.device), group))
+        m, k, packed.shape[-1], sm_count(x.device), k // scales.shape[1]))
 
 
 def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
@@ -203,8 +211,9 @@ def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
                          f'scales{tuple(scales.shape)}/{scales.dtype} '
                          f'route {route!r}')
     wgmma = route != 'decode'
+    g_half = k2 // group
     if n % 16 or k % 16 or group % 16 or (wgmma and (
-            group != GROUP or (route == 'splitk' and k < 4 * GROUP))):
+            group % CHUNK or (route == 'splitk' and g_half < 2))):
         raise ValueError(f'w4a16_gemm: unsupported shape M={m} K={k} N={n} '
                          f'group={group} ({route})')
     if not (packed.is_contiguous() and scales.is_contiguous()):
@@ -220,10 +229,11 @@ def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
         ws, counter = _decode_workspace(m, k, n, group, x.device)
     else:
         if route == 'splitk':
-            splits = max(2, splitk_splits(m, k, n, sm_count(x.device)))
-            if splits > k // (2 * GROUP):
+            splits = max(2, splitk_splits(m, k, n, sm_count(x.device),
+                                          group))
+            if splits > g_half:
                 raise ValueError(f'w4a16_gemm: {splits} splits of '
-                                 f'{k // (2 * GROUP)} half groups')
+                                 f'{g_half} half groups')
         ws = counter = None
         if splits > 1:
             ws = torch.empty((splits, m, n), dtype=torch.float32,

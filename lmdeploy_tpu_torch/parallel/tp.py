@@ -137,7 +137,7 @@ def _pad_inter_for_tp(layers: Dict[str, Any], tp: int,
     inter_size up to the next group*tp multiple with exact-zero columns in
     w1/w3 and zero rows in w2 (the reference instead pre-splits per-rank
     files offline and requires divisibility, deploy.py tp_m_s4)."""
-    w2 = layers['w2']
+    w2 = layers.get('w2')
     if not _is_int4(w2):
         return layers
     inter = w2.k
@@ -221,10 +221,11 @@ def pack_params_for_tp(params: Dict[str, Any], tp: int) -> Dict[str, Any]:
     repacks per rank all the same: its CPU plain version takes it, and
     the card refuses it at preparation."""
     pack_bytes = packed_int4_enabled()
-    if not pack_bytes and not any(isinstance(w, PackedInt4Weight)
-                                  for w in params['layers'].values()):
+    layers = params.get('layers')
+    if not layers or not pack_bytes and not any(
+            isinstance(w, PackedInt4Weight) for w in layers.values()):
         return params
-    layers = dict(params['layers'])
+    layers = dict(layers)
     # the packed kernel half-splits each rank's K, so the per-rank group
     # count must be EVEN: widen the inter padding quantum to 2*group*tp
     # (idempotent on top of prepare_params_for_tp's group*tp padding)
@@ -260,19 +261,22 @@ def pack_params_for_tp(params: Dict[str, Any], tp: int) -> Dict[str, Any]:
 def check_kernel_shapes(params: Dict[str, Any], rank: int = 0) -> None:
     """Raise unless every W4A16 weight of one rank's shard has a kernel on
     the card: nibble-packed, an even group count, N % 16 == 0 (the
-    kernel's vector loads).  A byte-per-int4 weight passes only under
+    kernel's vector loads), a group that is a multiple of 16 (every such
+    group runs a kernel at every M).  A byte-per-int4 weight passes only under
     ``LMDEPLOY_TPU_PACKED_INT4=0``, where the user chose that form and
     ``ops/linear.py``'s products serve it; with packed residency it is a
     weight the kernel cannot take."""
     byte_ok = not packed_int4_enabled()
     for name, w in params['layers'].items():
         if (isinstance(w, QuantizedWeight) and not byte_ok) or (
-                isinstance(w, PackedInt4Weight) and not _packable(w)):
+                isinstance(w, PackedInt4Weight) and (
+                    not _packable(w) or _group_size(w) % 16)):
             raise NotImplementedError(
                 f'W4A16 weight {name!r} of rank {rank}: K={w.k} N={w.n}, '
                 f'{_group_count(w)} groups of {_group_size(w)}, '
                 f'{type(w).__name__}; the card\'s kernel needs it nibble-'
-                'packed (an even group count per rank) with N % 16 == 0')
+                'packed (an even group count per rank) with N % 16 == 0 '
+                'and a group that is a multiple of 16')
 
 
 # ---------------------------------------------------------------------------

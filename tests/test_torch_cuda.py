@@ -21,10 +21,10 @@ from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (ROUTES, gemm_route,
                                                       w4a16_gemm_route)
 
 
-def _gemm_case(rng, m, k, n, layers=2):
+def _gemm_case(rng, m, k, n, layers=2, group=128):
     x = rng.normal(size=(m, k)).astype(np.float32)
     packed = rng.integers(0, 256, size=(layers, k // 2, n), dtype=np.uint8)
-    scales = rng.uniform(0.01, 0.1, size=(layers, k // 128, 1, n)).astype(
+    scales = rng.uniform(0.01, 0.1, size=(layers, k // group, 1, n)).astype(
         np.float32)
     return x, packed, scales
 
@@ -208,19 +208,20 @@ def test_prefill_quantized_matches_plain_on_card(cuda_device, kv_bits):
 
 GEMM_SHAPES = [(k, n, group, m)
                for k, n, group in ((1024, 512, 128), (2816, 528, 128),
-                                   (1536, 256, 48))
-               for m in (1, 2, 3, 5, 8, 9, 16, 33, 64, 65)
-               if m <= 64 or group == 128]   # M > 64 takes group 128 only
+                                   (1536, 256, 48), (1536, 256, 64),
+                                   (1536, 256, 256))
+               for m in (1, 2, 3, 5, 8, 9, 16, 33, 64, 65, 130, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('k,n,group,m', GEMM_SHAPES)
 def test_w4a16_shapes_match_plain_on_card(cuda_device, k, n, group, m):
-    """The route gemm_route picks (decode at a group of 48 up to M = 64;
-    the wgmma routes at group 128, every M) at ragged shapes: an odd
-    count of half groups
-    (K = 2816: 11 low and 11 high groups), N not a multiple of the block's
-    128 columns, and a group of 48."""
+    """The route gemm_route picks at every M (decode at a group of 48, in
+    16-row slabs up to M = 64 and 64-row slabs above; the wgmma routes at
+    groups 64, 128 and 256)
+    at ragged shapes: an odd count of half groups (K = 2816: 11 low and 11
+    high groups), N not a multiple of the block's 128 columns, a group of
+    48, one a stage (64) and one of four stages (256)."""
     rng = np.random.default_rng(k + n + m)
     x = rng.normal(size=(m, k)).astype(np.float32)
     packed = rng.integers(0, 256, size=(2, k // 2, n), dtype=np.uint8)
@@ -502,6 +503,30 @@ def test_w4a16_forced_route_matches_plain_on_card(cuda_device, m, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('group,route', [(64, 'splitk'), (64, 'decode'),
+                                         (32, 'decode')])
+@pytest.mark.parametrize('m', [1, 40, 200])
+def test_w4a16_other_groups_are_bit_identical_across_calls(cuda_device, m,
+                                                           group, route):
+    """At group 64 route splitk (its splits' partials summed in split
+    order) and at groups 64 and 32 the decode route in its slabs of M (its
+    K splits summed in index order) give the same bits on two launches,
+    so that a seed still gives one sampled stream at every group; each
+    within 1e-3 of the plain version.  (Route splitk is the wgmma
+    kernel's, which takes groups that are multiples of 64.)"""
+    rng = np.random.default_rng(1000 + m + group)
+    x, packed, scales = _gemm_case(rng, m, 4096, 1024, group=group)
+    args = (torch.from_numpy(x).to(cuda_device),
+            torch.from_numpy(packed).to(cuda_device),
+            torch.from_numpy(scales).to(torch.bfloat16).to(cuda_device), 1)
+    first = w4a16_gemm_route(*args, route)
+    assert torch.equal(first, w4a16_gemm_route(*args, route))
+    want = w4a16_gemm_plain(*args)
+    tol = 1e-3 * want.abs().max().item() + 1e-3
+    assert (first - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 def test_w4a16_plan_mirrors_the_kernel_on_card(cuda_device):
     """The wrapper's x tile height (which sizes the ticket counters) is the
     kernel's own at every M."""
@@ -526,7 +551,7 @@ def test_w4a16_route_counts_on_card(cuda_device):
     for m in (1, 8, 9, 40, 64, 512):
         args = _gemm_args(rng, m, 4096, 4096, cuda_device)
         w4a16_gemm(*args)
-        route = gemm_route(m, 4096, 4096, sm_count(cuda_device))
+        route = gemm_route(m, 4096, 4096, sm_count(cuda_device), 128)
         assert route == ('splitk' if m <= 64 else 'tiles')
         key = f'w4a16_gemm[wgmma]:{route}'
         want[key] = want.get(key, 0) + 1

@@ -17,10 +17,10 @@ Each emulation is held to ``packed_int4_matmul`` (Pallas in interpret
 mode, as the JAX package's own tests run it on the CPU) and to the port's
 plain version on identical numpy inputs, within 1e-3 max|y| + 1e-3, the
 tolerance ``chip_smoke.py`` and the card tests hold the kernel to.  The
-route rule (``gemm_route``: at group 128 every M, the decode steps' M <= 8
-too, takes the wgmma regime) and the split plan (``splitk_splits``,
-``split_range``) are pure functions of shapes, tested here at the main
-path's shapes.
+route rule (``gemm_route``: at group 128, as at every multiple of 64,
+every M, the decode steps' M <= 8 too, takes the wgmma regime) and the
+split plan (``splitk_splits``, ``split_range``) are pure functions of
+shapes, tested here at the main path's shapes.
 """
 import functools
 
@@ -93,7 +93,7 @@ def test_route_sum_order_matches_pallas_and_plain(m, route):
     ragged N, at the decode steps' M <= 8 and at M on both sides of the
     64-row tiles."""
     x, packed, scales, want = _case(m)
-    splits = (max(2, splitk_splits(m, K, N, SMS)) if route == 'splitk'
+    splits = (max(2, splitk_splits(m, K, N, SMS, 128)) if route == 'splitk'
               else 1)
     args = (torch.from_numpy(x), torch.from_numpy(packed),
             torch.from_numpy(scales).to(torch.bfloat16), 1)
@@ -135,8 +135,8 @@ def test_decode_rows_sum_order_matches_pallas(m, k):
         jnp.asarray(scales, jnp.bfloat16), 0, interpret=True), np.float32))
     args = (torch.from_numpy(x), torch.from_numpy(packed),
             torch.from_numpy(scales).to(torch.bfloat16), 0)
-    splits = splitk_splits(m, k, 4096, SMS)
-    assert splits == 4 and gemm_route(m, k, 4096, SMS) == 'splitk'
+    splits = splitk_splits(m, k, 4096, SMS, 128)
+    assert splits == 4 and gemm_route(m, k, 4096, SMS, 128) == 'splitk'
     tol = 1e-3 * want.abs().max().item() + 1e-3
     for s in (1, splits):
         assert (emulate_route(*args, s) - want).abs().max().item() <= tol
@@ -150,12 +150,13 @@ def test_gemm_route_at_main_path_shapes(k, n):
     route is splitk exactly where the output tiles fill at most half the
     card, at every 7B and tp = 2 rank projection, and the 512-row bucket
     takes tiles."""
-    assert gemm_route(512, k, n, SMS) == 'tiles'
-    assert splitk_splits(512, k, n, SMS) == 1
+    assert gemm_route(512, k, n, SMS, 128) == 'tiles'
+    assert splitk_splits(512, k, n, SMS, 128) == 1
     for m in (1, 2, 4, 8, 9, 16, 40, 64, 65, 128, 256):
         tiles = -(-n // 128) * -(-m // wgmma_rows(m))
-        s = splitk_splits(m, k, n, SMS)
-        assert gemm_route(m, k, n, SMS) == ('splitk' if s > 1 else 'tiles')
+        s = splitk_splits(m, k, n, SMS, 128)
+        assert gemm_route(m, k, n, SMS, 128) == ('splitk' if s > 1
+                                                 else 'tiles')
         assert (s > 1) == (2 * tiles <= SMS)
         assert s <= SPLITK_MAX and tiles * s <= max(tiles, SMS)
 
@@ -164,32 +165,36 @@ def test_gemm_route_at_the_verify():
     """The verify's M = 40: wo and w2 (32 column tiles) split K four ways
     (128 items, one wave), wqkv, w1 and w3 (96 / 86 tiles) run unsplit;
     every projection of a tp = 2 rank (32-48 tiles) splits."""
-    routes = [gemm_route(40, k, n, SMS) for k, n in LLAMA2_7B]
+    routes = [gemm_route(40, k, n, SMS, 128) for k, n in LLAMA2_7B]
     assert routes == ['tiles', 'splitk', 'tiles', 'tiles', 'splitk']
-    assert [splitk_splits(40, k, n, SMS) for k, n in LLAMA2_7B] == [
+    assert [splitk_splits(40, k, n, SMS, 128) for k, n in LLAMA2_7B] == [
         1, 4, 1, 1, 4]
-    assert all(gemm_route(40, k, n, SMS) == 'splitk' for k, n in TP2)
-    assert [splitk_splits(40, k, n, SMS) for k, n in TP2] == [2, 4, 3, 3, 4]
+    assert all(gemm_route(40, k, n, SMS, 128) == 'splitk' for k, n in TP2)
+    assert [splitk_splits(40, k, n, SMS, 128) for k, n in TP2] == [
+        2, 4, 3, 3, 4]
 
 
 def test_gemm_route_keeps_other_groups_on_the_decode_kernel():
-    """A group other than 128 keeps the decode kernel (the wrapper raises
-    above M = 64, as before the routes); at group 128 no M takes it."""
-    for m in (1, 8, 9, 40, 64):
+    """A group that is not a multiple of 64 (48, 32) keeps the decode
+    kernel, at every M since it covers M in slabs; groups that are
+    multiples of 64 (64, 128) take the wgmma routes at every M, so at
+    group 128 no M takes the decode kernel."""
+    for m in (1, 8, 9, 40, 64, 65, 512):
         assert gemm_route(m, 1536, 256, SMS, group=48) == 'decode'
-        assert gemm_route(m, 1536, 256, SMS, group=64) == 'decode'
-        assert gemm_route(m, 4096, 4096, SMS) != 'decode'
-    assert gemm_route(1, 4096, 4096, SMS) == 'splitk'
+        assert gemm_route(m, 1536, 256, SMS, group=32) == 'decode'
+        assert gemm_route(m, 1536, 256, SMS, group=64) != 'decode'
+        assert gemm_route(m, 4096, 4096, SMS, 128) != 'decode'
+    assert gemm_route(1, 4096, 4096, SMS, 128) == 'splitk'
 
 
 def test_tiles_that_underfill_the_card_split():
     """At M = 128 wqkv has 96 tiles of 128 x 128 and keeps one item each;
     wo and w2 have 32, which would leave 100 SMs idle, so they split; at
     M = 512 (128 tiles) none splits."""
-    assert gemm_route(128, 4096, 12288, SMS) == 'tiles'
-    assert gemm_route(128, 4096, 4096, SMS) == 'splitk'
-    assert gemm_route(128, 11008, 4096, SMS) == 'splitk'
-    assert gemm_route(512, 11008, 4096, SMS) == 'tiles'
+    assert gemm_route(128, 4096, 12288, SMS, 128) == 'tiles'
+    assert gemm_route(128, 4096, 4096, SMS, 128) == 'splitk'
+    assert gemm_route(128, 11008, 4096, SMS, 128) == 'splitk'
+    assert gemm_route(512, 11008, 4096, SMS, 128) == 'tiles'
 
 
 @pytest.mark.parametrize('k', [512, 1024, 2816, 4096, 5632, 11008])
