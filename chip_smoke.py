@@ -18,9 +18,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                timing cycles enough layers that the timed weights or K/V
                (at least 100 MB between two reads of a layer: hbm_layers)
                come from HBM, not the 50 MB L2; the GEMM
-               at every GEMM_ROWS M on the route gemm_route picks and, up
-               to GEMM_CROSS_MAX_M, on the decode route too (the crossover),
-               each line naming the route
+               at every GEMM_ROWS M on both routes (splitk and tiles), each
+               line naming the route
                gemm_route picks, with its split plan, and timing the parent
                (--parent TREE: that checkout's kernel 1 through its own
                wrapper and build), torch.matmul and the bound beside it;
@@ -47,11 +46,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                M = 4 and 2 over one layer and one tp = 2 rank's, decode
                attention at B = 4, H = KH = 32 / 16, and B = 2, 16); and
                the GEMM over the rest of its TPU function's domain: groups
-               64, 32 and 256 over one Llama-2-7B layer at M = 1 / 8 / 40 /
-               64 / 512 and group 128 over Qwen-14B's projections at M = 1
-               / 8 / 40 / 512 (the kernels line's groups and qwen14b keys).
-               With --parent every group-128 GEMM case must give the
-               parent's bits
+               64, 32, 256, 48 and 16 over one Llama-2-7B layer at M = 1 /
+               8 / 40 / 64 / 512 and group 128 over Qwen-14B's projections
+               at M = 1 / 8 / 40 / 512 (the kernels line's groups and
+               qwen14b keys).  With --parent every GEMM case at a group
+               that is a multiple of 64 must give the parent's bits
   4. model   — a 2-layer full-width W4A16 model: one 64-token prefill chunk
                + 4 decode steps + one T=5 speculative verify forward (every
                row's logits) through the kernels on the card against the
@@ -127,10 +126,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                cli/decode.py's perplexity, and a RouterEngine over the
                engine and a peer process on the same card.  The checkpoint
                also goes through the converter's command line at
-               --group-size 64: an engine on that workspace serves 4
-               concurrent requests (the 512 bucket) and a speculative one,
-               every GEMM launch on a wgmma route, prompt logits within 5%
-               (cosine 0.999) of the CPU's.
+               --group-size 64 and at --group-size 32: an engine on each
+               workspace serves 4 concurrent requests (the 512 bucket), a
+               bs1 request and a speculative one, launches per decode step,
+               prefill pass and verify round solved from those windows (10
+               GEMM, all on the wgmma routes, and 2 attention), prompt
+               logits within 5% (cosine 0.999) of the CPU's.
   7. quant   — a user quantises that checkpoint on the card and serves it:
                `lite calibrate` (16 x 512 synthetic ids, bf16 through the
                prefill-attention kernel: 32 launches; the first 2 samples'
@@ -150,7 +151,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                bs1 is a token).  Phases 5 and 7 keep sessions in the native C++
                store; phase 5's prefix-hit follower also runs on the Python
                one (LMDEPLOY_TPU_NATIVE=0) and must prefill the same tokens.
-  8. parallel — phase 5's 32-layer model at tp = 1 and tp = 2 (a second rank
+  8. parallel — phase 5's model (its widths and seed) at PARALLEL_LAYERS
+               (16) layers, tp = 1 and tp = 2 (a second rank
                process spawned by the engine on the same card; the device
                collectives go through gloo): bs1 32 new on plain and on
                speculative rounds, 4 concurrent requests, prompt logits of
@@ -191,8 +193,18 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                near-ties, logits within 5% / cosine 0.999; the byte and
                W4A8 engines launch no GEMM, L decode attention a step and
                L prefill attention a pass;
-               tok/s, device ms a step, peak memory); W4A8 prompt logits of
-               a 2-layer cut, card against CPU (5% / 0.999); the debugger
+               tok/s, device ms a step, peak memory); the W4A8 witnesses
+               (the first 2 layers of fresh draws of GATE_DRAW_LAYERS:
+               seed 5 as bench.py draws, and codes centred on the zero
+               point at each of --gate-seeds: every W4A8 product of a
+               300-token prompt held card vs CPU on the card's inputs
+               beside its own error there, the logits recorded with W4A8
+               and without, card vs CPU and the CPU against itself with
+               every product's input nudged by one f32 ulp, which gates
+               the centred draws' card-vs-CPU logits) and the W4A8 gate:
+               prompt logits of a 2-layer cut of gate_params' draw
+               (embedding rows away from zero mean; --gate-seeds, default
+               5), card against CPU (5% / 0.999); the debugger
                (LMDEPLOY_TPU_DEBUG=dump, then cmp on the card, then cmp of
                the CPU's run) on that cut; trace() and annotate() around a
                bs1 request.  Alone: --phases probe,build,tools.
@@ -261,13 +273,10 @@ LLAMA2_7B_GEMMS = (('wqkv', 4096, 12288), ('wo', 4096, 4096),
                    ('w2', 11008, 4096))
 ENGINE_SLOTS = 8     # phase 5's max_batch_size: every decode step runs all
 # 64 and 512: the prefill buckets; 40: the speculative verify of all 8 slots
-# (K+1 = 5 rows each); M <= 64 also times the decode kernel (the crossover)
+# (K+1 = 5 rows each)
 SPEC_K = 4           # phase 5's speculative_k, as bench.py's headline run
 GEMM_ROWS = (1, ENGINE_SLOTS, 16, 32, ENGINE_SLOTS * (SPEC_K + 1), 64, 128,
              256, 512)
-# the largest M at which check_gemm times both sides of the crossover:
-# the decode route and the wgmma kernel on its plan
-GEMM_CROSS_MAX_M = 16
 REPLACES = {
     'w4a16_gemm': 'lmdeploy_tpu/ops/pallas/quant_matmul.py:177',
     'paged_decode_attention_write':
@@ -498,13 +507,11 @@ def gemm_parent_ms(torch, ctx, timer, x, packed, scales, layer, want, tol,
 
 def check_gemm(torch, ctx, timer):
     """The W4A16 GEMM at every GEMM_ROWS M over one Llama-2-7B layer's five
-    projections: every route that takes M (decode up to M = 64, splitk and
-    tiles at every M) against the plain version; the route that
-    gemm_route picks timed beside the parent's kernel (--parent), the
-    library call (torch.matmul on the dequantised weight) and the bound;
-    the decode route and the wgmma kernel on its plan also timed up to
-    GEMM_CROSS_MAX_M (the crossover).  Every timing
-    cycles enough layers that the weights come from HBM (hbm_layers)."""
+    projections: both routes (splitk and tiles) against the plain
+    version; the route that gemm_route picks timed beside the parent's
+    kernel (--parent), the library call (torch.matmul on the dequantised
+    weight) and the bound.  Every timing cycles enough layers that the
+    weights come from HBM (hbm_layers)."""
     from lmdeploy_tpu_torch.ops.cuda import build
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
         ROUTES, gemm_route, sm_count, splitk_splits, w4a16_gemm,
@@ -517,7 +524,6 @@ def check_gemm(torch, ctx, timer):
         zero['parent_ms'] = 0.0
     layer = {m: dict(zero, routes={}) for m in GEMM_ROWS}
     by_route = {r: {} for r in ROUTES}
-    wgmma_plan = {}       # M -> the wgmma regime on its plan's routes
     lib = build.load()
     for name, k, n in LLAMA2_7B_GEMMS:
         # timing cycles layers so weights come from HBM
@@ -531,15 +537,8 @@ def check_gemm(torch, ctx, timer):
             scale = want.abs().max().item()
             tol = 1e-3 * scale + 1e-3
             route = gemm_route(m, k, n, sms, 128)
-            timed = {route}
-            if m <= GEMM_CROSS_MAX_M:
-                timed.add('decode')
-            plan = ('splitk' if splitk_splits(m, k, n, sms, 128) > 1
-                    else 'tiles')
-            if m <= GEMM_CROSS_MAX_M:
-                timed.add(plan)         # the crossover's other side
             errs, times, outs = {}, {}, {}
-            for r in [r for r in ROUTES if r != 'decode' or m <= 64]:
+            for r in ROUTES:
                 got = outs[r] = w4a16_gemm_route(x, packed, scales, 3, r)
                 torch.cuda.synchronize()
                 errs[r] = (got - want).abs().max().item()
@@ -547,14 +546,10 @@ def check_gemm(torch, ctx, timer):
                     raise AssertionError(f'w4a16_gemm[{r}] {name} M={m}: '
                                          f'max abs err {errs[r]} > {tol}')
                 worst = max(worst, errs[r])
-                if r in timed:
-                    t = times[r] = timer.graph(lambda i: w4a16_gemm_route(
+                if r == route:
+                    ms = times[r] = timer.graph(lambda i: w4a16_gemm_route(
                         x, packed, scales, i % n_layers, r), iters)
-                    by_route[r][m] = by_route[r].get(m, 0.0) + t
-                    if r == route:
-                        ms = t
-                    if r == plan:
-                        wgmma_plan[m] = wgmma_plan.get(m, 0.0) + t
+                    by_route[r][m] = by_route[r].get(m, 0.0) + ms
             # at group 128 the parent's kernel 1 gives the same bits
             parent = gemm_parent_ms(torch, ctx, timer, x, packed, scales, 3,
                                     want, tol, f'{name} M={m}', n_layers,
@@ -577,8 +572,7 @@ def check_gemm(torch, ctx, timer):
                     + (f', parent {layer[m]["parent_host_us"]:.1f}'
                        if qm is not None else '') + f' (M={m}, {name})')
             bms, by = gemm_bound(m, k, n)
-            shape = ('' if route == 'decode' else
-                     f', S={splitk_splits(m, k, n, sms, 128)}, x tile '
+            shape = (f', S={splitk_splits(m, k, n, sms, 128)}, x tile '
                      f'{wgmma_rows(m)} rows')
             rows.append((name, m, k, n, route, ms, parent, plain, lib_ms, bms,
                          by, errs[route]))
@@ -611,10 +605,6 @@ def check_gemm(torch, ctx, timer):
             + f'torch.matmul {layer[m]["library_ms"]:.4f} ms, bound '
             f'{layer[m]["bound_ms"]:.4f} ms ({layer[m]["bound_by"]}), '
             f'{layer[m]["bound_ms"] / layer[m]["ms"]:.0%} of the bound')
-    log('  crossover, one layer (ms): ' + '; '.join(
-        f'M={m} decode {by_route["decode"][m]:.4f}'
-        + (f' wgmma (plan) {wgmma_plan[m]:.4f}' if m in wgmma_plan else '')
-        for m in GEMM_ROWS if m <= GEMM_CROSS_MAX_M))
     log('  routes, one layer (ms; a route summed over the projections timed '
         'on it): ' + '; '.join(
             f'M={m} ' + ' '.join(f'{r} {by_route[r][m]:.4f}' for r in ROUTES
@@ -632,7 +622,6 @@ def check_gemm(torch, ctx, timer):
         shape='one Llama-2-7B layer in prefill: wqkv+wo+w1+w3+w2, M=512 '
               '(the 512-token bucket)',
         **layer[512], max_abs_err=worst, verify_m40=layer[verify_m],
-        crossover=dict(by_route, wgmma_plan=wgmma_plan),
         tmap_encode_ns=enc, tolerance=tol)
     # one entry per route: the projections that take it at the verify's M
     # (splitk) and at the 512-token bucket (tiles), summed
@@ -1200,12 +1189,11 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label,
                     group=128):
     """The W4A16 GEMM at ``gemms`` x ``m_rows`` at quantisation group
     ``group`` (the route the wrapper picks) against its plain version,
-    with the parent's kernel (--parent) wherever the parent took the
-    shape: group 128 at every M, other groups at M <= 64 (its decode
-    kernel); at 128 and at the groups that stay on the decode kernel
-    (not multiples of 64) with the same bits, as the code is the same.
-    Also torch.matmul on the dequantised weight and the bound; a row
-    each, keyed by shape."""
+    with the parent's kernel (--parent) at every M, held to the plain
+    version too and, at the groups whose code is the parent's (the
+    multiples of 64, the wgmma kernel's stage pieces), to its bits; at the
+    other groups the parent's is its route decode.  Also torch.matmul on
+    the dequantised weight and the bound; a row each, keyed by shape."""
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import (
         gemm_route, sm_count, w4a16_gemm, w4a16_gemm_plain)
     rows = {}
@@ -1234,12 +1222,10 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label,
             if not torch.equal(got, again):
                 raise AssertionError(f'w4a16_gemm {label} {name} M={m}: a '
                                      'second call differs')
-            same = group == 128 or group % 64 != 0
             parent = gemm_parent_ms(
                 torch, ctx, timer, x, packed, scales, 1, want, tol,
                 f'{label} {name} M={m}', n_layers, iters,
-                mine=got if same else None) if (
-                    group == 128 or m <= 64) else None
+                mine=got if group % 64 == 0 else None)
             lib = timer.graph(lambda i: torch.matmul(x, deq[i % n_layers]),
                               iters)
             plain = timer.events(lambda i: w4a16_gemm_plain(
@@ -1279,15 +1265,15 @@ def check_gemm_rows(torch, ctx, gen, timer, gemms, m_rows, label,
 
 
 # Kernel 1 over the rest of the JAX kernel's domain: the other groups it
-# takes (a multiple of 64 runs the wgmma kernel, any other multiple of 16
-# the decode kernel, at every M) over one Llama-2-7B layer (w1 stands for
+# takes (a multiple of 64 in stage pieces, any other multiple of 16 in
+# the step form, at every M) over one Llama-2-7B layer (w1 stands for
 # w3; w2's K = 11008 is 43 groups of 256, an odd count, so at group 256
 # it is the 11264 the engine pads it to; at group 48 K pads to a multiple
 # of 96: 4128 and 11040), and Qwen-14B's projections at group 128 (inter
-# 13696, 107 groups, padded to 13824).  Groups 32 and 48 (the decode
-# kernel's tasks of two and of one k16 step) are also the parent's
-# code at M <= 64, so --parent holds them to its bits there
-GEMM_GROUPS = (64, 32, 256, 48)
+# 13696, 107 groups, padded to 13824).  Groups 16, 32 and 48 (the step
+# form's commit groups of one, two and three k16 steps) run the parent's
+# route decode in its column
+GEMM_GROUPS = (64, 32, 256, 48, 16)
 GROUP_ROWS = (1, ENGINE_SLOTS, ENGINE_SLOTS * (SPEC_K + 1), 64, 512)
 QWEN14B_GEMMS = (('wqkv', 5120, 15360), ('wo', 5120, 5120),
                  ('w1', 5120, 13824), ('w2', 13824, 5120))
@@ -1547,12 +1533,35 @@ def gemm_breakdown_variants(src: str) -> dict:
     weight_only = _cut(_cut(loads_only, x_loads),
                        'T::kWBytes + 2 * T::kXBytes +',
                        'T::kWBytes + 0 * T::kXBytes +')
+    # the step form (groups that are not multiples of 64): its products,
+    # its A fragments (no weight byte read from shared memory) or its
+    # folds taken out
+    step_issue = ('wgmma_bm<BM>(part[hh], a[u],',)
+    step_ldsm = ('ldsm_x2_trans(smem_u32(stage) + w_lane2 + (t & 3) * 16 '
+                 '* kBN,\n' + ' ' * 28 + 'v[u][0], v[u][1]);',)
+    step_fold = ('fold(acc, part[hh], sc[h0 + hh]);',)
+
+    def cuts(text, olds, new):
+        for old in olds:
+            text = _cut(text, old, new(old))
+        return text
     return {'full': src,
             'no_products': _cut(src, issue, 'if (kk < 0) ' + issue),
             'no_abuild': no_abuild(src), 'no_order': no_order,
             'all_order': _cut(src, pingpong,
                               '  constexpr bool kPingPong = true;'),
-            'loads_only': loads_only, 'weight_only': weight_only}
+            'loads_only': loads_only, 'weight_only': weight_only,
+            'steps_no_products': cuts(src, step_issue,
+                                      lambda old: 'if (u < 0) ' + old),
+            'steps_no_abuild': cuts(
+                src, step_ldsm,
+                lambda old: 'v[u][0] = v[u][1] = 0x00110011u;'),
+            'steps_no_fold': cuts(src, step_fold,
+                                  lambda old: 'if (gs < 0) ' + old),
+            # every step group on the runtime step count (U = -1): what
+            # a compile-time form gains at its group
+            'steps_runtime': _cut(src, '  switch (group / 16) {',
+                                  '  switch (0) {')}
 
 
 def phase_breakdown(torch, ctx):
@@ -1669,6 +1678,10 @@ GEMM_BREAKDOWN_CASES = (
      ENGINE_SLOTS * (SPEC_K + 1), 64),
     ('7B layer M=128 group 64', LLAMA2_7B_GEMMS, 128, 64),
     ('7B layer M=512 group 64', LLAMA2_7B_GEMMS, 512, 64),
+    # the step form: a fold pair every group / 16 k16 steps
+    *((f'7B layer M={m} group {g}', LLAMA2_7B_GEMMS, m, g)
+      for g in (16, 32, 48) for m in (ENGINE_SLOTS,
+                                      ENGINE_SLOTS * (SPEC_K + 1), 512)),
 )
 
 
@@ -1693,6 +1706,7 @@ def gemm_breakdown(torch, ctx, timer, libs):
         group = group[0] if group else 128
         row = {}
         for name, k, n in gemms:
+            k += (-k) % (2 * group)   # group 48: K a multiple of 96
             packed, scales, _ = _gemm_weights(torch, gen, k, n, 4, group)
             x = torch.randn((m, k), generator=gen, device='cuda').to(
                 torch.bfloat16)
@@ -1736,7 +1750,7 @@ def gemm_breakdown(torch, ctx, timer, libs):
                 QM.splitk_splits = plan
                 out[f'kernel 1 split sweep {name} M={m}'] = times
                 log(f'  kernel 1 split sweep {name} M={m} (plan S='
-                    f'{plan(m, k, n, sm_count("cuda"))}): ' + ', '.join(
+                    f'{plan(m, k, n, sm_count("cuda"), 128)}): ' + ', '.join(
                         f'S={s} {t:.4f} ms' for s, t in times.items()))
                 del packed, scales
     finally:
@@ -3205,21 +3219,23 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
                  'prefill_passes': eng.stats['prefill_passes']})
 
     tmp = tempfile.mkdtemp(prefix='lmdeploy-doors-')
-    ws_q, awq, ws_awq, ws_64 = (os.path.join(tmp, n) for n in (
-        'ws-int4', 'llama2-awq', 'ws-awq', 'ws-int4-g64'))
-    engines, proc, conv64 = [], None, None
+    ws_q, awq, ws_awq = (os.path.join(tmp, n) for n in (
+        'ws-int4', 'llama2-awq', 'ws-awq'))
+    engines, proc, convs = [], None, {}
     try:
         # 1. an HF checkpoint (shared with phase quant), 2. convert_hf
         # --quantize
         hf_info = hf_checkpoint(torch, ctx, cfg)
         hf, size = hf_info['path'], hf_info['bytes']
-        # the group-64 conversion of step 2b, by the converter's command
-        # line in a process of its own, runs while this one converts and
-        # serves at group 128 (numpy quantisation takes one core)
-        conv64 = Conversion([sys.executable, '-m',
-                             'lmdeploy_tpu_torch.convert.converter', hf,
-                             ws_64, '--model-name', name, '--quantize',
-                             '--group-size', '64'])
+        # the group-64 and group-32 conversions of step 2b, by the
+        # converter's command line in processes of their own, run while
+        # this one converts and serves at group 128 (numpy quantisation
+        # takes one core)
+        for group in DOOR_GROUPS:
+            convs[group] = Conversion([
+                sys.executable, '-m', 'lmdeploy_tpu_torch.convert.converter',
+                hf, os.path.join(tmp, f'ws-int4-g{group}'), '--model-name',
+                name, '--quantize', '--group-size', str(group)])
         times['hf_write_s'] = hf_info['write_s']
         timed('convert_s', convert_hf, hf, ws_q, name, quantize=True,
               group_size=cfg.group_size or 128)
@@ -3286,13 +3302,15 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
             f'{len(long_prompt)}-token prompt: TTFT {bs1[0][1]:.3f} s, '
             f'{bs1[0][2]:.1f} tok/s; launches {out["int4"].get("launches")}')
 
-        # 2b. the same checkpoint quantised at group 64 (the converter's
-        # command line, --group-size 64): every GEMM of 4 concurrent
-        # requests (the 512 bucket) and of a speculative request on a
-        # kernel, prompt logits against the CPU's
-        out['group64'] = doors_group64(
-            torch, ctx, conv64, ws_64, ecfg, prompts, long_prompt, n_new,
-            device, stream)
+        # 2b. the same checkpoint quantised at groups 64 and 32 (the
+        # converter's command line, --group-size): every GEMM of 4
+        # concurrent requests (the 512 bucket), a bs1 request and a
+        # speculative request on a kernel, prompt logits against the CPU's
+        for group in DOOR_GROUPS:
+            out[f'group{group}'] = doors_group(
+                torch, ctx, group, convs[group],
+                os.path.join(tmp, f'ws-int4-g{group}'), ecfg, prompts,
+                long_prompt, n_new, device, stream)
 
         # 3. AWQ: the workspace's own quantisation, exported and converted
         timed('awq_write_s', write_awq_checkpoint, torch, ws_q, awq, cfg)
@@ -3555,7 +3573,7 @@ def doors(torch, ctx, cfg, device, lens=(16, 100, 300, 500), n_new=32):
             f'engine\'s, in {times["router_s"]:.2f} s; a continued session '
             f'stayed on the peer')
     finally:
-        for p in (proc, conv64 and conv64.proc):
+        for p in (proc, *(c.proc for c in convs.values())):
             if p is not None and p.poll() is None:
                 p.kill()
                 p.wait(timeout=60)
@@ -3593,18 +3611,29 @@ class Conversion:
         return self.seconds
 
 
-def doors_group64(torch, ctx, conversion, ws, ecfg, prompts, long_prompt,
-                  n_new, device, stream):
-    """Phase doors' group-64 door: ``conversion`` (``python -m
-    lmdeploy_tpu_torch.convert.converter --quantize --group-size 64`` of
-    the phase's HF checkpoint into ``ws``) awaited, an engine on it serving
-    ``prompts`` concurrently and one speculative request (k = SPEC_K,
-    prompt [1]), every GEMM launch on a wgmma route with no plain call,
-    and prompt logits of ``long_prompt`` within 5% of max|logit| (cosine
-    >= 0.999) of a CPU engine's on the same workspace."""
+# phase doors' other groups: 64 (stage pieces of the wgmma kernel) and
+# 32 (its step form), each a checkpoint a user quantises with
+# --group-size
+DOOR_GROUPS = (64, 32)
+
+
+def doors_group(torch, ctx, group, conversion, ws, ecfg, prompts,
+                long_prompt, n_new, device, stream):
+    """Phase doors' door at quantisation group ``group``: ``conversion``
+    (``python -m lmdeploy_tpu_torch.convert.converter --quantize
+    --group-size <group>`` of the phase's HF checkpoint into ``ws``)
+    awaited, an engine on it serving ``prompts`` concurrently, a bs1
+    request of ``long_prompt`` and one speculative request (k = SPEC_K,
+    prompt [1]); launches per decode step, prefill pass and verify round
+    solved from the three windows: 5L GEMM, all on kernel 1's wgmma
+    routes (the kernels line's ``groups[group]['door_launches']``), 2L
+    attention (L = the depth), no plain call; prompt logits of
+    ``long_prompt`` within 5% of max|logit| (cosine >= 0.999) of a CPU
+    engine's on the same workspace."""
     from lmdeploy_tpu_torch import build_engine
     from lmdeploy_tpu_torch.config import EngineConfig
     from lmdeploy_tpu_torch.ops import cuda as K
+    from lmdeploy_tpu_torch.ops.cuda import ROUTE_NAMES
     from lmdeploy_tpu_torch.ops.cuda.quant_matmul import WGMMA
     from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
     convert_s = conversion.wait()
@@ -3612,16 +3641,24 @@ def doors_group64(torch, ctx, conversion, ws, ecfg, prompts, long_prompt,
     eng = build_engine(ws, engine_config=EngineConfig(**ecfg),
                        device=device)
     load_s = time.monotonic() - t0
+    passes = DevicePasses()
     try:
         weights = {n: w for n, w in eng.params['layers'].items()
                    if n in ('wqkv', 'wo', 'w1', 'w3', 'w2')}
-        if eng.cfg.group_size != 64 or not all(
+        if eng.cfg.group_size != group or not all(
                 isinstance(w, PackedInt4Weight)
-                and w.k // w.scales.shape[1] == 64 for w in weights.values()):
-            raise AssertionError(f'group-64 workspace: group '
+                and w.k // w.scales.shape[1] == group
+                for w in weights.values()):
+            raise AssertionError(f'group-{group} workspace: group '
                                  f'{eng.cfg.group_size}, weights {weights}')
+        nl = eng.cfg.num_layer
         inst = eng.create_instance()
         K.reset_launch_counts()
+
+        def mark():
+            return ({**{n: c[0] for n, c in K.launch_counts(True).items()},
+                     **K.route_counts()}, passes(eng))
+        marks = [mark()]
         results = [None] * len(prompts)
 
         def worker(i):
@@ -3634,51 +3671,82 @@ def doors_group64(torch, ctx, conversion, ws, ecfg, prompts, long_prompt,
         for t in threads:
             t.join(timeout=600)
         if any(r is None for r in results):
-            raise AssertionError('doors group 64: concurrent requests failed')
+            raise AssertionError(f'doors group {group}: concurrent requests '
+                                 'failed')
         conc_s = time.monotonic() - t0
+        marks.append(mark())
+        bs1 = stream(inst, long_prompt, n_new)
+        marks.append(mark())
         eng.ecfg.speculative_k = SPEC_K
         eng._spec_cooloff, eng._spec_accept_ema = 0, None   # gate open
-        rounds = eng.stats['spec_rounds']
         spec = stream(inst, [1], n_new)
-        rounds = eng.stats['spec_rounds'] - rounds
         eng.ecfg.speculative_k = 0
-        counts, routes = K.launch_counts(True), K.route_counts()
-        gemm = counts['w4a16_gemm']
-        on_routes = {n: v for n, v in routes.items()
+        marks.append(mark())
+        counts = K.launch_counts(True)
+        solved = launches_per_kind(marks)
+        per = {kind: {n: v for n, v in d.items() if v}
+               for kind, d in solved[0].items()}
+        if device == 'cuda':
+            # 5L GEMM launches a pass of each kind, all on the wgmma
+            # routes (their split between splitk and tiles is the plan's),
+            # L of the kind's attention kernel, its routes as they come
+            attn = {'decode_steps': 'paged_decode_attention_write[bf16]',
+                    'prefill_passes': 'paged_prefill_attention[bf16]',
+                    'spec_rounds': 'paged_prefill_attention[bf16]'}
+            want = {kind: {'w4a16_gemm': 5 * nl, WGMMA: 5 * nl,
+                           attn[kind]: nl,
+                           **{n: v for n, v in per[kind].items()
+                              if n in ROUTE_NAMES}} for kind in per}
+            check_route(counts, solved, want, f'doors group {group}',
+                        need=tuple(attn))
+            for kind, d in per.items():
+                gemm_routes = sum(v for n, v in d.items()
+                                  if n.startswith(f'{WGMMA}:'))
+                attn_routes = sum(v for n, v in d.items()
+                                  if n.startswith(f'{attn[kind]}:'))
+                if gemm_routes != 5 * nl or attn_routes not in (0, nl):
+                    raise AssertionError(
+                        f'doors group {group}: per {kind} {d}: GEMM routes '
+                        f'{gemm_routes} (want {5 * nl}), {attn[kind]} '
+                        f'routes {attn_routes}')
+        gemm_n = counts['w4a16_gemm'][0]
+        on_routes = {n: v for n, v in K.route_counts().items()
                      if n.startswith(f'{WGMMA}:') and v}
-        plain = {n: c[1] for n, c in counts.items() if c[1]}
-        if device == 'cuda' and (
-                plain or not gemm[0] or counts[WGMMA][0] != gemm[0]
-                or sum(on_routes.values()) != gemm[0] or not rounds):
-            raise AssertionError(
-                f'doors group 64: GEMM launches {gemm[0]}, on the wgmma '
-                f'routes {on_routes}, plain calls {plain}, verify rounds '
-                f'{rounds}')
         lg = inst.decode(long_prompt)
     finally:
+        passes.close()
         eng.shutdown()
+    # the CPU's run in the smallest bucket that holds the prompt
     cpu = build_engine(ws, engine_config=EngineConfig(**dict(
-        ecfg, max_batch_size=1, session_len=512)), device='cpu')
+        ecfg, max_batch_size=1, session_len=512, prefill_buckets=(
+            64, -(-len(long_prompt) // 64) * 64))), device='cpu')
     try:
         ref = cpu.create_instance().decode(long_prompt)
     finally:
         cpu.shutdown()
-    rel, cos = logits_gate(torch, lg, ref, 'doors group-64 engine prompt '
-                           'logits')
+    rel, cos = logits_gate(torch, lg, ref, f'doors group-{group} engine '
+                           'prompt logits')
     out = dict(convert_s=convert_s, load_s=load_s,
                ttft_s=[r[1] for r in results],
                tok_s_4_concurrent=len(prompts) * (n_new - 1) / conc_s,
-               spec_rounds=rounds, spec_tok_s=spec[2],
-               gemm_launches=gemm[0], route_launches=on_routes,
-               max_rel_err=rel, min_cosine=cos)
-    log(f'  group 64 [{ctx.get("card", "?")}]: convert_hf --quantize '
-        f'--group-size 64 {convert_s:.1f} s (its own process, beside step '
-        f'2), load {load_s:.1f} s; 4 '
+               bs1_ttft_s=bs1[1], bs1_tok_s=bs1[2],
+               spec_rounds=marks[-1][1]['spec_rounds']
+               - marks[-2][1]['spec_rounds'], spec_tok_s=spec[2],
+               gemm_launches=gemm_n, route_launches=on_routes,
+               launches_per_pass=per, max_rel_err=rel, min_cosine=cos)
+    entry = ctx['kernels'].setdefault('w4a16_gemm', {})
+    entry.setdefault('groups', {}).setdefault(group, {})['door_launches'] = \
+        dict(total=gemm_n, by_route=on_routes, per_pass=per)
+    log(f'  group {group} [{ctx.get("card", "?")}]: convert_hf --quantize '
+        f'--group-size {group} {convert_s:.1f} s (its own process, beside '
+        f'step 2), load {load_s:.1f} s; 4 '
         f'concurrent requests (prompts {[len(p) for p in prompts]}, {n_new} '
         f'new): TTFT {[round(r[1], 3) for r in results]} s, '
-        f'{out["tok_s_4_concurrent"]:.1f} tok/s; a speculative request: '
-        f'{rounds} verify rounds, {spec[2]:.1f} tok/s; GEMM launches '
-        f'{gemm[0]}, by route {on_routes}; prompt logits of '
+        f'{out["tok_s_4_concurrent"]:.1f} tok/s; bs1 {len(long_prompt)}-'
+        f'token prompt: TTFT {bs1[1]:.3f} s, {bs1[2]:.1f} tok/s; a '
+        f'speculative request: {out["spec_rounds"]} verify rounds, '
+        f'{spec[2]:.1f} tok/s; GEMM launches {gemm_n}, by route '
+        f'{on_routes}; per pass {per}; prompt logits of '
         f'{len(long_prompt)} tokens vs the CPU: max err / max|logit| '
         f'{rel:.3e}, min cosine {cos:.6f}')
     return out
@@ -4282,8 +4350,14 @@ class Rig:
         self.passes_of.close()
 
 
+# phases parallel and pipeline: phase 5's model at 8 of its 32 layers
+# (what the time limit leaves; ranks sharing one card serve host-bound, so
+# their time follows the depth)
+PARALLEL_LAYERS = 8
+
+
 def phase_parallel(torch, ctx):
-    parallel(torch, ctx, llama2_7b(), 'cuda')
+    parallel(torch, ctx, llama2_7b(num_layer=PARALLEL_LAYERS), 'cuda')
 
 
 def ms_or_dash(ms):
@@ -4534,7 +4608,7 @@ def parallel(torch, ctx, cfg, device, shallow=4, bs1_new=32, **rig_kw):
 # ---------------------------------------------------------------------------
 
 def phase_pipeline(torch, ctx):
-    pipeline(torch, ctx, llama2_7b(), 'cuda')
+    pipeline(torch, ctx, llama2_7b(num_layer=PARALLEL_LAYERS), 'cuda')
 
 
 def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=32, **rig_kw):
@@ -4808,14 +4882,19 @@ def pipeline(torch, ctx, cfg, device, shallow=4, bs1_new=32, **rig_kw):
 # phase tools: the byte-per-int4 form, W4A8, the debugger and the profiler
 # ---------------------------------------------------------------------------
 
-TOOLS_LAYERS = 16     # of Llama-2-7B's 32: what the time limit leaves
+TOOLS_LAYERS = 8      # of Llama-2-7B's 32: what the time limit leaves
+# the W4A8 gate's draws (and the witness of the draw it failed on): 16
+# layers, of which the gate runs the first 2
+GATE_DRAW_LAYERS = 16
 
 
 def phase_tools(torch, ctx):
     """The last modules of the port at Llama-2-7B width (see
     :func:`tools`)."""
     tools(torch, ctx, llama2_7b(num_layer=TOOLS_LAYERS),
-          llama2_7b(num_layer=2), 'cuda', draw_layers=llama2_7b().num_layer)
+          llama2_7b(num_layer=2), 'cuda', draw_layers=llama2_7b().num_layer,
+          gate_seeds=ctx['gate_seeds'],
+          gate_cfg=llama2_7b(num_layer=GATE_DRAW_LAYERS))
 
 
 def byte_form(torch, params):
@@ -4835,6 +4914,101 @@ def byte_form(torch, params):
     return dict(params, layers=layers)
 
 
+# The W4A8 gate's draw: random_packed_params' weights with each token's
+# embedding row shifted by GATE_EMBED_SHIFT times the sign of its own mean.
+# That draw's codes (uniform on 0..15 against zero point 8, as bench.py
+# draws them) lean every weight by -0.5 scale, which gives the layers an
+# all-ones mode of gain ~K x 0.5 x scale (4 for a 4096-wide projection,
+# 11 for w2): a row whose hidden mean sits near zero takes any
+# perturbation into that mode and its logits swing.  W4A8's jumps (its
+# int8 activation codes and bf16-rounded group dots move on a last-bit
+# difference of their input) are such perturbations, so on that draw the
+# card-vs-CPU logits gate passes or fails by how near zero the prompt
+# tokens' embedding means happen to sit (on the H100 the CPU against
+# itself, every product's input nudged by one f32 ulp, moved the seed-5
+# cut's W4A8 logits by 1.9x max|logit|).  With every row's mean at least
+# the shift away from zero (the rows' own means are ~3e-4), no row sits
+# there, for every seed.  Codes centred on the zero point remove the mode
+# but leave W4A8's own error, ~13% of max|logit| end to end, which such a
+# nudge resamples: their gate is held to the nudged run (phase tools,
+# step 3a).
+GATE_EMBED_SHIFT = 0.02
+
+
+def gate_params(torch, cfg, seed, device, shift=GATE_EMBED_SHIFT):
+    """``random_packed_params(cfg, seed, device)`` with each embedding row
+    shifted by ``shift`` times the sign of its mean."""
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
+    params = random_packed_params(cfg, seed, device)
+    e = params['tok_embedding'].float()
+    params['tok_embedding'] = (e + shift * torch.sign(
+        e.mean(dim=1, keepdim=True))).to(params['tok_embedding'].dtype)
+    return params
+
+
+def centred_params(torch, cfg, seed, device):
+    """``random_packed_params(cfg, seed, device)`` with every W4A16 code
+    drawn anew uniform on 1..15 (mean 8, the zero point) from a generator
+    seeded ``seed``: mean-zero weights, the draw closest to a real
+    checkpoint's (a witness of phase tools)."""
+    from lmdeploy_tpu_torch.models.llama import random_packed_params
+    from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
+    params = random_packed_params(cfg, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for w in params['layers'].values():
+        if isinstance(w, PackedInt4Weight):
+            lo, hi = (torch.randint(1, 16, w.packed.shape, generator=gen,
+                                    dtype=torch.uint8, device=device)
+                      for _ in range(2))
+            w.packed.copy_(lo | (hi << 4))
+    return params
+
+
+def a8_own_error(torch, x2, qw, got):
+    """W4A8's own error on ``x2``: ``got`` (``quant_matmul_a8(x2, qw)``)
+    against the exact product of the same weight codes, in f64, over
+    max|exact|, as (total, int8, dots): int8 is the exact product of
+    W4A8's own int8 activation codes (its f32 scale and rounding) less the
+    exact product, dots the rest (its integer group dots of the raw codes
+    rounded to bf16, which the zero-point term then cancels)."""
+    k = x2.shape[1]
+    g = qw.scales.shape[-2]
+    xf = x2.float()
+    amax = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-8)
+    sx = amax / torch.full_like(amax, 127.0)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).double()
+    s = qw.scales.double()
+    qs = (qw.qvals.double().reshape(g, k // g, -1) * s[:, None]).reshape(
+        k, -1)
+    zero_term = xf.double().reshape(-1, g, k // g).sum(dim=2) @ (
+        s * qw.zeros.double())
+    exact = xf.double() @ qs - zero_term
+    codes = (xq @ qs) * sx.double() - zero_term
+    top = exact.abs().max()
+    return tuple(float((a - b).abs().max() / top) for a, b in (
+        (got.double(), exact), (codes, exact), (got.double(), codes)))
+
+
+def nudged_linear(torch, seed):
+    """``ops.linear.linear`` with every byte-form product's input first
+    moved by one f32 ulp, up or down at random (a generator seeded
+    ``seed``): a perturbation of the CPU's own, of the size by which two
+    devices' f32 sums differ."""
+    from lmdeploy_tpu_torch.ops import linear as L
+    gen = torch.Generator().manual_seed(seed)
+
+    def linear(x, w, bias=None):
+        if not isinstance(w, L.QuantizedWeight):
+            return L.linear(x, w, bias)
+        xn = x.float()
+        up = torch.rand(xn.shape, generator=gen) < 0.5
+        xn = torch.nextafter(xn, torch.where(
+            up, torch.full_like(xn, float('inf')),
+            torch.full_like(xn, float('-inf'))))
+        return L.linear(xn, w, bias).to(x.dtype)
+    return linear
+
+
 def depth_cut(torch, params, n):
     """The first ``n`` layers of a parameter tree (copies)."""
     import dataclasses
@@ -4850,7 +5024,8 @@ def depth_cut(torch, params, n):
 
 def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
           gemms=LLAMA2_7B_GEMMS, rows=(1, ENGINE_SLOTS, 40, 512),
-          lens=(100, 300), trace_new=8, ecfg_kw=None, draw_layers=None):
+          lens=(100, 300), trace_new=8, ecfg_kw=None, draw_layers=None,
+          gate_seeds=(5,), gate_cfg=None):
     """On ``device`` (the card; the CPU for a rehearsal, where the card's
     side runs on the CPU too and nothing is timed):
 
@@ -4871,14 +5046,30 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
        request's less its pass, over its steps.  The byte stream equals the packed one up
        to near-ties and its logits are within 5% / cosine 0.999; W4A8's
        logits must be finite and its tokens in the vocabulary.
-    3. W4A8 model gate: the weights of 2 cut to ``cut_cfg``'s depth (2
-       layers), byte-form engines with W4A8 on ``device`` and on the CPU:
-       prompt logits of the ``lens[1]``-token prompt within 5% / cosine
-       0.999.  For the first 64 tokens of the ``lens[0]``-token prompt
-       every W4A8 product of the card's run is held against the CPU's on
-       the card's own inputs (1e-3 of max|ref|); its end-to-end gap is
-       recorded row by row beside the byte form's (W4A8 turns last-bit
-       differences into jumps).
+    3. W4A8 model gate, byte-form engines with W4A8 on ``device`` and
+       on the CPU over 2-layer cuts (``cut_cfg``'s depth) of draws of
+       ``cfg``'s depth.  First the witnesses of fault 10: a fresh seed-5
+       ``random_packed_params`` draw, whose codes' mean sits half a step
+       below the zero point, and a :func:`centred_params` draw (codes
+       whose mean is the zero point) of each of ``gate_seeds``; every W4A8
+       product of the ``lens[1]``-token prompt's run on the card held
+       against the CPU's on the card's own inputs (1e-3 of max|ref|) with
+       its own error there (:func:`a8_own_error`), then its prompt logits
+       with W4A8 and without (the byte form) row by row against the CPU's,
+       beside the CPU's W4A8 against itself with every product's input
+       nudged by one f32 ulp (:func:`nudged_linear`) and against its byte
+       form.  On the centred draws W4A8's card-vs-CPU logits are gated by
+       the nudged run, as ``tests/test_torch_w4a8.py`` holds the port to
+       the JAX engine: max err / max|logit| within max(5%, 1.5 times the
+       nudged run's) and 1 - cosine within 1.5^2 times its; the rest is
+       recorded.
+       Then, for each of ``gate_seeds``, the gate on that seed's draw
+       with its embedding rows shifted (:func:`gate_params`): prompt logits of
+       the ``lens[1]``-token prompt within 5% / cosine 0.999, and for the
+       first 64 tokens of the ``lens[0]``-token prompt every W4A8 product
+       of the card's run against the CPU's on the card's inputs (1e-3 of
+       max|ref|); its end-to-end gap is recorded row by row beside the
+       byte form's (W4A8 turns last-bit differences into jumps).
     4. The debugger on that cut, packed: ``dump`` of a 16-token prompt
        and 2 decode steps (every layer_out and logits file, counts and
        shapes), ``cmp`` of the same run (every line OK), ``cmp`` of the
@@ -4899,6 +5090,7 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
     from lmdeploy_tpu_torch.engine.engine import TorchEngine
     from lmdeploy_tpu_torch.kvcache.paged import init_cache
     from lmdeploy_tpu_torch.messages import GenerationConfig, ResponseType
+    from lmdeploy_tpu_torch.models import llama as LM
     from lmdeploy_tpu_torch.models.llama import (StepBatch, forward,
                                                  random_packed_params)
     from lmdeploy_tpu_torch.ops import cuda as K
@@ -4908,6 +5100,7 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
     on_card = device == 'cuda'
     card = ctx.get('card', '?')
     nl, vocab = cfg.num_layer, cfg.vocab_size
+    gate_cfg = gate_cfg or cfg
     t_phase = time.monotonic()
     torch.set_num_threads(8)
     ecfg = EngineConfig(**(ecfg_kw or dict(
@@ -5156,12 +5349,14 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
             torch.cuda.empty_cache()
         log(f'    ({time.monotonic() - t_phase:.1f} s into the phase)')
 
-        # 3. the W4A8 model gate: the 2-layer cut, card against CPU
-        cut_bytes = byte_form(torch, cut)
-        cut_host = _to(cut_bytes, 'cpu')
-        short_ids = prompt[:64]
-        got, byte_short, forced = {}, {}, []
+        # 3. the W4A8 model gate, card against CPU, on 2-layer cuts of
+        # its own draws: every W4A8 product of a prompt's run on the card
+        # held against the CPU's on the card's own inputs, then prompt
+        # logits end to end
         a8 = L.quant_matmul_a8
+        forced = []
+        own = []              # W4A8's own error on the held inputs
+        held = {'own': False}
 
         def a8_forced(x2, qw):
             """The card's W4A8 product, held against the CPU's on the
@@ -5171,64 +5366,224 @@ def tools(torch, ctx, cfg, cut_cfg, device, n_new=32, short_new=8,
                 *(t.cpu() for t in (qw.qvals, qw.scales, qw.zeros))))
             forced.append(float((out.cpu() - want).abs().max()
                                 / want.abs().max()))
+            if held['own']:
+                own.append(a8_own_error(torch, x2, qw, out))
             return out
 
-        for dev, tree in ((device, cut_bytes), ('cpu', cut_host)):
+        def cut_logits(tree, dev, runs):
+            """{key: prompt logits} of a byte-form engine of the cut
+            ``tree`` on ``dev``, one per run (key, ids, W4A8 on, its
+            products held against the CPU's, its products' inputs nudged
+            by :func:`nudged_linear`)."""
+            out = {}
+            # the CPU's run in the smallest bucket that holds the long
+            # prompt (rows are independent: the bucket's padding rows only
+            # cost time there)
+            cfg_dev = ecfg if dev != 'cpu' else dataclasses.replace(
+                ecfg, prefill_buckets=(64, -(-len(long_prompt) // 64) * 64))
             with env_vars({'LMDEPLOY_TPU_PACKED_INT4': '0'}):
-                eng = TorchEngine(cut_cfg, ecfg, tree, device=dev)
+                eng = TorchEngine(cut_cfg, cfg_dev, tree, device=dev)
                 try:
                     inst = eng.create_instance()
-                    byte_short[dev] = torch.from_numpy(inst.decode(short_ids))
-                    with env_vars({'LMDEPLOY_TPU_W4A8': '1'}):
-                        got[dev] = [torch.from_numpy(inst.decode(long_prompt))]
-                        if dev == device:
-                            L.quant_matmul_a8 = a8_forced
-                        try:
-                            got[dev].append(torch.from_numpy(
-                                inst.decode(short_ids)))
-                        finally:
-                            L.quant_matmul_a8 = a8
+                    for key, ids, w4a8, forced_on, nudge in runs:
+                        with env_vars({'LMDEPLOY_TPU_W4A8': '1'} if w4a8
+                                      else {}):
+                            if forced_on:
+                                L.quant_matmul_a8 = a8_forced
+                            if nudge:
+                                LM.linear = nudged_linear(torch, 0)
+                            try:
+                                out[key] = torch.from_numpy(inst.decode(ids))
+                            finally:
+                                L.quant_matmul_a8 = a8
+                                LM.linear = L.linear
                 finally:
                     eng.shutdown()
-        rel8, cos8 = logits_gate(torch, got[device][0], got['cpu'][0],
-                                 'W4A8 2-layer prompt logits, card vs CPU')
-        # the short prompt: W4A8 is not continuous in its input, so the
-        # card's last-bit differences (the byte form's logits differ by
-        # ~1-2% there) can move a code or a rounded group dot, and the
-        # logits jump.  Its gate is every W4A8 product the card ran for
-        # it, against the CPU's on the card's inputs; the end-to-end gap
-        # is recorded row by row beside the byte form's
-        if not forced or max(forced) > 1e-3:
-            raise AssertionError(
-                f'W4A8 2-layer, first 64 tokens: {len(forced)} products, '
-                f'card vs CPU on the card\'s inputs max err / max|ref| '
-                f'{max(forced, default=None)} (tol 1e-3)')
+            return out
 
         def rows_rel(a, b):
             return (a - b).abs().amax(-1) / b.abs().amax()
-        a8_rows = rows_rel(got[device][1], got['cpu'][1])
-        byte_rows = rows_rel(byte_short[device], byte_short['cpu'])
-        over = (a8_rows > 0.05).nonzero().flatten().tolist()
-        short = dict(
-            rel=float(a8_rows.max()), cos=float(
-                torch.nn.functional.cosine_similarity(
-                    got[device][1], got['cpu'][1], dim=-1).min()),
-            byte_rel=float(byte_rows.max()),
-            rows_over_5pct={r: [float(a8_rows[r]), float(byte_rows[r])]
-                            for r in over},
-            forced_products=len(forced), forced_worst=max(forced))
-        log(f'  W4A8 model gate, {cut_cfg.num_layer} layers, prompt logits '
-            f'of {len(long_prompt)} tokens, card vs CPU: max err / '
-            f'max|logit| {rel8:.3e} (tol 0.05), min cosine {cos8:.6f} (tol '
-            f'0.999); first 64 tokens of the {len(prompt)}-token prompt: '
-            f'{len(forced)} W4A8 products against the CPU on the card\'s '
-            f'inputs, worst {max(forced):.3e} (tol 1e-3); end to end (not '
-            f'gated) {short["rel"]:.3e}, min cosine {short["cos"]:.6f}, the '
-            f'byte form\'s {short["byte_rel"]:.3e}; rows over 5% (W4A8, '
-            f'byte form): {short["rows_over_5pct"]} '
-            f'({time.monotonic() - t_phase:.1f} s into the phase)')
-        summary['w4a8_cut_gate'] = dict(rel=rel8, cos=cos8, short=short)
-        del cut_bytes, cut_host, got, byte_short
+
+        def products_gate(label):
+            """Every W4A8 product of the run just held within 1e-3 of
+            max|ref|; returns (count, worst) and clears the record."""
+            n, worst = len(forced), max(forced, default=None)
+            forced.clear()
+            if not n or worst > 1e-3:
+                raise AssertionError(
+                    f'{label}: {n} W4A8 products, card vs CPU on the '
+                    f'card\'s inputs max err / max|ref| {worst} (tol 1e-3)')
+            return n, worst
+
+        # 3a. the witnesses of fault 10: 2-layer cuts of fresh draws of
+        # cfg's depth, 'bench' (random_packed_params: codes uniform on
+        # 0..15 against zero point 8, the draw whose logits gate failed
+        # once) at seed 5 and 'centred' (centred_params: codes on 1..15,
+        # mean at the zero point) at each of gate_seeds.  Every W4A8
+        # product of the long prompt's run on the card against the CPU's
+        # on the card's own inputs (1e-3 of max|ref|), with W4A8's own
+        # error on those inputs (a8_own_error); the logits with W4A8 and
+        # without (the byte form) card vs CPU row by row, beside each
+        # row's |cosine| with ones @ lm_head (the direction the bench
+        # draw's hidden states lean along); and on the CPU the W4A8 run
+        # with every product's input nudged by one f32 ulp (nudged_linear):
+        # how far the logits move on a perturbation of the CPU's own.
+        # On the centred draws that witness gates W4A8's card-vs-CPU
+        # logits; the rest is recorded
+        summary['w4a8_witness'] = {}
+        witness_runs = [('byte', long_prompt, False, False, False),
+                        ('w4a8', long_prompt, True, on_card, False)]
+        for rule, seed in [('bench', 5)] + [('centred', s)
+                                            for s in gate_seeds]:
+            draw = (random_packed_params(gate_cfg, seed, device)
+                    if rule == 'bench' else
+                    centred_params(torch, gate_cfg, seed, device))
+            wit = byte_form(torch, depth_cut(torch, draw, cut_cfg.num_layer))
+            del draw
+            wit_host = _to(wit, 'cpu')
+            held['own'] = on_card
+            card_w = cut_logits(wit, device, witness_runs)
+            held['own'] = False
+            wit_products = products_gate(
+                f'witness {rule} seed {seed}, the long prompt') \
+                if on_card else (0, None)
+            own_worst = [max(e[i] for e in own) if own else None
+                         for i in range(3)]
+            own.clear()
+            host_w = cut_logits(wit_host, 'cpu', [
+                r[:3] + (False, False) for r in witness_runs] + [
+                    ('w4a8_nudged', long_prompt, True, False, True)])
+            ones_dir = torch.ones(cut_cfg.hidden_size) @ wit_host[
+                'lm_head'].float()
+            witness = dict(products=wit_products[0],
+                           products_worst=wit_products[1],
+                           own_error=dict(zip(('total', 'int8', 'dots'),
+                                              own_worst)))
+            for key in ('byte', 'w4a8'):
+                rel_rows = rows_rel(card_w[key], host_w[key])
+                lean = torch.nn.functional.cosine_similarity(
+                    host_w[key], ones_dir[:host_w[key].shape[-1]][None],
+                    dim=-1).abs()
+                over = (rel_rows > 0.05).nonzero().flatten().tolist()
+                witness[key] = dict(
+                    rel=float(rel_rows.max()), cos=float(
+                        torch.nn.functional.cosine_similarity(
+                            card_w[key], host_w[key], dim=-1).min()),
+                    rows_over_5pct=len(over),
+                    rows_over_5pct_lean={
+                        r: [round(float(rel_rows[r]), 6),
+                            round(float(lean[r]), 6)] for r in over[:8]},
+                    lean_median=float(lean.median()))
+            # the CPU against itself: the nudged run, and W4A8 against the
+            # byte form (W4A8's own error end to end)
+            for key, base in (('w4a8_nudged', 'w4a8'),
+                              ('w4a8_vs_byte', 'byte')):
+                other = host_w['w4a8' if key == 'w4a8_vs_byte' else key]
+                rel_rows = rows_rel(other, host_w[base])
+                witness[key] = dict(
+                    rel=float(rel_rows.max()), cos=float(
+                        torch.nn.functional.cosine_similarity(
+                            other, host_w[base], dim=-1).min()),
+                    rows_over_5pct=int((rel_rows > 0.05).sum()))
+            gated = rule == 'centred'
+            if gated:
+                witness['tol'] = max(0.05,
+                                     1.5 * witness['w4a8_nudged']['rel'])
+                witness['tol_cos'] = 1.5 ** 2 * (
+                    1 - witness['w4a8_nudged']['cos'])
+            log(f'  W4A8 witness {rule} seed {seed} ('
+                + (f'W4A8 card vs CPU gated: max err / max|logit| tol '
+                   f'{witness["tol"]:.3e}, 1 - cosine tol '
+                   f'{witness["tol_cos"]:.3e}' if gated else 'not gated')
+                + '), '
+                f'{cut_cfg.num_layer} layers of a fresh draw of '
+                f'{gate_cfg.num_layer}, codes '
+                f'{"0..15" if rule == "bench" else "1..15"} against zero '
+                f'point 8, {len(long_prompt)}-token prompt: '
+                f'{witness["products"]} W4A8 products card vs CPU on the '
+                f'card\'s inputs, worst {witness["products_worst"]} (tol '
+                f'1e-3); W4A8\'s own error there against the exact product '
+                f'(f64) / max|exact|, worst: {witness["own_error"]} '
+                f'(int8: its int8 activation codes alone; dots: its bf16 '
+                f'group dots); logits [max err / max|logit|, min cosine, '
+                f'rows over 5%]: ' + '; '.join(
+                    f'{key} {witness[key]["rel"]:.3e}, '
+                    f'{witness[key]["cos"]:.6f}, '
+                    f'{witness[key]["rows_over_5pct"]}' for key in (
+                        'w4a8', 'byte', 'w4a8_nudged', 'w4a8_vs_byte'))
+                + ' (w4a8 / byte: card vs CPU; w4a8_nudged: the CPU '
+                'against itself, every product\'s input moved one f32 ulp; '
+                'w4a8_vs_byte: the CPU\'s W4A8 against its byte form); rows '
+                'over 5% '
+                f'[rel, |cosine| with ones @ lm_head]: W4A8 '
+                f'{witness["w4a8"]["rows_over_5pct_lean"]}, median |cosine| '
+                f'{witness["w4a8"]["lean_median"]:.4f} '
+                f'({time.monotonic() - t_phase:.1f} s into the phase)')
+            summary['w4a8_witness'][f'{rule} {seed}'] = witness
+            if gated and not (
+                    witness['w4a8']['rel'] <= witness['tol']
+                    and 1 - witness['w4a8']['cos'] <= witness['tol_cos']):
+                raise AssertionError(
+                    f'W4A8 witness centred seed {seed}: card vs CPU past '
+                    'the CPU\'s own nudged run (see the line above)')
+            del wit, wit_host, card_w, host_w
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # 3b. the gate, on draws whose embedding rows' means sit away from
+        # zero (gate_params)
+        summary['w4a8_cut_gate'] = {}
+        for seed in gate_seeds:
+            tree = byte_form(torch, depth_cut(torch, gate_params(
+                torch, gate_cfg, seed, device), cut_cfg.num_layer))
+            host = _to(tree, 'cpu')
+            short_ids = prompt[:64]
+            runs = [('byte_short', short_ids, False, False, False),
+                    ('long', long_prompt, True, False, False),
+                    ('short', short_ids, True, on_card, False)]
+            got = cut_logits(tree, device, runs)
+            n_forced, worst_forced = products_gate(
+                f'W4A8 2-layer, seed {seed}, first 64 tokens') \
+                if on_card else (0, None)
+            ref = cut_logits(host, 'cpu', [r[:3] + (False, False)
+                                           for r in runs])
+            rel8, cos8 = logits_gate(
+                torch, got['long'], ref['long'],
+                f'W4A8 2-layer prompt logits, seed {seed}, card vs CPU')
+            # the short prompt: W4A8 is not continuous in its input, so
+            # the card's last-bit differences can move a code or a rounded
+            # group dot, and the logits jump.  Its gate is every W4A8
+            # product the card ran for it, against the CPU's on the card's
+            # inputs; the end-to-end gap is recorded row by row beside the
+            # byte form's
+            a8_rows = rows_rel(got['short'], ref['short'])
+            byte_rows = rows_rel(got['byte_short'], ref['byte_short'])
+            over = (a8_rows > 0.05).nonzero().flatten().tolist()
+            short = dict(
+                rel=float(a8_rows.max()), cos=float(
+                    torch.nn.functional.cosine_similarity(
+                        got['short'], ref['short'], dim=-1).min()),
+                byte_rel=float(byte_rows.max()),
+                rows_over_5pct={r: [float(a8_rows[r]), float(byte_rows[r])]
+                                for r in over},
+                forced_products=n_forced, forced_worst=worst_forced)
+            log(f'  W4A8 model gate, {cut_cfg.num_layer} layers of the '
+                f'seed-{seed} draw of {gate_cfg.num_layer}, embedding rows '
+                f'shifted by {GATE_EMBED_SHIFT} x the sign of their mean, '
+                f'prompt logits of {len(long_prompt)} tokens, card vs CPU: '
+                f'max err / '
+                f'max|logit| {rel8:.3e} (tol 0.05), min cosine {cos8:.6f} '
+                f'(tol 0.999); first 64 tokens of the {len(prompt)}-token '
+                f'prompt: {n_forced} W4A8 products against the CPU on the '
+                f'card\'s inputs, worst {worst_forced} (tol 1e-3); end to '
+                f'end (not gated) {short["rel"]:.3e}, min cosine '
+                f'{short["cos"]:.6f}, the byte form\'s '
+                f'{short["byte_rel"]:.3e}; rows over 5% (W4A8, byte form): '
+                f'{short["rows_over_5pct"]} '
+                f'({time.monotonic() - t_phase:.1f} s into the phase)')
+            summary['w4a8_cut_gate'][seed] = dict(rel=rel8, cos=cos8,
+                                                  short=short)
+            del tree, host, got, ref
 
         # 4. the debugger on the 2-layer cut (packed: all three kernels)
         host = _to(cut, 'cpu')
@@ -5597,6 +5952,9 @@ def main(argv=None) -> int:
                          "by its own build.py) beside this tree's; without "
                          "it kernel 3's parent column is this tree's route "
                          "mma and kernels 1, 2, 4, 5 have none")
+    ap.add_argument('--gate-seeds', default='5', metavar='S,S,...',
+                    help="tools phase: the seeds of the W4A8 gate's draws "
+                         "and of the centred witness's (default 5)")
     ap.add_argument('--profile', action='store_true',
                     help='engine phase: also profile one bs1 request on '
                          'the bf16 and on the int8 pool')
@@ -5612,7 +5970,8 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         raise SystemExit(f'unknown phases {sorted(unknown)}')
-    ctx = {'kernels': {}, 'profile': args.profile, 'parent': args.parent}
+    ctx = {'kernels': {}, 'profile': args.profile, 'parent': args.parent,
+           'gate_seeds': tuple(int(v) for v in args.gate_seeds.split(','))}
     t_all = time.monotonic()
     try:
         for name in PHASES + OPTIONAL_PHASES:
@@ -5649,7 +6008,7 @@ def main(argv=None) -> int:
             host_us=k.get('host_us'), parent_host_us=k.get('parent_host_us'),
             shape=k.get('shape'), at_bs1=k.get('m1') or k.get('b1'),
             chunk64_over300=k.get('chunk64_over300'),
-            layer_by_m=k.get('layer_by_m'), crossover=k.get('crossover'),
+            layer_by_m=k.get('layer_by_m'),
             cases=k.get('cases'), verify=k.get('verify'),
             verify_m40=k.get('verify_m40'), tp2=k.get('tp2'),
             tp2_launches=k.get('tp2_launches'), pp2=k.get('pp2'),

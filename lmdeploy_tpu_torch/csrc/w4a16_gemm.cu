@@ -12,115 +12,81 @@
 // holds logical row k' in its low nibble and row K/2 + k' in its high
 // nibble; scales s[g, n] (bf16), group size `group` along K.  x is bf16.
 //
-// Two regimes; the wrapper (ops/cuda/quant_matmul.py::gemm_route) picks one
-// by the quantisation group, every M taking a kernel at every group that
-// is a multiple of 16: at a group that is a multiple of 64 w4a16_wgmma
-// takes every M (at group 128 on the H100 its plan beat w4a16_decode at M
-// = 1 and M = 8 too, 0.0748 against 0.0942 / 0.1015 ms a Llama-2-7B
-// layer), and w4a16_decode the other groups (16, 32, 48, 80, ...):
-//  * decode (groups that are not a multiple of 64, every M): w4a16_decode.
-//    Bound by the packed weight bytes at small M (K*N/2: Llama-2-7B wqkv
-//    25.2 MB, ~7.5 us at 3.35 TB/s).  Tensor cores
-//    on mma.sync.m16n8k16 bf16 -> f32 with A and B swapped: the weight is
-//    the A operand (16 output columns x 16 k) and x^T the B operand (16 k x
-//    8 rows of x), so M = 8, the engine's decode shape, fills one n8 tile;
-//    M <= 8 takes one n8 tile, larger M two per pass, a block covering a
-//    16-row slab of M (grid z) up to M = 64 and a 64-row slab above, in
-//    passes of 16 rows over the same weight registers.  The packed layout
-//    is kept: a lane builds its A fragments from 16-byte loads along N of
-//    4 packed rows, 8 lanes covering 128 contiguous bytes of a row, and
-//    the kernel owns the order of its
-//    output columns (see w4a16_decode).  Nibbles become bf16 without cvt:
-//    OR into the mantissa of bf16 128 and subtract 128 (exact, two per
-//    32-bit op).  A byte's low and high nibbles belong to groups gb and
-//    G/2 + gb and go to two partial sums, each scaled once by its group's
-//    s.  A warp keeps all 16 of its 16-byte weight loads in flight; a
-//    block's 4 warps split K and are summed in shared memory in warp
-//    order.  The grid's y blocks split K further (8 for K = 4096, 22 for
-//    K = 11008).  Their sum is taken in a fixed order, so a call gives the
-//    same bits on every run (the TPU kernel's K loop is sequential too,
-//    and a seed must give one sampled stream): each y block writes its f32
-//    partial tile to a workspace [S, M, N] (staged in shared memory, so
-//    the stores are coalesced 16-byte rows); the last block of a column
-//    tile to arrive, found by a ticket counter per (x, z) tile that it
-//    resets for the next launch (as paged_decode_attention.cu merges its
-//    splits), sums the S partials into y in a fixed order: q = 128 /
-//    outputs threads per float4 output (4 at M = 1), each over a fixed
-//    range of splits in index order, their sums added in range order.  At M = 8 the
-//    partials are S*M*N*4 bytes (2.9 MB for w2, 3.1 MB for wqkv) against
-//    22-25 MB of weight, written and read back through L2.  Chosen over a
-//    cluster with a DSMEM reduction: a portable cluster holds 8 blocks, so
-//    w2's 22 splits would need the non-portable size 16 or a new split of
-//    K, while the ticket pattern keeps the split and tile as they were.
-//    y is written, not accumulated, so no zero-fill launch precedes it.
-//  * groups that are multiples of 64, every M: w4a16_wgmma, on two routes
-//    that the wrapper picks
-//    from shapes alone (ops/cuda/quant_matmul.py::gemm_route).  Bound by the weight's
-//    bytes at the verify's M = 40 and the 64-row bucket (one Llama-2-7B
-//    layer: 101 MB, 0.030 ms at 3.35 TB/s) and by operations from M ~ 80
-//    (2*M*K*N; M = 512: 207 GFLOP, 0.21 ms at 989 TF/s).  One kernel body:
+// One kernel, w4a16_wgmma, at every group that is a multiple of 16 and
+// every M, on two routes that the wrapper picks from shapes alone
+// (ops/cuda/quant_matmul.py::gemm_route).  Bound by the weight's bytes at
+// the decode steps, the verify's M = 40 and the 64-row bucket (one
+// Llama-2-7B layer: 101 MB, 0.030 ms at 3.35 TB/s) and by operations from
+// M ~ 80 (2*M*K*N; M = 512: 207 GFLOP, 0.21 ms at 989 TF/s).
 //    - wgmma.mma_async m64nBMk16 (the only path to the tensor cores' full
-//      rate) with A and B swapped, as in the decode regime: A is 64 output
-//      columns x 16 k of the weight, built IN REGISTERS from the packed
-//      bytes by the same mantissa trick (wgmma's register-A form), so the
-//      weight never goes through shared memory as bf16; B is a [BM rows of
+//      rate) with A and B swapped: A is 64 output columns x 16 k of the
+//      weight, built IN REGISTERS from the packed bytes (wgmma's
+//      register-A form), so the weight never goes through shared memory
+//      as bf16: nibbles become exact bf16 without cvt (OR into the mantissa
+//      of bf16 128 and subtract 128, two per 32-bit op); B is a [BM rows of
 //      x] x [16 k] tile in shared memory, K-major as x is, with 128-byte
 //      swizzle.  BM is wgmma's N: M rounded up to 8 up to 64 (16 to 64),
-//      else 128, so the verify's 40 rows take n40 and not a 64-row tile;
+//      else 128, so the verify's 40 rows take n40 and M = 8 an n16 tile;
 //      TMA zero-fills the ragged M edge and the ragged N edge of the
 //      weight without reading them.
-//    - The lane -> column map of the decode kernel, for one m64 tile: a
-//      warp owns 16 output columns and lane (gid, t) holds A rows gid and
-//      gid + 8 = columns 2*gid and 2*gid + 1, so it reads one 16-bit pair
-//      per packed row and its accumulator rows are two adjacent output
+//    - The lane -> column map, for one m64 tile: a warp owns 16 output
+//      columns and lane (gid, t) holds A rows gid and gid + 8 = columns
+//      2*gid and 2*gid + 1, so it reads one 16-bit pair per packed row
+//      (ldmatrix.trans) and its accumulator rows are two adjacent output
 //      columns: scales come as one bf16 pair, results leave as float2.
 //    - Half-split K: a pipeline stage holds 64 packed rows of the tile's
 //      128 columns and the two x tiles they multiply (low nibbles: x
 //      columns k'.., high nibbles: K/2 + k'..).  A half group (`group`
-//      packed rows) is group / 64 stages; its low and high halves are
-//      groups gb and G/2 + gb.
-//    - Exact per-group scaling, as in the TPU kernel: a consumer takes a
-//      half group's stages in pieces of P (two where their count is even,
-//      else one; wgmma_piece), and each nibble half's 4P k16 steps of a
-//      piece run into one f32 partial that the first step resets (scale-d
-//      0); after wgmma.wait_group the partial is folded into the running
-//      sum with s[g, n] (n is the accumulator's row, so a thread reads one
-//      scale pair per group).  So a group of 64 or 128 is one partial;
+//      packed rows) holds groups gb (low) and G/2 + gb (high).
+//    - Exact per-group scaling, as in the TPU kernel: every group's
+//      products of a nibble half run into an f32 partial that its first
+//      k16 step resets (scale-d 0); after wgmma.wait_group the partial is
+//      folded into the running sum with s[g, n] (n is the accumulator's
+//      row, so a thread reads one scale pair per group), low then high,
+//      group by group.  At a multiple of 64 a half group is whole stages,
+//      taken in pieces of one or two stages (a partial of 64 or 128 rows;
 //      256 is two partials of 128 rows, each folded with the group's
-//      scales.  Nibbles and x are exact
-//      in bf16 and their products exact in f32, as in the decode kernel.
+//      scales).  At any other multiple of 16 (the step form) a group is
+//      group / 16 k16 steps, which may straddle stages: a commit group
+//      holds one whole group (16, 32, 48) or one step of a group whose
+//      partials carry on (any other), and a stage brings the scale rows
+//      of the groups that begin in it.
+//      Nibbles and x are exact in bf16 and their products exact in f32.
 //    - Persistent grid: min(items, SMs) blocks of 384 threads, one an SM,
 //      each walking work items b, b + grid, ... of (column tile, row tile,
 //      split) in an order that keeps a column tile's weight and a row
 //      tile's x in L2 for the blocks in flight.  One producer thread keeps
 //      the ring of stages (5 at BM = 128 up to 12 at BM <= 32, ~210 KB;
-//      a stage also brings its two groups' scale rows)
-//      full across item boundaries, so an item's epilogue overlaps the
-//      next one's loads and no wave of blocks waits on a tail.
+//      a stage also brings its groups' scale rows) full across item
+//      boundaries, so an item's epilogue overlaps the next one's loads and
+//      no wave of blocks waits on a tail.
 //    - Ping-pong at 128-row tiles: the two consumer warpgroups (64 columns
 //      each) issue their products of a piece in turn, ordered by two
 //      named barriers, so that one folds its partial while the other's
 //      products keep the tensor cores busy.  At <= 64 rows the products
-//      are short and the ordering measured slower, so they issue freely.  A second partial in flight (wait_group 1) would
-//      overlap a warpgroup's own fold too, but ptxas then serializes every
-//      wgmma (C7514: the fold reads accumulator registers inside the
-//      pipeline stage), which measured slower; so did building the next
-//      half's A fragments while the products run (64 more registers).
+//      are short and the ordering measured slower, so they issue freely.
+//      A second partial in flight (wait_group 1) would overlap a
+//      warpgroup's own fold too, but ptxas then serializes every wgmma
+//      (C7514: the fold reads accumulator registers inside the pipeline
+//      stage), which measured slower (at 128 rows, and again for the step
+//      form's short tiles); so did building the next half's A fragments
+//      while the products run at 128 rows (64 more registers).
 //    - Route "splitk" (S > 1): where the output tiles fill at most half
 //      the SMs, the half groups are cut into the most splits S <= 8 that
 //      keep the items in one wave (quant_matmul.py::splitk_splits), so wo
-//      and w2 at M = 40 run over 128 items and not 32 tiles.  Each item writes its f32 partial
-//      tile to a workspace [S, M, N]; the last of a tile's S items to
-//      arrive, found by a ticket per tile that it resets for the next
-//      launch (the decode regime's pattern), sums the S partials into y
-//      in split order, each thread over its own outputs, every split's
-//      values of a few outputs in flight at once.  Chosen over a
-//      cluster reduction through distributed shared memory: the plan's S
-//      (up to 8) would need clusters of S blocks co-scheduled, which a
-//      persistent grid of one block per SM cannot promise for every S,
-//      while the ticket keeps the persistent walk as it is.  A call gives
-//      the same bits on every run.  Route "tiles" (S = 1): each item
-//      writes y directly.
+//      and w2 at M = 40 run over 128 items and not 32 tiles.  Each item
+//      writes its f32 partial tile to a workspace [S, M, N]; the last of a
+//      tile's S items to arrive, found by a ticket per tile that it resets
+//      for the next launch, sums the S partials into y in split order,
+//      each thread over its own outputs, every split's values of a few
+//      outputs in flight at once.  Chosen over a cluster reduction through
+//      distributed shared memory: the plan's S (up to 8) would need
+//      clusters of S blocks co-scheduled, which a persistent grid of one
+//      block per SM cannot promise for every S, while the ticket keeps the
+//      persistent walk as it is.  A call gives the same bits on every run
+//      (the TPU kernel's K loop is sequential too, and a seed must give
+//      one sampled stream).  Route "tiles" (S = 1): each item writes y
+//      directly.
 //    Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled
 //    through the runtime's driver entry point; its cost is measured by
 //    lmd_tmap_encode_ns).
@@ -138,15 +104,6 @@
 
 namespace {
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two packed bytes' nibbles, in bits 0-3 and 16-19 of v, as exact bf16
 // values 0..15: OR into the mantissa of bf16 128, then subtract 128.
 __device__ __forceinline__ uint32_t nib2_bf16(uint32_t v) {
@@ -158,11 +115,10 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t v) {
 }
 
 // ---------------------------------------------------------------------------
-// group-128 regime: wgmma with the weight as the register operand
+// wgmma with the weight as the register operand
 // ---------------------------------------------------------------------------
 
-constexpr int kChunk = 64;      // packed rows per pipeline stage: the
-                                // wgmma regime's groups are multiples of it
+constexpr int kChunk = 64;      // packed rows per pipeline stage
 constexpr int kBN = 128;        // output columns of a tile: 2 x 64
 constexpr int kMaxStages = 12;
 constexpr int kMaxSplits = 8;   // route splitk's splits of K at most
@@ -173,18 +129,24 @@ constexpr int kThreads = 384;   // 2 consumer warpgroups + 1 producer
 constexpr int kBarConsumers = 1;
 constexpr int kBarTurn0 = 2;
 constexpr int kBarTurn1 = 3;
+// scale rows a stage brings per nibble half in the step form (the groups
+// that begin in it: four at group 16)
+constexpr int kStepRows = 4;
 
 // A tile of BM rows of x (wgmma's N: 16, 32, 48, 64 or 128) by kBN
 // output columns; a stage holds 64 packed rows of the tile's columns and
 // the two x tiles they multiply (low nibbles: x columns k'..., high
-// nibbles: K/2 + k'...).
-template <int BM>
+// nibbles: K/2 + k'...), and scale rows: the group pair's (one row a
+// half), or in the step form up to kStepRows a half.
+template <int BM, bool kStep = false>
 struct Tile {
   static constexpr int kWBytes = kChunk * kBN;      // packed weight tile
   static constexpr int kXBytes = BM * kChunk * 2;   // one half's x tile
   static constexpr int kSBytes = 2 * kBN * 2;       // the group pair's scales
   // weight, two x tiles, scales (padded so stages stay 1024-aligned)
-  static constexpr int kStage = kWBytes + 2 * kXBytes + 1024;
+  static constexpr int kSOff = kWBytes + 2 * kXBytes;  // the scale rows
+  static constexpr int kStage =
+      kSOff + (kStep ? 2 * kStepRows * kBN * 2 : 1024);
   static constexpr int kStages = kSmemBudget / kStage < kMaxStages
                                      ? kSmemBudget / kStage
                                      : kMaxStages;
@@ -395,6 +357,23 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& d0,
       : "=r"(d0), "=r"(d1), "=r"(d2), "=r"(d3) : "r"(addr) : "memory");
 }
 
+// Two 8x8 b16 matrices (one k16 step's rows 0-7 and 8-15), transposed,
+// as ldsm_x4_trans gives its first two; lanes 0-15 give the addresses.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t& d0,
+                                              uint32_t& d1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(d0), "=r"(d1) : "r"(addr) : "memory");
+}
+
+// A 32-bit shared-memory load by its shared address (LDS; the step form
+// measured faster with it than with a generic load at M <= 16)
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
 __device__ __forceinline__ void prefetch_tmap(const CUtensorMap* m) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(m)) : "memory");
@@ -436,19 +415,41 @@ struct Item {
 // global load.  With S > 1 each item writes its f32 partial tile to
 // ws[split] and the last of a tile's S items to arrive sums ws[0..S-1]
 // into y in split order.
-template <int BM, int P, int C>
+//
+// Two forms of the partial.  U = 0 (a group that is a multiple of 64): a
+// half group is group / 64 whole stages, taken in pieces of P stages
+// (C: that stage count fixed at compile time, 0: a runtime count), each
+// piece's products one partial a nibble half.  U != 0 (the step form:
+// any other multiple of 16): a group is gs = group / 16 k16 steps, which
+// may straddle stages; an item's stages start at its own first packed
+// row, so every item's stages hold the same steps.  The consumer walks
+// the steps in commit groups within one group: U > 0 (gs = U) the whole
+// group, U < 0 (any other gs) -U steps, its partials carried to the
+// next; each group's low and high products run into partials of their
+// own (scale-d 0 at its first step) and after its last step are folded
+// with its scale pairs, low then high, group by group.  A stage brings, in one TMA box a half, the
+// scale rows of the groups that begin in it (tm_s box {srows, 128},
+// srows = ceil(4 / gs) up to kStepRows).
+template <int BM, int P, int C, int U>
 __global__ void __launch_bounds__(kThreads, 1)
 w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
             const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_s, float* __restrict__ y,
             float* __restrict__ ws, int* __restrict__ counter, int M, int K,
             int N, int group, int splits) {
-  using T = Tile<BM>;
+  constexpr bool kStep = U != 0;
+  using T = Tile<BM, kStep>;
   constexpr int kS = T::kStages;
   constexpr int kD = BM / 2;                // accumulator floats per thread
   // the consumers issue in turn at 128-row tiles, where the products are
   // long (measured: faster there, slower at <= 64 rows)
   constexpr bool kPingPong = BM > 64;
+  // The step form's commit groups: kH nibble halves (both up to 64-row
+  // tiles; one at 128 rows, where two partials of 64 floats beside the
+  // sum spill) of kU k16 steps of one group (the whole group where U >
+  // 0), the halves into partials of their own
+  constexpr int kH = BM > 64 ? 1 : 2;
+  constexpr int kU = U > 0 ? U : -U;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int s_last;
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -462,6 +463,8 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
   // (group 128, the converters' default: the loops below unroll to one
   // piece and no runtime trip count), else group / 64
   const int chunks = C > 0 ? C : group / kChunk;
+  // the step form's k16 steps a group: U where the launch fixes it
+  const int gs = U > 0 ? U : group >> 4;
   const int tiles_m = (M + BM - 1) / BM;
   const int items = (N + kBN - 1) / kBN * tiles_m * splits;
   const int tid = threadIdx.x;
@@ -486,6 +489,34 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
       int i = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const Item it(item, splits, tiles_m, BM, g_half);
+        if constexpr (kStep) {
+          // the item's packed rows [gb0 group, gb1 group) in stages from
+          // its first row; a tail stage's rows past them are not used
+          // (past K/2 the map fills zeros)
+          const int ng = it.gb1 - it.gb0;
+          const int steps = ng * gs;
+          const int srows = gs >= kStepRows ? 1 : (kStepRows + gs - 1) / gs;
+          for (int c = 0; 4 * c < steps; ++c, ++i) {
+            const int st = i % kS;
+            if (i >= kS) mbar_wait(&empty[st], ((i / kS) - 1) & 1);
+            const int jb = (4 * c + gs - 1) / gs;  // first group begun here
+            const bool scales = jb < ng && jb * gs < 4 * c + 4;
+            mbar_expect_tx(&full[st], T::kSOff +
+                                          (scales ? 2 * srows * kBN * 2 : 0));
+            const int row = it.gb0 * group + c * kChunk;
+            uint8_t* at = smem + st * T::kStage;
+            tma_load_2d(at, &tm_w, it.n0, row, &full[st]);
+            tma_load_2d(at + T::kWBytes, &tm_x, row, it.m0, &full[st]);
+            tma_load_2d(at + T::kWBytes + T::kXBytes, &tm_x, half_k + row,
+                        it.m0, &full[st]);
+            if (scales) {
+              uint8_t* sb = at + T::kSOff;
+              tma_load_2d(sb, &tm_s, it.n0, it.gb0 + jb, &full[st]);
+              tma_load_2d(sb + kStepRows * kBN * 2, &tm_s, it.n0,
+                          g_half + it.gb0 + jb, &full[st]);
+            }
+          }
+        } else {
         for (int gb = it.gb0; gb < it.gb1; ++gb) {
 #pragma unroll
           for (int c = 0; c < chunks; ++c, ++i) {
@@ -505,6 +536,7 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
               tma_load_2d(sb + kBN * 2, &tm_s, it.n0, g_half + gb, &full[st]);
             }
           }
+        }
         }
       }
     }
@@ -526,6 +558,9 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
   // next pair of steps) keep the same swizzle.
   const int lrow = 16 * (lane >> 4) + 8 * ((lane >> 3) & 1) + (lane & 7);
   const uint32_t w_lane = w_off(lrow, wg * 64 + warp * 16);
+  // the step form reads one step (rows 0-15) at a time: lanes 0-15
+  // address its rows
+  const uint32_t w_lane2 = w_off(lane & 15, wg * 64 + warp * 16);
   const size_t mn = (size_t)M * N;
 
   // Wait for the P stages of a half group's piece at ring index i and
@@ -605,9 +640,96 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
     const Item it(item, splits, tiles_m, BM, g_half);
     const int n = it.n0 + col;                       // columns n, n + 1
     const bool n_ok = n < N;                         // N % 16 == 0
-    float acc[kD], part[kD];
+    float acc[kD];
 #pragma unroll
     for (int j = 0; j < kD; ++j) acc[j] = 0.f;
+    if constexpr (kStep) {
+      const int ng = it.gb1 - it.gb0;
+      const int steps = ng * gs;
+      const int i0 = i;     // ring index of the item's first stage
+      int done = 0;         // the item's stages released
+      float part[kH][kD];   // the group's partials of the halves
+      for (int j = 0; j < ng; ++j) {
+        uint32_t sc[2];
+        for (int h0 = 0; h0 < 2; h0 += kH) {
+          for (int s0 = 0; s0 < gs; s0 += kU) {
+            // the packed bytes of kU steps of group j
+            uint32_t v[kU][2];
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int t = j * gs + s0 + u;
+              const int ri = i0 + (t >> 2);
+              if (h0 == 0 && (t & 3) == 0)
+                mbar_wait(&full[ri % kS], (ri / kS) & 1);
+              const uint8_t* stage = smem + (ri % kS) * T::kStage;
+              if (h0 == 0 && s0 + u == 0) {
+                // the group begins here: its scale pairs, from the
+                // stage's box of the groups that begin in it
+                const int slot = j - ((t & ~3) + gs - 1) / gs;
+                const uint32_t sb = smem_u32(stage + T::kSOff) +
+                                    slot * kBN * 2 + col * 2;
+                sc[0] = lds_u32(sb);
+                sc[1] = lds_u32(sb + kStepRows * kBN * 2);
+              }
+              ldsm_x2_trans(smem_u32(stage) + w_lane2 + (t & 3) * 16 * kBN,
+                            v[u][0], v[u][1]);
+            }
+            if (kPingPong && (wg == 1 || issues > 0))
+              named_sync(wg == 0 ? kBarTurn0 : kBarTurn1);
+#pragma unroll
+            for (int hh = 0; hh < kH; ++hh)
+#pragma unroll
+              for (int jj = 0; jj < kD; ++jj) pin(part[hh][jj]);
+            // one nibble half at a time: its A fragments, then its
+            // products, so the next half's fragments are built while
+            // this half's products run
+#pragma unroll
+            for (int hh = 0; hh < kH; ++hh) {
+              const int h = h0 + hh;
+              uint32_t a[kU][4];
+#pragma unroll
+              for (int u = 0; u < kU; ++u) {
+                const uint32_t p = v[u][0] >> (4 * h);
+                const uint32_t q = v[u][1] >> (4 * h);
+                a[u][0] = nib2_bf16(p);       // column n,   k 2t4, +1
+                a[u][1] = nib2_bf16(p >> 8);  // column n+1
+                a[u][2] = nib2_bf16(q);       // column n,   k 2t4+8, +9
+                a[u][3] = nib2_bf16(q >> 8);  // column n+1
+              }
+              wgmma_fence();
+#pragma unroll
+              for (int u = 0; u < kU; ++u) {
+                const int t = j * gs + s0 + u;
+                const uint32_t xaddr =
+                    smem_u32(smem + ((i0 + (t >> 2)) % kS) * T::kStage +
+                             T::kWBytes + h * T::kXBytes) + 32 * (t & 3);
+                wgmma_bm<BM>(part[hh], a[u], kmajor_sw128_desc(xaddr),
+                             s0 + u != 0);
+              }
+            }
+            wgmma_commit();
+            if (kPingPong) named_arrive(wg == 0 ? kBarTurn1 : kBarTurn0);
+            ++issues;
+            wgmma_wait0();
+            if (h0 + kH == 2) {
+              // release the stages whose steps have all run
+              const int t1 = j * gs + s0 + kU;
+              const int upto = t1 == steps ? (steps + 3) >> 2 : t1 >> 2;
+              for (; done < upto; ++done)
+                if (lane == 0) mbar_arrive(&empty[(i0 + done) % kS]);
+            }
+            if (s0 + kU == gs) {
+              // the finished group's partials, low half then high
+#pragma unroll
+              for (int hh = 0; hh < kH; ++hh)
+                fold(acc, part[hh], sc[h0 + hh]);
+            }
+          }
+        }
+      }
+      i = i0 + ((steps + 3) >> 2);
+    } else {
+    float part[kD];
     for (int gb = it.gb0; gb < it.gb1; ++gb) {
       uint32_t sc[2];
       // a half group's stages in pieces of P: each piece's products of a
@@ -635,6 +757,7 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
         }
       }
     }
+    }
 
     // accumulator (row gid | gid + 8, column 8j + 2t4 | + 1) is
     // y[m0 + 8j + 2t4 (+1), n (+1)]; with S > 1 it is this split's
@@ -658,7 +781,7 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
     // split order (a ticket per tile, left at zero for the next launch).
     // The ticket is taken after the consumers' partials are visible
     // card-wide: thread 0's fence after the barrier orders their stores
-    // before its atomic (the decode regime's pattern).
+    // before its atomic.
     named_sync(kBarConsumers);
     if (tid == 0) {
       __threadfence();
@@ -710,7 +833,7 @@ w4a16_wgmma(const __grid_constant__ CUtensorMap tm_x,
   if (kPingPong && wg == 0) named_sync(kBarTurn0);
 }
 
-// ---- host side of the wgmma regime ----
+// ---- host side ----
 
 int sm_count() {
   static int n = 0;
@@ -735,32 +858,42 @@ int wgmma_rows(int M) {
 // every group the ring (5-12 stages) stays free to fill ahead.
 int wgmma_piece(int group) { return (group / kChunk) % 2 == 0 ? 2 : 1; }
 
-template <int BM, int P, int C>
+
+
+// Scale rows a stage brings per nibble half in the step form: the most
+// groups that begin in its 4 steps.
+int wgmma_step_rows(int group) {
+  const int gs = group / 16;
+  return gs >= kStepRows ? 1 : (kStepRows + gs - 1) / gs;
+}
+
+template <int BM, int P, int C, int U>
 cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w,
                          const __nv_bfloat16* s, float* y, float* ws,
                          int* counter, int M, int K, int N, int group,
                          int splits, cudaStream_t stream) {
-  using T = Tile<BM>;
+  using T = Tile<BM, (U != 0)>;
   CUtensorMap tm_x, tm_w, tm_s;
   if (!encode_2d(&tm_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, BM,
                  kChunk, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(&tm_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
                  kChunk, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(&tm_s, s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K / group,
-                 N, 1, kBN, CU_TENSOR_MAP_SWIZZLE_NONE))
+                 N, U != 0 ? wgmma_step_rows(group) : 1, kBN,
+                 CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w4a16_wgmma<BM, P, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        T::kSmem);
+        w4a16_wgmma<BM, P, C, U>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   const int items =
       (N + kBN - 1) / kBN * ((M + BM - 1) / BM) * splits;
   const int grid = items < sm_count() ? items : sm_count();
-  w4a16_wgmma<BM, P, C><<<grid, kThreads, T::kSmem, stream>>>(
+  w4a16_wgmma<BM, P, C, U><<<grid, kThreads, T::kSmem, stream>>>(
       tm_x, tm_w, tm_s, y, ws, counter, M, K, N, group, splits);
   return cudaGetLastError();
 }
@@ -771,336 +904,48 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w,
                          int* counter, int M, int K, int N, int group,
                          int splits, cudaStream_t stream) {
   if (group == 2 * kChunk)            // 128: the stage count fixed at 2
-    return launch_wgmma<BM, 2, 2>(x, w, s, y, ws, counter, M, K, N, group,
-                                  splits, stream);
-  return wgmma_piece(group) == 2
-             ? launch_wgmma<BM, 2, 0>(x, w, s, y, ws, counter, M, K, N,
-                                      group, splits, stream)
-             : launch_wgmma<BM, 1, 0>(x, w, s, y, ws, counter, M, K, N,
-                                      group, splits, stream);
-}
-
-// ---------------------------------------------------------------------------
-// decode regime (small M): swap AB on mma.sync.m16n8k16
-// ---------------------------------------------------------------------------
-
-constexpr int kDecThreads = 128;          // 4 warps, each one task
-constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kDecCols = 128;             // output columns per block
-constexpr int kDecMaxSteps = 4;           // k16 steps of packed rows per warp
-
-// Passes of 8 MT rows of x a decode block makes (its slab of M, grid z):
-// one at M <= 64 (a grid over 8- or 16-row slabs, as before larger M was
-// served, so these calls keep their code, bits and time); above, four
-// 16-row passes that reuse the block's weight registers, so a 512-row
-// call reads each weight byte 8 times and not 32.
-int decode_passes(int M) { return M <= 64 ? 1 : 4; }
-
-// One warp task: 128 output columns x `steps` k16 steps of packed rows
-// (all inside one group), both nibble halves, MT n8 tiles of x rows a
-// pass, the block's P passes (decode_passes) over the same weight
-// registers.  The weight is the A operand: A row i < 8 is column 16*i +
-// 2t of the warp's 128, row i + 8 is column 16*i + 2t + 1 (tile t =
-// 0..7), so lane (gid, tig) builds its A fragments from the 16-byte chunk
-// of columns 16*gid .. 16*gid + 15 of packed rows 2tig, 2tig+1, 2tig+8
-// and 2tig+9 of a step: 8 lanes read 128 contiguous bytes of a row.  x^T
-// is the B operand (k16 x 8 rows of x).  Partials are per group (the
-// nibbles and x are exact in bf16, their products exact in f32) and
-// scaled once.
-template <int MT, int P>
-__global__ void __launch_bounds__(kDecThreads)
-w4a16_decode(const __nv_bfloat16* __restrict__ x,
-             const uint8_t* __restrict__ w,
-             const __nv_bfloat16* __restrict__ s, float* __restrict__ y,
-             float* __restrict__ ws, int* __restrict__ counter, int M, int K,
-             int N, int group, int steps) {
-  constexpr int kFrag = 8 * MT * 4;       // f32 partials per lane
-  constexpr int kRows = 8 * MT;           // rows of x in a pass
-  constexpr int kSlab = kRows * P;        // rows of x in the block
-  constexpr int kStride = kDecCols + kDecCols / 16;  // a pad per 16 columns
-  constexpr int kVecs = kDecCols / 4;     // float4 columns of the tile
-  __shared__ float red[kDecWarps][kFrag][32];
-  __shared__ __align__(16) float stage[kRows * kStride];
-  __shared__ int last;
-
-  const int half_k = K >> 1;
-  const int g_half = half_k / group;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int n0 = blockIdx.x * kDecCols;
-  const int mz = blockIdx.z * kSlab;      // the block's first row
-  const int kr0 = (blockIdx.y * kDecWarps + warp) * steps * 16;  // packed row
-  const int col = n0 + gid * 16;          // this lane's 16 columns
-  const bool active = kr0 < half_k;
-  const bool col_ok = col < N;            // N % 16 == 0
-  const int splits = gridDim.y;
-  float* dst = splits > 1 ? ws + (size_t)blockIdx.y * M * N : y;
-
-  // x of step st for the pass from row m0
-  uint32_t xb[2][kDecMaxSteps][MT][2];
-  auto load_x = [&](int st, int m0) {
-    const bool ok = active && st < steps;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int m = m0 + mt * 8 + gid;
-        const int k = h * half_k + kr0 + st * 16 + 2 * tig;
-        const bool okm = ok && m < M;
-        const __nv_bfloat16* xr = x + (size_t)(okm ? m : 0) * K + k;
-        xb[h][st][mt][0] = okm ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
-        xb[h][st][mt][1] =
-            okm ? *reinterpret_cast<const uint32_t*>(xr + 8) : 0u;
-      }
-    }
-  };
-  // every load of the first pass in flight at once: weight chunks (kept
-  // for every pass) and x
-  uint4 raw[kDecMaxSteps][4];
-#pragma unroll
-  for (int st = 0; st < kDecMaxSteps; ++st) {
-    const bool ok = active && st < steps;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = kr0 + st * 16 + 2 * tig + (r & 1) + ((r >> 1) << 3);
-      raw[st][r] = ok && col_ok ? *reinterpret_cast<const uint4*>(
-                                      w + (size_t)row * N + col)
-                                : make_uint4(0u, 0u, 0u, 0u);
-    }
-    load_x(st, mz);
+    return launch_wgmma<BM, 2, 2, 0>(x, w, s, y, ws, counter, M, K, N,
+                                     group, splits, stream);
+  if (group % kChunk == 0)
+    return wgmma_piece(group) == 2
+               ? launch_wgmma<BM, 2, 0, 0>(x, w, s, y, ws, counter, M, K, N,
+                                           group, splits, stream)
+               : launch_wgmma<BM, 1, 0, 0>(x, w, s, y, ws, counter, M, K, N,
+                                           group, splits, stream);
+  // the step form (P is not read there): groups of 1-3 k16 steps (16,
+  // 32, 48) fixed at compile time, a whole group a commit group; any
+  // other a runtime count, one step a commit group (on the H100 the
+  // runtime count at 16 / 32 / 48 took 1.5-1.8x their time at M = 8, 40
+  // and 512)
+  switch (group / 16) {
+    case 1:
+      return launch_wgmma<BM, 1, 0, 1>(x, w, s, y, ws, counter, M, K, N,
+                                       group, splits, stream);
+    case 2:
+      return launch_wgmma<BM, 1, 0, 2>(x, w, s, y, ws, counter, M, K, N,
+                                       group, splits, stream);
+    case 3:
+      return launch_wgmma<BM, 1, 0, 3>(x, w, s, y, ws, counter, M, K, N,
+                                       group, splits, stream);
+    default:
+      return launch_wgmma<BM, 1, 0, -1>(x, w, s, y, ws, counter, M, K, N,
+                                        group, splits, stream);
   }
-
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int m0 = mz + p * kRows;
-    if (m0 >= M) break;
-    if (p > 0) {
-#pragma unroll
-      for (int st = 0; st < kDecMaxSteps; ++st) load_x(st, m0);
-    }
-
-    float out[8][MT][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) out[t][mt][e] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {         // low nibbles, then high
-      float part[8][MT][4];
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[t][mt][e] = 0.f;
-#pragma unroll
-      for (int st = 0; st < kDecMaxSteps; ++st) {
-        if (st >= steps) break;
-        const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&raw[st][0]);
-        const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&raw[st][1]);
-        const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&raw[st][2]);
-        const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&raw[st][3]);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          // bytes 2t, 2t+1 of rows (2tig, 2tig+1) and (2tig+8, 2tig+9)
-          const uint32_t b = (t & 1) * 2;
-          const uint32_t sel = b | ((b + 1) << 4) | ((b + 4) << 8) |
-                               ((b + 5) << 12);
-          uint32_t v01 = __byte_perm(w0[t >> 1], w1[t >> 1], sel);
-          uint32_t v23 = __byte_perm(w2[t >> 1], w3[t >> 1], sel);
-          if (h) {
-            v01 >>= 4;
-            v23 >>= 4;
-          }
-          uint32_t a[4];
-          a[0] = nib2_bf16(v01);          // column 2t, k 2tig, 2tig+1
-          a[1] = nib2_bf16(v01 >> 8);     // column 2t+1
-          a[2] = nib2_bf16(v23);          // column 2t, k 2tig+8, 2tig+9
-          a[3] = nib2_bf16(v23 >> 8);     // column 2t+1
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_bf16_16816(part[t][mt], a, xb[h][st][mt][0],
-                           xb[h][st][mt][1]);
-        }
-      }
-      // scale by this half's group: s[g, col + 2t] and s[g, col + 2t + 1]
-      const int g = (h ? g_half : 0) + kr0 / group;
-      uint4 sv[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-      if (active && col_ok) {
-        const uint4* sp =
-            reinterpret_cast<const uint4*>(s + (size_t)g * N + col);
-        sv[0] = sp[0];
-        sv[1] = sp[1];
-      }
-      const uint32_t* sw = reinterpret_cast<const uint32_t*>(sv);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const float s0 = __uint_as_float(sw[t] << 16);
-        const float s1 = __uint_as_float(sw[t] & 0xFFFF0000u);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          out[t][mt][0] += part[t][mt][0] * s0;
-          out[t][mt][1] += part[t][mt][1] * s0;
-          out[t][mt][2] += part[t][mt][2] * s1;
-          out[t][mt][3] += part[t][mt][3] * s1;
-        }
-      }
-    }
-
-    // the block's 4 warps (4 k slices) summed in shared memory in warp
-    // order into a [rows, 128] tile (padded against bank conflicts), then
-    // written with coalesced 16-byte stores: into y when the grid does
-    // not split K, else into this block's partial tile of the workspace.
-    // The next pass's writes of red and stage follow this pass's reads of
-    // them across the two barriers.
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          red[warp][(t * MT + mt) * 4 + e][lane] = out[t][mt][e];
-    __syncthreads();
-    for (int i = tid; i < kFrag * 32; i += kDecThreads) {
-      const int f = i >> 5;
-      const int ln = i & 31;
-      const int t = f / (MT * 4);
-      const int mt = (f >> 2) % MT;
-      const int e = f & 3;
-      const int cc = (ln >> 2) * 16 + 2 * t + (e >> 1);  // column in tile
-      const int r = mt * 8 + 2 * (ln & 3) + (e & 1);
-      float v = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < kDecWarps; ++wi) v += red[wi][f][ln];
-      stage[r * kStride + cc + (cc >> 4)] = v;
-    }
-    __syncthreads();
-    for (int i = tid; i < kRows * kVecs; i += kDecThreads) {
-      const int r = i / kVecs;
-      const int cc = (i % kVecs) * 4;
-      const int m = m0 + r;
-      const int c = n0 + cc;
-      if (m >= M || c >= N) continue;     // N % 16 == 0: c + 3 < N
-      const float* sp = stage + r * kStride + cc + (cc >> 4);
-      *reinterpret_cast<float4*>(dst + (size_t)m * N + c) =
-          make_float4(sp[0], sp[1], sp[2], sp[3]);
-    }
-  }
-  if (splits == 1) return;
-
-  // the last y block of this (x, z) tile sums the S partials of its slab
-  // in a fixed order.  The ticket is taken after the block's partials are
-  // visible card-wide: thread 0's fence after the barrier orders the
-  // block's stores before its atomic.
-  __syncthreads();
-  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(counter + tile, 1) == splits - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // q threads sum each float4 output of the slab's live rows, each over
-  // a fixed range of the splits in index order, and the q sums are added
-  // in range order, so a small tile (M = 1: 32 outputs) keeps every
-  // thread's loads in flight
-  const int tasks = min(kSlab, M - mz) * kVecs;
-  const int q = max(1, kDecThreads / tasks);
-  const size_t stride = (size_t)M * N / 4;
-  float4* sums = reinterpret_cast<float4*>(stage);
-  for (int i = tid; i < tasks * q; i += kDecThreads) {
-    const int o = i % tasks;
-    const int j = i / tasks;
-    const int m = mz + o / kVecs;
-    const int c = n0 + (o % kVecs) * 4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < N) {                          // N % 16 == 0: c + 3 < N
-      const float4* p =
-          reinterpret_cast<const float4*>(ws + (size_t)m * N + c);
-      const int hi = (j + 1) * splits / q;
-#pragma unroll 8
-      for (int sp = j * splits / q; sp < hi; ++sp) {
-        const float4 v = __ldcg(p + sp * stride);
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
-      }
-    }
-    if (q > 1)
-      sums[i] = acc;
-    else if (c < N)
-      *reinterpret_cast<float4*>(y + (size_t)m * N + c) = acc;
-  }
-  if (q > 1) {
-    __syncthreads();
-    if (tid < tasks) {
-      float4 acc = sums[tid];
-      for (int j = 1; j < q; ++j) {
-        const float4 v = sums[j * tasks + tid];
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
-      }
-      const int c = n0 + (tid % kVecs) * 4;
-      if (c < N)
-        *reinterpret_cast<float4*>(y + (size_t)(mz + tid / kVecs) * N + c) =
-            acc;
-    }
-  }
-  if (tid == 0) counter[tile] = 0;        // ready for the next launch
-}
-
-// k16 steps per warp: the most of 4, 2, 1 that divides a group
-int decode_steps(int group) {
-  const int gs = group / 16;
-  return gs % 4 == 0 ? 4 : (gs % 2 == 0 ? 2 : 1);
-}
-
-// y blocks of the decode grid: its split of K
-int decode_splits(int K, int group) {
-  const int rows_per_block = kDecWarps * decode_steps(group) * 16;
-  return (K / 2 + rows_per_block - 1) / rows_per_block;
-}
-
-template <int MT, int P>
-void launch_decode(const __nv_bfloat16* x, const uint8_t* w,
-                   const __nv_bfloat16* s, float* y, float* ws, int* counter,
-                   int M, int K, int N, int group, cudaStream_t stream) {
-  constexpr int kSlab = 8 * MT * P;
-  const dim3 grid((N + kDecCols - 1) / kDecCols, decode_splits(K, group),
-                  (M + kSlab - 1) / kSlab);
-  w4a16_decode<MT, P><<<grid, kDecThreads, 0, stream>>>(
-      x, w, s, y, ws, counter, M, K, N, group, decode_steps(group));
 }
 
 }  // namespace
 
 extern "C" {
 
-// y is overwritten by both regimes.
-// regime 0: the decode kernel (any group that is a multiple of 16 and
-// divides K/2, every M).  With lmd_w4a16_decode_splits(K, group) = S > 1
-// it takes `ws`, f32 [S, M, N] (16-byte aligned), and `counter`, int32
-// with one entry per (N/128, M / (8 MT decode_passes(M))) tile, zero
-// before the first launch; every launch leaves it at zero.  `splits` is
-// not read.
-// regime 1: the wgmma kernel (a group that is a multiple of 64) over
-// `splits` = S splits of the K/2 / group half groups (1 <= S <= min(K /
-// (2 group), 8); the wrapper's plan).  With S > 1
+// y is overwritten.  The wgmma kernel at any group that is a multiple of
+// 16 and divides K/2, over `splits` = S splits of the K / (2 group) half
+// groups (1 <= S <= min(K / (2 group), 8); the wrapper's plan).  With S > 1
 // it takes `ws`, f32 [S, M, N], and `counter`, one int32 per (column tile,
 // row tile), zero before the first launch and left at zero.
 // Returns the launch's cudaError_t.
 int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
                    void* y, void* ws, void* counter, int M, int K, int N,
-                   int group, int regime, int splits, void* stream) {
+                   int group, int splits, void* stream) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const uint8_t*>(packed);
   const auto* sb = static_cast<const __nv_bfloat16*>(scales);
@@ -1108,24 +953,9 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
   auto* wsf = static_cast<float*>(ws);
   auto* cnt = static_cast<int*>(counter);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N % 16 != 0 || K % 16 != 0) return (int)cudaErrorInvalidValue;
-  if (regime == 0) {
-    if (group % 16 != 0 || (K / 2) % group != 0 ||
-        (decode_splits(K, group) > 1 &&
-         (wsf == nullptr || cnt == nullptr ||
-          (reinterpret_cast<uintptr_t>(ws) & 15) != 0)))
-      return (int)cudaErrorInvalidValue;
-    if (M <= 8)
-      launch_decode<1, 1>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
-    else if (decode_passes(M) == 1)
-      launch_decode<2, 1>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
-    else
-      launch_decode<2, 4>(xb, wb, sb, yf, wsf, cnt, M, K, N, group, st);
-    return (int)cudaGetLastError();
-  }
-  if (regime != 1 || group <= 0 || group % kChunk != 0 ||
-      (K / 2) % group != 0 || splits < 1 || splits > K / (2 * group) ||
-      splits > kMaxSplits ||
+  if (M <= 0 || N % 16 != 0 || K % 16 != 0 || group <= 0 ||
+      group % 16 != 0 || (K / 2) % group != 0 || splits < 1 ||
+      splits > K / (2 * group) || splits > kMaxSplits ||
       (splits > 1 && (wsf == nullptr || cnt == nullptr ||
                       (reinterpret_cast<uintptr_t>(ws) & 7) != 0)) ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
@@ -1151,17 +981,11 @@ int lmd_w4a16_gemm(const void* x, const void* packed, const void* scales,
 #undef LMD_WGMMA_CASE
 }
 
-// The decode regime's split of K (its grid's y blocks); the wrapper sizes
-// the workspace [S, M, N] by it.
-int lmd_w4a16_decode_splits(int K, int group) {
-  return group > 0 && group % 16 == 0 ? decode_splits(K, group) : -1;
-}
-
 // Rows of x a wgmma tile holds at this M (the wrapper's plan mirrors it).
 int lmd_w4a16_wgmma_rows(int M) { return wgmma_rows(M); }
 
 // Mean host time of one tensor-map encode, in nanoseconds, over `iters`
-// encodes of an x map (the wgmma regime encodes two per call); -1 when the
+// encodes of an x map (a call encodes three); -1 when the
 // driver entry point is missing.
 int lmd_tmap_encode_ns(int iters) {
   CUtensorMap map;

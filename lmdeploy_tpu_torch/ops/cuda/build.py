@@ -40,8 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    'lmd_w4a16_gemm': (_P,) * 6 + (_I,) * 6 + (_P,),
-    'lmd_w4a16_decode_splits': (_I, _I),
+    'lmd_w4a16_gemm': (_P,) * 6 + (_I,) * 5 + (_P,),
     'lmd_w4a16_wgmma_rows': (_I,),
     'lmd_tmap_encode_ns': (_I,),
     'lmd_paged_decode_attention': (_I,) + (_P,) * 15 + (_I,) * 10

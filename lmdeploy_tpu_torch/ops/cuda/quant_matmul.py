@@ -11,48 +11,31 @@ JAX kernel.
 
 Bound on an H100 SXM (3.35 TB/s, 989 TF/s bf16): at decode the packed
 weight bytes K*N/2 (Llama-2-7B wqkv 25.2 MB ~ 7.5 us); at a 512-row
-prefill chunk the 2*M*K*N operations.  Two kernels, chosen by the
-quantisation group; between them every group the JAX kernel takes that
-is a multiple of 16 runs a kernel at every M:
+prefill chunk the 2*M*K*N operations.  One kernel at every group the JAX
+kernel takes that is a multiple of 16, and every M: wgmma with the weight
+as the register operand (nibbles to bf16 in registers) and x tiles of M
+rows rounded up to 8 (at least 16, up to 64; else 128, :func:`wgmma_rows`)
+brought by TMA into a ring of shared-memory stages of 64 packed rows, one
+f32 partial per group folded with its scales, on a persistent grid of one
+block per SM (its two consumer warpgroups issue their products in turn at
+128-row tiles).  At a group that is a multiple of 64 a partial is whole
+stages; at any other (16, 32, 48, 80, ...) it is group / 16 k16 steps,
+which may straddle stages (the kernel's step form).  Two routes, picked by
+:func:`gemm_route` from shapes alone (no host sync):
 
-- wgmma (groups that are multiples of 64, every M): wgmma with the
-  weight as the register operand (nibbles to bf16 in registers) and x
-  tiles of M rows rounded up to 8 (at least 16, up to 64; else 128,
-  :func:`wgmma_rows`) brought by TMA into a ring of shared-memory stages
-  of 64 packed rows, one f32 partial per group of 64 or 128 (two of 128
-  rows at 256) folded with its scales, on a persistent grid of one block
-  per SM (its two consumer warpgroups issue their products in turn at
-  128-row tiles).
-  It serves the decode steps' M <= 8 too: chip_smoke.py phase 3 (one
-  Llama-2-7B layer, five projections, weights from HBM; H100 80GB HBM3 at
-  700 W) has it, on its plan, faster than the decode kernel that took M <=
-  8 before (0.0748 against 0.0942 ms a layer at M = 1, 0.0748 against
-  0.1015 at M = 8).  Two routes, picked by :func:`gemm_route` from
-  shapes alone (no host sync):
+- ``splitk`` (the plan :func:`splitk_splits` cuts the half groups into S >
+  1 splits where the output tiles fill at most half the SMs: wo and w2 of
+  Llama-2-7B up to M = 128, a tp = 2 rank's projections at decode and at
+  the verify): each split writes an f32 partial to a workspace and the
+  last of a tile's splits to arrive (a self-resetting ticket per tile)
+  sums them in split order: deterministic.
+- ``tiles`` (S = 1: tiles that fill the card, and the 512-row bucket): one
+  item per output tile, walked persistently in an order that keeps x and
+  the weight's column tiles in L2.
 
-  - ``splitk`` (the plan :func:`splitk_splits` cuts the half groups into
-    S > 1 splits where the output tiles fill at most half the SMs: wo and
-    w2 of Llama-2-7B up to M = 128, a tp = 2 rank's projections at decode
-    and at the verify): each split writes an f32 partial to a workspace
-    and the last of a tile's splits to arrive (a self-resetting ticket per
-    tile) sums them in split order: deterministic.
-  - ``tiles`` (S = 1: tiles that fill the card, and the 512-row bucket):
-    one item per output tile, walked persistently in an order that keeps x
-    and the weight's column tiles in L2.
-
-  Its launches also count under ``w4a16_gemm[wgmma]`` and
-  ``w4a16_gemm[wgmma]:<route>``.
-- decode (route ``decode``: groups that are not a multiple of 64 (16,
-  32, 48, 80, ...), every M): tensor cores (mma.sync m16n8k16) with the
-  weight as the A operand and x^T as B, so M = 8 fills one n8 tile; a
-  block covers a slab of M (:func:`decode_slab`: 16 rows up to M = 64,
-  else 64 in 16-row passes over one read of its weight bytes), 16 bytes
-  per load, and turns nibbles into exact bf16 by a mantissa trick.  Its grid
-  splits K; the splits' f32 partials go to a workspace and the last block
-  of each column tile sums them in index order (a ticket counter per
-  tile, zeroed once, that every launch leaves at zero), so a call gives
-  the same bits on every run.  It takes N % 16 == 0, K % 16 == 0 and any
-  group that is a multiple of 16 dividing K/2.
+Its launches count under ``w4a16_gemm``, ``w4a16_gemm[wgmma]`` and
+``w4a16_gemm[wgmma]:<route>``.  It takes N % 16 == 0, K % 16 == 0 and any
+group that is a multiple of 16 dividing K/2.
 
 On a CPU tensor the wrapper runs :func:`w4a16_gemm_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -66,15 +49,12 @@ from .counts import LAUNCHES, PLAIN_CALLS
 
 NAME = 'w4a16_gemm'
 WGMMA = 'w4a16_gemm[wgmma]'      # the wgmma kernel's own count
-ROUTES = ('decode', 'splitk', 'tiles')
-WGMMA_ROUTES = ('splitk', 'tiles')
-ROUTE_NAMES = tuple(f'{WGMMA}:{r}' for r in WGMMA_ROUTES)
+ROUTES = ('splitk', 'tiles')
+ROUTE_NAMES = tuple(f'{WGMMA}:{r}' for r in ROUTES)
 SPLITK_MAX = 8        # splits of K at most
-CHUNK = 64            # packed rows of a wgmma stage: its groups' quantum
 TILE_N = 128          # output columns of a wgmma tile
 
-_counters: dict = {}      # device -> the ticket counters of both regimes
-_splits: dict = {}        # (K, group) -> the decode regime's split of K
+_counters: dict = {}      # device -> the ticket counters
 _sms: dict = {}           # device index -> streaming multiprocessors
 
 
@@ -82,12 +62,6 @@ def wgmma_rows(m: int) -> int:
     """Rows of x in a wgmma tile (wgmma's N): M rounded up to 8 (at least
     16) up to 64, else 128 (the kernel's ``wgmma_rows``)."""
     return 128 if m > 64 else max(16, -(-m // 8) * 8)
-
-
-def decode_slab(m: int) -> int:
-    """Rows of x a decode-kernel block covers: 8 at M <= 8, 16 up to M =
-    64, else 64 (the kernel's 8 MT rows a pass times decode_passes)."""
-    return 8 if m <= 8 else (16 if m <= 64 else 64)
 
 
 def split_range(split: int, splits: int, g_half: int):
@@ -114,11 +88,9 @@ def splitk_splits(m: int, k: int, n: int, sms: int, group: int) -> int:
 
 
 def gemm_route(m: int, k: int, n: int, sms: int, group: int) -> str:
-    """The route a call of these shapes takes, at every M: ``splitk`` or
-    ``tiles`` (the wgmma kernel) at a group that is a multiple of 64,
-    ``decode`` at any other.  A pure function of shapes: no host sync."""
-    if group % CHUNK:
-        return 'decode'
+    """The route a call of these shapes takes, at every M and every group
+    that is a multiple of 16: ``splitk`` or ``tiles`` (the wgmma kernel).
+    A pure function of shapes: no host sync."""
     return 'splitk' if splitk_splits(m, k, n, sms, group) > 1 else 'tiles'
 
 
@@ -134,28 +106,13 @@ def sm_count(device) -> int:
 
 
 def _ticket_counters(tiles: int, device) -> torch.Tensor:
-    """Int32 ticket counters, zeroed once when allocated; every launch of
-    either regime leaves them at zero."""
+    """Int32 ticket counters, zeroed once when allocated; every launch
+    leaves them at zero."""
     c = _counters.get(device)
     if c is None or c.numel() < tiles:
         c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
         _counters[device] = c
     return c
-
-
-def _decode_workspace(m: int, k: int, n: int, group: int, device):
-    """(partials f32 [S, M, N], ticket counters) of the decode regime, or
-    (None, None) when its grid does not split K."""
-    splits = _splits.get((k, group))
-    if splits is None:
-        splits = build.load().lmd_w4a16_decode_splits(k, group)
-        build.check(min(splits, 0), 'w4a16_gemm: decode splits')
-        _splits[(k, group)] = splits
-    if splits <= 1:
-        return None, None
-    tiles = -(-n // 128) * -(-m // decode_slab(m))
-    return (torch.empty((splits, m, n), dtype=torch.float32, device=device),
-            _ticket_counters(tiles, device))
 
 
 def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
@@ -195,7 +152,7 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
                      scales: torch.Tensor, layer: int,
                      route: str) -> torch.Tensor:
-    """Launch one route's kernel ('decode', 'splitk' or 'tiles') on CUDA
+    """Launch the kernel on route ``route`` ('splitk' or 'tiles') on CUDA
     tensors, whatever M is: :func:`w4a16_gemm` picks by shapes, a
     measurement or a test forces one.  A forced ``splitk`` whose plan is
     one split takes two."""
@@ -210,10 +167,9 @@ def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
                          f'packed{tuple(packed.shape)}/{packed.dtype} '
                          f'scales{tuple(scales.shape)}/{scales.dtype} '
                          f'route {route!r}')
-    wgmma = route != 'decode'
     g_half = k2 // group
-    if n % 16 or k % 16 or group % 16 or (wgmma and (
-            group % CHUNK or (route == 'splitk' and g_half < 2))):
+    if n % 16 or k % 16 or group % 16 or (
+            route == 'splitk' and g_half < 2):
         raise ValueError(f'w4a16_gemm: unsupported shape M={m} K={k} N={n} '
                          f'group={group} ({route})')
     if not (packed.is_contiguous() and scales.is_contiguous()):
@@ -225,31 +181,26 @@ def w4a16_gemm_route(x: torch.Tensor, packed: torch.Tensor,
         xb = xb.clone()
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     splits = 1
-    if route == 'decode':
-        ws, counter = _decode_workspace(m, k, n, group, x.device)
-    else:
-        if route == 'splitk':
-            splits = max(2, splitk_splits(m, k, n, sm_count(x.device),
-                                          group))
-            if splits > g_half:
-                raise ValueError(f'w4a16_gemm: {splits} splits of '
-                                 f'{g_half} half groups')
-        ws = counter = None
-        if splits > 1:
-            ws = torch.empty((splits, m, n), dtype=torch.float32,
-                             device=x.device)
-            counter = _ticket_counters(
-                -(-n // TILE_N) * -(-m // wgmma_rows(m)), x.device)
+    if route == 'splitk':
+        splits = max(2, splitk_splits(m, k, n, sm_count(x.device), group))
+        if splits > g_half:
+            raise ValueError(f'w4a16_gemm: {splits} splits of {g_half} '
+                             'half groups')
+    ws = counter = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32,
+                         device=x.device)
+        counter = _ticket_counters(
+            -(-n // TILE_N) * -(-m // wgmma_rows(m)), x.device)
     rc = build.load().lmd_w4a16_gemm(
         xb.data_ptr(), packed[layer].data_ptr(), scales[layer].data_ptr(),
         y.data_ptr(), 0 if ws is None else ws.data_ptr(),
         0 if counter is None else counter.data_ptr(), m, k, n, group,
-        int(wgmma), splits, torch.cuda.current_stream(x.device).cuda_stream)
+        splits, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, 'w4a16_gemm')
     LAUNCHES[NAME] += 1
-    if wgmma:
-        LAUNCHES[WGMMA] += 1
-        LAUNCHES[f'{WGMMA}:{route}'] += 1
+    LAUNCHES[WGMMA] += 1
+    LAUNCHES[f'{WGMMA}:{route}'] += 1
     return y
 
 

@@ -209,19 +209,19 @@ def test_prefill_quantized_matches_plain_on_card(cuda_device, kv_bits):
 GEMM_SHAPES = [(k, n, group, m)
                for k, n, group in ((1024, 512, 128), (2816, 528, 128),
                                    (1536, 256, 48), (1536, 256, 64),
-                                   (1536, 256, 256))
+                                   (1536, 256, 256), (1536, 256, 16),
+                                   (1536, 256, 32), (1280, 272, 80))
                for m in (1, 2, 3, 5, 8, 9, 16, 33, 64, 65, 130, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('k,n,group,m', GEMM_SHAPES)
 def test_w4a16_shapes_match_plain_on_card(cuda_device, k, n, group, m):
-    """The route gemm_route picks at every M (decode at a group of 48, in
-    16-row slabs up to M = 64 and 64-row slabs above; the wgmma routes at
-    groups 64, 128 and 256)
-    at ragged shapes: an odd count of half groups (K = 2816: 11 low and 11
-    high groups), N not a multiple of the block's 128 columns, a group of
-    48, one a stage (64) and one of four stages (256)."""
+    """The route gemm_route picks at every M at ragged shapes: an odd
+    count of half groups (K = 2816: 11 low and 11 high groups), N not a
+    multiple of the block's 128 columns, groups of one stage (64) and of
+    four (256), and the step form's groups of one, two, three and five
+    k16 steps (16, 32, 48, 80; 48 and 80 straddle stages)."""
     rng = np.random.default_rng(k + n + m)
     x = rng.normal(size=(m, k)).astype(np.float32)
     packed = rng.integers(0, 256, size=(2, k // 2, n), dtype=np.uint8)
@@ -434,14 +434,19 @@ def test_w4a16_wgmma_matches_plain_on_card(cuda_device, m, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('regime', ROUTES)
+@pytest.mark.parametrize('group,regime', [(128, 'splitk'), (128, 'tiles'),
+                                          (32, 'splitk'), (32, 'tiles')])
 @pytest.mark.parametrize('m', [1, 16, 40, 64, 128])
-def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, regime):
-    """Every route (the decode kernel, wgmma's splitk and tiles) at the M
-    where the crossover is measured, whichever the wrapper would pick, and
-    each twice (deterministic)."""
+def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, group,
+                                              regime):
+    """Both routes at group 128 (stage pieces) and 32 (the step form) at
+    M = 1 to 128, whichever the wrapper would pick, and each twice
+    (deterministic)."""
     rng = np.random.default_rng(300 + m)
-    args = _gemm_args(rng, m, 4096, 1024, cuda_device)
+    x, packed, scales = _gemm_case(rng, m, 4096, 1024, group=group)
+    args = (torch.from_numpy(x).to(cuda_device),
+            torch.from_numpy(packed).to(cuda_device),
+            torch.from_numpy(scales).to(torch.bfloat16).to(cuda_device), 1)
     got = w4a16_gemm_route(*args, regime)
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
@@ -453,14 +458,18 @@ def test_w4a16_both_regimes_at_crossover_rows(cuda_device, m, regime):
 @pytest.mark.parametrize('k', [4096, 11008])
 @pytest.mark.parametrize('m', [1, 5, 8])
 def test_w4a16_decode_is_bit_identical_across_calls(cuda_device, m, k):
-    """The decode regime splits K over 8 (K = 4096) or 22 (K = 11008)
-    blocks and sums their partials in a fixed order: ten calls give the
-    same bits, as the JAX kernel's sequential K loop does."""
+    """The decode steps' rows at group 32 (the step form) on the route
+    the wrapper picks (splitk: N = 4096 splits K four ways and sums the
+    partials in split order): ten calls give the same bits, as the JAX
+    kernel's sequential K loop does."""
     rng = np.random.default_rng(500 + m + k)
-    args = _gemm_args(rng, m, k, 4096, cuda_device)
-    first = w4a16_gemm_route(*args, 'decode')
+    x, packed, scales = _gemm_case(rng, m, k, 4096, group=32)
+    args = (torch.from_numpy(x).to(cuda_device),
+            torch.from_numpy(packed).to(cuda_device),
+            torch.from_numpy(scales).to(torch.bfloat16).to(cuda_device), 1)
+    first = w4a16_gemm(*args)
     for _ in range(9):
-        assert torch.equal(first, w4a16_gemm_route(*args, 'decode'))
+        assert torch.equal(first, w4a16_gemm(*args))
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
     assert (first - want).abs().max().item() <= tol
@@ -503,17 +512,17 @@ def test_w4a16_forced_route_matches_plain_on_card(cuda_device, m, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('group,route', [(64, 'splitk'), (64, 'decode'),
-                                         (32, 'decode')])
+@pytest.mark.parametrize('group,route', [(64, 'splitk'), (64, 'tiles'),
+                                         (32, 'splitk'), (32, 'tiles'),
+                                         (16, 'splitk')])
 @pytest.mark.parametrize('m', [1, 40, 200])
 def test_w4a16_other_groups_are_bit_identical_across_calls(cuda_device, m,
                                                            group, route):
-    """At group 64 route splitk (its splits' partials summed in split
-    order) and at groups 64 and 32 the decode route in its slabs of M (its
-    K splits summed in index order) give the same bits on two launches,
-    so that a seed still gives one sampled stream at every group; each
-    within 1e-3 of the plain version.  (Route splitk is the wgmma
-    kernel's, which takes groups that are multiples of 64.)"""
+    """At groups 64 (stage pieces), 32 and 16 (the step form), route
+    splitk (its splits' partials summed in split order) and route tiles
+    give the same bits on two launches, so that a seed still gives one
+    sampled stream at every group; each within 1e-3 of the plain
+    version."""
     rng = np.random.default_rng(1000 + m + group)
     x, packed, scales = _gemm_case(rng, m, 4096, 1024, group=group)
     args = (torch.from_numpy(x).to(cuda_device),
@@ -540,10 +549,9 @@ def test_w4a16_plan_mirrors_the_kernel_on_card(cuda_device):
 @pytest.mark.cuda
 def test_w4a16_route_counts_on_card(cuda_device):
     """Every launch counts under the kernel, the wgmma regime and the
-    route gemm_route picks from the shapes: at group 128 no M takes the
-    decode route; a 4096 x 4096 projection takes splitk up to the 64
-    bucket (its 32 column tiles would leave the card idle) and tiles at
-    512."""
+    route gemm_route picks from the shapes: a 4096 x 4096 projection
+    takes splitk up to the 64 bucket (its 32 column tiles would leave the
+    card idle) and tiles at 512."""
     import lmdeploy_tpu_torch.ops.cuda as K
     rng = np.random.default_rng(900)
     K.reset_launch_counts()
@@ -725,13 +733,13 @@ TP2_GEMMS = ((4096, 6144), (2048, 4096), (4096, 5632), (5632, 4096))
 def test_w4a16_at_tp_rank_shapes_matches_plain_on_card(cuda_device, k, n,
                                                        m):
     """The GEMM at a tp = 2 rank's projections, on the route the wrapper
-    picks for M, and on the decode route at M <= 8."""
+    picks for M, and on both routes forced at M <= 8."""
     rng = np.random.default_rng(k + n + m)
     args = _gemm_args(rng, m, k, n, cuda_device)
     want = w4a16_gemm_plain(*args)
     tol = 1e-3 * want.abs().max().item() + 1e-3
     for got in [w4a16_gemm(*args)] + (
-            [w4a16_gemm_route(*args, 'decode')] if m <= 8 else []):
+            [w4a16_gemm_route(*args, r) for r in ROUTES] if m <= 8 else []):
         assert (got - want).abs().max().item() <= tol
 
 

@@ -17,10 +17,10 @@ Each emulation is held to ``packed_int4_matmul`` (Pallas in interpret
 mode, as the JAX package's own tests run it on the CPU) and to the port's
 plain version on identical numpy inputs, within 1e-3 max|y| + 1e-3, the
 tolerance ``chip_smoke.py`` and the card tests hold the kernel to.  The
-route rule (``gemm_route``: at group 128, as at every multiple of 64,
-every M, the decode steps' M <= 8 too, takes the wgmma regime) and the
-split plan (``splitk_splits``, ``split_range``) are pure functions of
-shapes, tested here at the main path's shapes.
+route rule (``gemm_route``: at every group that is a multiple of 16 and
+every M, the decode steps' M <= 8 too, one of the wgmma kernel's two
+routes) and the split plan (``splitk_splits``, ``split_range``) are pure
+functions of shapes, tested here at the main path's shapes.
 """
 import functools
 
@@ -175,16 +175,20 @@ def test_gemm_route_at_the_verify():
 
 
 def test_gemm_route_keeps_other_groups_on_the_decode_kernel():
-    """A group that is not a multiple of 64 (48, 32) keeps the decode
-    kernel, at every M since it covers M in slabs; groups that are
-    multiples of 64 (64, 128) take the wgmma routes at every M, so at
-    group 128 no M takes the decode kernel."""
+    """The kernel that serves the decode steps is the wgmma kernel at
+    every group (the mma.sync decode kernel the name refers to is gone):
+    groups that are not multiples of 64 (16, 32, 48) take its step form
+    and multiples of 64 (64, 128) its stage pieces, on the wgmma routes at
+    every M, each on the route its split plan gives."""
     for m in (1, 8, 9, 40, 64, 65, 512):
-        assert gemm_route(m, 1536, 256, SMS, group=48) == 'decode'
-        assert gemm_route(m, 1536, 256, SMS, group=32) == 'decode'
-        assert gemm_route(m, 1536, 256, SMS, group=64) != 'decode'
-        assert gemm_route(m, 4096, 4096, SMS, 128) != 'decode'
+        for k, n, group in ((1536, 256, 48), (1536, 256, 32),
+                            (1536, 256, 16), (1536, 256, 64),
+                            (4096, 4096, 128)):
+            route = gemm_route(m, k, n, SMS, group)
+            assert route == ('splitk' if splitk_splits(m, k, n, SMS, group)
+                             > 1 else 'tiles')
     assert gemm_route(1, 4096, 4096, SMS, 128) == 'splitk'
+    assert gemm_route(1, 1536, 256, SMS, 32) == 'splitk'
 
 
 def test_tiles_that_underfill_the_card_split():
@@ -230,14 +234,21 @@ def test_gemm_breakdown_variants_edit_the_kernel_source():
     """chip_smoke.py's opt-in breakdown phase times text-edited copies of
     kernel 1's source: every edit still matches the source (a stale one
     raises), each variant differs from it, no_order and all_order only flip
-    the ping-pong switch, and weight_only keeps no x tile load."""
+    the ping-pong switch, weight_only keeps no x tile load, the step
+    form's three variants each guard or replace one line of it, and
+    steps_runtime sends every step group to the runtime step count."""
     import chip_smoke
     from lmdeploy_tpu_torch.ops.cuda import build
     src = (build.CSRC / 'w4a16_gemm.cu').read_text()
     variants = chip_smoke.gemm_breakdown_variants(src)
     assert variants.pop('full') == src
     assert sorted(variants) == ['all_order', 'loads_only', 'no_abuild',
-                                'no_order', 'no_products', 'weight_only']
+                                'no_order', 'no_products',
+                                'steps_no_abuild', 'steps_no_fold',
+                                'steps_no_products', 'steps_runtime',
+                                'weight_only']
+    for name in ('steps_no_abuild', 'steps_no_fold', 'steps_no_products'):
+        assert len(variants[name].splitlines()) <= len(src.splitlines())
     for text in variants.values():
         assert text != src
     switch = '  constexpr bool kPingPong = BM > 64;'
@@ -246,6 +257,8 @@ def test_gemm_breakdown_variants_edit_the_kernel_source():
             switch, f'  constexpr bool kPingPong = {value};')
     assert '&tm_x, krow' in src and '&tm_x, krow' not in \
         variants['weight_only']
+    assert variants['steps_runtime'] == src.replace(
+        '  switch (group / 16) {', '  switch (0) {')
     with pytest.raises(RuntimeError, match='does not match'):
         chip_smoke.gemm_breakdown_variants(src.replace('kPingPong = BM',
                                                        'kPingPong = M'))
