@@ -92,7 +92,7 @@ class CacheManager {
     s.id = id;
     s.stamp = ++clock_;
     seqs_.emplace(id, std::move(s));
-    trim_locked();
+    trim_locked(id);
   }
 
   bool erase(int64_t id) {
@@ -411,13 +411,16 @@ class CacheManager {
     return true;
   }
 
-  // Bound the session count (cache_max_entry_count).
-  void trim_locked() {
+  // Bound the session count (cache_max_entry_count) by erasing the oldest
+  // inactive sessions; never ``keep``, the session being created (when
+  // every other one is active, the count stays over the bound until some
+  // session is released).
+  void trim_locked(int64_t keep) {
     if (max_entries_ <= 0) return;
     while (static_cast<int32_t>(seqs_.size()) > max_entries_) {
       Sequence* victim = nullptr;
       for (auto& [id, s] : seqs_) {
-        if (s.active) continue;
+        if (s.active || id == keep) continue;
         if (!victim || s.stamp < victim->stamp) victim = &s;
       }
       if (!victim) return;

@@ -60,6 +60,22 @@ codes and stops; it never serves on with fewer ranks.
 The JAX engine's fallback that turns speculation off after a failed
 speculative dispatch (a TPU runtime workaround) is not ported: such a
 failure takes the error path of any failed round.
+
+What the engine thread does is named for the profiler
+(``utils/profiler.py::span``, ranges opened only while a profiler records
+on that thread): ``engine.requests`` (a turn's request handling),
+``engine.admit <session id>`` (one admission; a range's arguments do not
+reach an exported trace, so the id is in its name), ``engine.grow_pages``,
+``engine.decode_dispatch`` and ``engine.emit``.  ``stats`` follows each
+request on the host clock: ``admitted`` / ``queue_wait_s`` (submit to
+admission, the wait for a slot included), ``prefilled`` / ``prefill_s``
+(admission to the end of its prefill job, passes shared with other jobs
+and interleaved decode rounds included), ``first_tokens`` /
+``first_token_s`` (the prefill's end, or the admission without one, to
+the first token emitted).
+``no_free_pages`` counts page shortfalls answered INTERNAL_ERROR (each
+logged), ``redecode_tokens`` the tokens of a session's earlier turns that
+an admission prefills again (its pages evicted from the store).
 """
 from __future__ import annotations
 
@@ -89,6 +105,7 @@ from ..parallel import multihost
 from ..parallel import pp as PP
 from ..parallel import tp as TP
 from ..utils.logger import get_logger
+from ..utils.profiler import span
 
 log = get_logger()
 
@@ -163,6 +180,8 @@ class _Slot:
     done: bool = False
     saw_round: bool = False     # this slot appeared in >= 1 decode round
     max_new: int = 0
+    admit_t: float = 0.0        # time.monotonic() of the admission
+    prefill_end_t: Optional[float] = None   # of its prefill job's end
 
 
 class TorchEngine:
@@ -283,7 +302,10 @@ class TorchEngine:
                       'decode_steps': 0, 'prefill_passes': 0,
                       'spec_rounds': 0, 'spec_emitted': 0,
                       'spec_fallbacks': 0, 'prefix_hit_tokens': 0,
-                      'ring_rounds': 0}
+                      'ring_rounds': 0, 'admitted': 0, 'queue_wait_s': 0.0,
+                      'prefilled': 0, 'prefill_s': 0.0, 'first_tokens': 0,
+                      'first_token_s': 0.0, 'no_free_pages': 0,
+                      'redecode_tokens': 0}
         # adaptive speculative gating: an EMA of accepted tokens per round;
         # below break-even the engine runs plain rounds and re-probes after
         # a cooloff (the JAX engine's constants)
@@ -625,15 +647,17 @@ class TorchEngine:
                         batch.append(self._requests.get_nowait())
                     except queue.Empty:
                         break
-                self._handle_batch(batch)
+                with span('engine.requests'):
+                    self._handle_batch(batch)
             except queue.Empty:
                 pass
             except Exception:
                 log.exception('request handling failed')
             if self._pending and self._free_slot_index() is not None:
-                pending, self._pending = self._pending, []
-                for item in pending:
-                    self._handle_safe(*item)
+                with span('engine.requests'):
+                    pending, self._pending = self._pending, []
+                    for item in pending:
+                        self._handle_safe(*item)
             if self._prefill_jobs:
                 try:
                     self._flush_prefills()
@@ -768,7 +792,7 @@ class TorchEngine:
         seq = self.seqs.create(scratch_id, 0)
         seq.active = True              # shielded from eviction
         try:
-            self.seqs.grow(seq, len(ids))
+            self._grow(seq, len(ids), 0)
             row = self._page_row(seq)
             out = []
             for padded, pos, n in self._iter_chunks(ids, 0):
@@ -819,12 +843,39 @@ class TorchEngine:
             group = self._pick_group()
             slot_idx = None if group is None \
                 else self._free_slot_index(group)
+        if enq_t is None:
+            enq_t = time.monotonic()
         if slot_idx is None:
             # busy engine: wait for a free slot (continuous batching)
-            self._pending.append((req, out_q,
-                                  enq_t if enq_t is not None
-                                  else time.monotonic()))
+            self._pending.append((req, out_q, enq_t))
             return
+        with span(f'engine.admit {req.session_id}'):
+            self._install(req, out_q, enq_t, group, slot_idx)
+
+    def _shortfall(self, seq, tokens: int, group: int) -> None:
+        """Count and log a page shortfall that the engine answers with
+        INTERNAL_ERROR: the session, the pages its ``tokens`` need (of
+        which it holds some) and the pages free in its pool."""
+        self.stats['no_free_pages'] += 1
+        log.warning('no free pages: session %s asks for %d pages (%d '
+                    'tokens; it holds %d), %d free in its pool', seq.seq_id,
+                    -(-tokens // self.ecfg.page_size), tokens,
+                    len(seq.pages), self.seqs.free_count(group))
+
+    def _grow(self, seq, tokens: int, group: int) -> None:
+        """``seqs.grow``; a shortfall is counted and logged
+        (:meth:`_shortfall`), then raised."""
+        try:
+            self.seqs.grow(seq, tokens)
+        except NoFreePages:
+            self._shortfall(seq, tokens, group)
+            raise
+
+    def _install(self, req: EngineRequest, out_q: queue.Queue, enq_t: float,
+                 group: int, slot_idx: int):
+        """Admit ``req`` into free slot ``slot_idx`` of dp group
+        ``group``."""
+        admit_t = time.monotonic()
         self.stats['requests'] += 1
         if req.sequence_start:
             seq = self.seqs.create(req.session_id, group)
@@ -833,8 +884,12 @@ class TorchEngine:
             if req.step and req.step < len(seq.token_ids):
                 # rewind to an earlier step
                 seq.token_ids = seq.token_ids[:req.step]
-                seq.cache_len = self.seqs.prepare_rewrite(
-                    seq, min(seq.cache_len, req.step))
+                try:
+                    seq.cache_len = self.seqs.prepare_rewrite(
+                        seq, min(seq.cache_len, req.step))
+                except NoFreePages:
+                    self._shortfall(seq, req.step, group)
+                    raise
 
         new_ids = list(map(int, req.input_ids))
         # cache-miss re-decode: an evicted sequence prefills again from
@@ -861,8 +916,11 @@ class TorchEngine:
             if hit:
                 self.stats['prefix_hit_tokens'] += hit
 
+        # the earlier turns' tokens that this admission prefills again (all
+        # but their last, which was never in the pool)
+        redecode = max(0, total_len - len(new_ids) - 1 - seq.cache_len)
         seq.active = True
-        self.seqs.grow(seq, total_len)
+        self._grow(seq, total_len, group)
         prefill_ids = all_ids[seq.cache_len:-1] if total_len > 1 else []
         start_pos = seq.cache_len
         hist = np.zeros((self.session_len,), np.int32)
@@ -882,8 +940,11 @@ class TorchEngine:
                      host_single_stops=frozenset(
                          singles[MAX_STOP_BAD_WORDS:]),
                      holdback=max((len(sw) for sw in multi), default=1) - 1,
-                     max_new=max_new)
+                     max_new=max_new, admit_t=admit_t)
         self.slots[slot_idx] = slot
+        self.stats['admitted'] += 1
+        self.stats['queue_wait_s'] += admit_t - enq_t
+        self.stats['redecode_tokens'] += redecode
         self._fresh_admission = True
         seq.token_ids = all_ids
         if prefill_ids:
@@ -1016,10 +1077,14 @@ class TorchEngine:
                                         lens_arr)
                 self.stats['prefill_passes'] += 1
             self._interleave_decode()
+        now = time.monotonic()
         for slot_idx, ids, start in jobs:
             slot = self.slots[slot_idx]
             if slot is None or slot.done:
                 continue
+            slot.prefill_end_t = now
+            self.stats['prefilled'] += 1
+            self.stats['prefill_s'] += now - slot.admit_t
             slot.seq.cache_len = start + len(ids)
             slot.prefilling = False
             self.fns.set_active(self.state, slot_idx, True)
@@ -1033,14 +1098,15 @@ class TorchEngine:
     def _grow_pages(self, steps: int = 1):
         """Pages for the next ``steps`` tokens of every running slot."""
         page = self.ecfg.page_size
-        for i, slot in enumerate(self.slots):
-            if slot is None or slot.done or slot.prefilling:
-                continue
-            need = min(slot.context_len + steps, self.session_len)
-            if need > len(slot.seq.pages) * page:
-                self.seqs.grow(slot.seq, need)
-                self.fns.set_page_row(self.state, i,
-                                      self._page_row(slot.seq))
+        with span('engine.grow_pages'):
+            for i, slot in enumerate(self.slots):
+                if slot is None or slot.done or slot.prefilling:
+                    continue
+                need = min(slot.context_len + steps, self.session_len)
+                if need > len(slot.seq.pages) * page:
+                    self._grow(slot.seq, need, i // self.b_local)
+                    self.fns.set_page_row(self.state, i,
+                                          self._page_row(slot.seq))
 
     def _decode_round(self, steps: int):
         """One dispatch of ``steps`` decode steps (or speculative rounds)
@@ -1090,23 +1156,26 @@ class TorchEngine:
         if self._ring_ok:
             self._ring_round(k, mode, topn, passes)
             return
-        self.state, arr = self.fns.decode_steps(
-            self.params, self.cache, self.state, num_steps=k,
-            sampling_mode=mode, topn=topn,
-            passes=passes)                # arr: [5 + 2*topn, k, B]
+        with span('engine.decode_dispatch'):
+            self.state, arr = self.fns.decode_steps(
+                self.params, self.cache, self.state, num_steps=k,
+                sampling_mode=mode, topn=topn,
+                passes=passes)            # arr: [5 + 2*topn, k, B]
         self.stats['decode_steps'] += k
         logprobs = np.ascontiguousarray(arr[2]).view(np.float32)
-        for t in range(k):
-            # the key as of sub-step t: a slot retired at t saves it
-            self._rng_now = np.ascontiguousarray(arr[3:5, t].T).view(
-                np.uint32)
-            tops = None
-            if topn:
-                tops = (arr[5:5 + topn, t].T, np.ascontiguousarray(
-                    arr[5 + topn:5 + 2 * topn, t].T).view(np.float32))
-            self._emit(arr[0, t], arr[1, t], logprobs[t], tops=tops)
-            if not any(s is not None and not s.done for s in self.slots):
-                return
+        with span('engine.emit'):
+            for t in range(k):
+                # the key as of sub-step t: a slot retired at t saves it
+                self._rng_now = np.ascontiguousarray(arr[3:5, t].T).view(
+                    np.uint32)
+                tops = None
+                if topn:
+                    tops = (arr[5:5 + topn, t].T, np.ascontiguousarray(
+                        arr[5 + topn:5 + 2 * topn, t].T).view(np.float32))
+                self._emit(arr[0, t], arr[1, t], logprobs[t], tops=tops)
+                if not any(s is not None and not s.done
+                           for s in self.slots):
+                    return
 
     def _ring_round(self, k: int, mode: str, topn: int, passes):
         """One dispatch of up to ``k`` rounds on the pipeline's microbatch
@@ -1125,34 +1194,36 @@ class TorchEngine:
         k = max(1, min([k] + [s.max_new - s.generated for _, s in run]))
         k = 1 << (k.bit_length() - 1)
         self._grow_pages(k)
-        self.state, pk = self.fns.decode_rounds_sampled(
-            self.params, self.cache, self.state, rounds=k,
-            sampling_mode=mode, topn=topn, passes=passes)
+        with span('engine.decode_dispatch'):
+            self.state, pk = self.fns.decode_rounds_sampled(
+                self.params, self.cache, self.state, rounds=k,
+                sampling_mode=mode, topn=topn, passes=passes)
         # pk: [4 + 2*topn, k, B]
         lps = np.ascontiguousarray(pk[1]).view(np.float32)
         self.stats['ring_rounds'] += k
-        fin = np.zeros((pk.shape[2],), np.int32)
-        eos = self.cfg.end_id
-        for t in range(k):
-            # the key as of round t: a slot retired at t saves it
-            self._rng_now = np.ascontiguousarray(pk[2:4, t].T).view(
-                np.uint32)
-            fin[:] = 0
-            for i, s in run:
-                if s.done:
-                    continue
-                tok = int(pk[0, t, i])
-                if (tok == eos and not s.request.gen_config.ignore_eos) \
-                        or tok in s.single_stops \
-                        or s.generated + 1 >= s.max_new:
-                    fin[i] = 1
-            tops = None
-            if topn:
-                tops = (pk[4:4 + topn, t].T, np.ascontiguousarray(
-                    pk[4 + topn:4 + 2 * topn, t].T).view(np.float32))
-            self._emit(pk[0, t], fin, lps[t], tops=tops)
-            if not any(s is not None and not s.done for s in self.slots):
-                return
+        with span('engine.emit'):
+            fin = np.zeros((pk.shape[2],), np.int32)
+            eos = self.cfg.end_id
+            for t in range(k):
+                # the key as of round t: a slot retired at t saves it
+                self._rng_now = np.ascontiguousarray(pk[2:4, t].T).view(
+                    np.uint32)
+                fin[:] = 0
+                for i, s in run:
+                    if s.done:
+                        continue
+                    tok = int(pk[0, t, i])
+                    if (tok == eos and not s.request.gen_config.ignore_eos) \
+                            or tok in s.single_stops \
+                            or s.generated + 1 >= s.max_new:
+                        fin[i] = 1
+                tops = None
+                if topn:
+                    tops = (pk[4:4 + topn, t].T, np.ascontiguousarray(
+                        pk[4 + topn:4 + 2 * topn, t].T).view(np.float32))
+                self._emit(pk[0, t], fin, lps[t], tops=tops)
+                if not any(s is not None and not s.done for s in self.slots):
+                    return
 
     def _spec_round(self, rounds: int, sampling: str, topn: int,
                     passes):
@@ -1166,11 +1237,12 @@ class TorchEngine:
         kp1 = self.ecfg.speculative_k + 1
         self._grow_pages(rounds * kp1)
         # arr: [R, 3*kp1 + 3 + 2*kp1*topn, B]
-        self.state, arr = self.fns.spec_decode_rounds(
-            self.params, self.cache, self.state, num_rounds=rounds,
-            k_draft=kp1 - 1, ngram=self.ecfg.speculative_ngram,
-            ngram_min=self.ecfg.speculative_ngram_min, sampling=sampling,
-            topn=topn, passes=passes)
+        with span('engine.decode_dispatch'):
+            self.state, arr = self.fns.spec_decode_rounds(
+                self.params, self.cache, self.state, num_rounds=rounds,
+                k_draft=kp1 - 1, ngram=self.ecfg.speculative_ngram,
+                ngram_min=self.ecfg.speculative_ngram_min, sampling=sampling,
+                topn=topn, passes=passes)
         emitted = arr[:, 2 * kp1]                           # [R, B]
         if int((emitted.sum(axis=1) > 0).sum()) >= 8:
             acc = float(emitted.sum() / max((emitted > 0).sum(), 1))
@@ -1179,33 +1251,34 @@ class TorchEngine:
                 else 0.7 * ema + 0.3 * acc
             if self._spec_accept_ema < self.SPEC_MIN_ACCEPT:
                 self._spec_cooloff = self.SPEC_COOLOFF_DISPATCHES
-        base = 3 * kp1 + 3
-        for r in range(arr.shape[0]):
-            g, fin, n = arr[r, :kp1], arr[r, kp1:2 * kp1], arr[r, 2 * kp1]
-            logp = np.ascontiguousarray(
-                arr[r, 2 * kp1 + 1:3 * kp1 + 1]).view(np.float32)
-            # keys advance once per round: a slot retired in round r saves
-            # the key as of round r
-            self._rng_now = np.ascontiguousarray(
-                arr[r, 3 * kp1 + 1:3 * kp1 + 3].T).view(np.uint32)
-            # rounds up to the one in which the last running slot finished
-            # (the device runs the dispatch's rest masked)
-            self.stats['spec_rounds'] += 1
-            self.stats['spec_emitted'] += int(n.sum())
-            for t in range(kp1):
-                mask = t < n
-                if not mask.any():
-                    break
-                tops = None
-                if topn:
-                    at = base + t * topn
-                    tops = (arr[r, at:at + topn].T, np.ascontiguousarray(
-                        arr[r, at + kp1 * topn:at + kp1 * topn + topn].T)
-                        .view(np.float32))
-                self._emit(g[t], fin[t], logp[t], mask=mask, tops=tops)
-                if not any(s is not None and not s.done
-                           for s in self.slots):
-                    return
+        with span('engine.emit'):
+            base = 3 * kp1 + 3
+            for r in range(arr.shape[0]):
+                g, fin, n = arr[r, :kp1], arr[r, kp1:2 * kp1], arr[r, 2 * kp1]
+                logp = np.ascontiguousarray(
+                    arr[r, 2 * kp1 + 1:3 * kp1 + 1]).view(np.float32)
+                # keys advance once per round: a slot retired in round r saves
+                # the key as of round r
+                self._rng_now = np.ascontiguousarray(
+                    arr[r, 3 * kp1 + 1:3 * kp1 + 3].T).view(np.uint32)
+                # rounds up to the one in which the last running slot finished
+                # (the device runs the dispatch's rest masked)
+                self.stats['spec_rounds'] += 1
+                self.stats['spec_emitted'] += int(n.sum())
+                for t in range(kp1):
+                    mask = t < n
+                    if not mask.any():
+                        break
+                    tops = None
+                    if topn:
+                        at = base + t * topn
+                        tops = (arr[r, at:at + topn].T, np.ascontiguousarray(
+                            arr[r, at + kp1 * topn:at + kp1 * topn + topn].T)
+                            .view(np.float32))
+                    self._emit(g[t], fin[t], logp[t], mask=mask, tops=tops)
+                    if not any(s is not None and not s.done
+                               for s in self.slots):
+                        return
 
     def _emit(self, toks_np: np.ndarray, fin_np: np.ndarray,
               logprobs_np: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -1213,6 +1286,7 @@ class TorchEngine:
         """Stream one token to every running slot (those of ``mask``
         only): stop sequences and the holdback of a possible stop prefix
         on the host, logprobs and the top-N dicts where requested."""
+        now = None
         for i, slot in enumerate(self.slots):
             if slot is None or slot.done or slot.prefilling:
                 continue
@@ -1231,6 +1305,12 @@ class TorchEngine:
                     int(tid): float(tlp)
                     for tid, tlp in zip(tops[0][i, :n], tops[1][i, :n])})
             slot.generated += 1
+            if slot.generated == 1:
+                now = time.monotonic() if now is None else now
+                self.stats['first_tokens'] += 1
+                self.stats['first_token_s'] += now - (
+                    slot.admit_t if slot.prefill_end_t is None
+                    else slot.prefill_end_t)
             slot.context_len += 1
             slot.seq.token_ids.append(tok)
             slot.seq.cache_len = slot.context_len

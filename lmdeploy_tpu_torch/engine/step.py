@@ -10,6 +10,13 @@ the host reads one packed int32 tensor per dispatch ([5 + 2*topn, k, B]
 for decode, [R, 3(K+1)+3 + 2(K+1)*topn, B] for speculative rounds).  The
 JAX functions return new arrays; here the forward updates the KV pool and
 the slot-surgery helpers update the state tensors in place.
+
+Each decode step's host work sits in three spans (``utils/profiler.py::
+span``): ``step.forward`` (the model), ``step.sampler`` (the vocabulary
+mask and ``sample_step``) and ``step.update`` (the slots' state, and the
+stacking of the readback planes); :class:`StepFns` sums the first two
+into ``host_s['step.forward']`` / ``['step.sampler']`` and a prefill
+dispatch into ``host_s['step.prefill_issue']``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from ..ops.sampling import (SamplingState, check_stop, greedy_tops,
                             sample_step)
 from ..ops.speculative import (ngram_propose, repeat_rows,
                                spec_verify_sample)
+from ..utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -69,7 +77,8 @@ def init_decode_state(batch: int, max_pages: int, hist_len: int,
 def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
                 cfg: ModelConfig, *, sampling_mode: str = 'greedy',
                 topn: int = 0, passes: Optional[Tuple[bool, bool]] = None,
-                forward_fn: Callable = forward):
+                forward_fn: Callable = forward,
+                host_s: Optional[Dict[str, float]] = None):
     """One generation step for every running slot.
 
     ``forward_fn`` has the signature of ``models/llama.py::forward`` and
@@ -80,37 +89,44 @@ def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
 
     ``sampling_mode`` ('greedy' / 'candidates' / 'full'), ``topn`` and
     ``passes`` are chosen by the host (ops/sampling.py::sample_step).
+    ``host_s``: a dict whose ``step.forward`` and ``step.sampler``
+    entries gain the host seconds of the step's forward and sampler.
     Returns (new_state, sampled_tokens [B], finished [B], logprob [B],
     tops), tops = (top ids [B, topn], top logprobs [B, topn]) or None."""
-    run = state.active & ~state.finished
-    batch = StepBatch(ids=state.tokens[:, None],
-                      positions=state.context_len[:, None],
-                      valid=run[:, None],
-                      context_len=state.context_len + 1,
-                      page_table=state.page_table)
-    logits, _ = forward_fn(params, cache, batch, cfg)
-    logits = mask_vocab_padding(logits, cfg.vocab_size)
+    with span('step.forward', host_s):
+        run = state.active & ~state.finished
+        batch = StepBatch(ids=state.tokens[:, None],
+                          positions=state.context_len[:, None],
+                          valid=run[:, None],
+                          context_len=state.context_len + 1,
+                          page_table=state.page_table)
+        logits, _ = forward_fn(params, cache, batch, cfg)
     smp = state.sampling
-    sampled = sample_step(logits, smp, state.history, state.history_len,
-                          state.generated, mode=sampling_mode, topn=topn,
-                          passes=passes)
-    new_tok, new_keys, logprob = sampled[:3]
-    new_tok = torch.where(run, new_tok, state.tokens)
-    inc = run.to(torch.int32)
-    generated = state.generated + inc
-    finished = state.finished | (check_stop(new_tok, smp, generated) & run)
-    b, cap = state.history.shape
-    rows = torch.arange(b, device=new_tok.device)
-    cols = torch.clamp(state.history_len.long(), max=cap - 1)
-    write = run & (state.history_len < cap)   # a full row drops the write
-    history = state.history.clone()
-    history[rows, cols] = torch.where(write, new_tok, history[rows, cols])
-    sampling = dataclasses.replace(
-        smp, rng_key=torch.where(run[:, None], new_keys, smp.rng_key))
-    new_state = dataclasses.replace(
-        state, tokens=new_tok, context_len=state.context_len + inc,
-        history=history, history_len=state.history_len + inc,
-        generated=generated, finished=finished, sampling=sampling)
+    with span('step.sampler', host_s):
+        logits = mask_vocab_padding(logits, cfg.vocab_size)
+        sampled = sample_step(logits, smp, state.history, state.history_len,
+                              state.generated, mode=sampling_mode, topn=topn,
+                              passes=passes)
+    with span('step.update'):
+        new_tok, new_keys, logprob = sampled[:3]
+        new_tok = torch.where(run, new_tok, state.tokens)
+        inc = run.to(torch.int32)
+        generated = state.generated + inc
+        finished = state.finished | (check_stop(new_tok, smp, generated)
+                                     & run)
+        b, cap = state.history.shape
+        rows = torch.arange(b, device=new_tok.device)
+        cols = torch.clamp(state.history_len.long(), max=cap - 1)
+        write = run & (state.history_len < cap)   # a full row drops it
+        history = state.history.clone()
+        history[rows, cols] = torch.where(write, new_tok,
+                                          history[rows, cols])
+        sampling = dataclasses.replace(
+            smp, rng_key=torch.where(run[:, None], new_keys, smp.rng_key))
+        new_state = dataclasses.replace(
+            state, tokens=new_tok, context_len=state.context_len + inc,
+            history=history, history_len=state.history_len + inc,
+            generated=generated, finished=finished, sampling=sampling)
     return (new_state, new_tok, finished, logprob,
             sampled[3] if topn > 0 else None)
 
@@ -123,34 +139,38 @@ def decode_steps(params, cache: KVCache, state: DecodeState,
                  cfg: ModelConfig, *, num_steps: int,
                  sampling_mode: str = 'greedy', topn: int = 0,
                  passes: Optional[Tuple[bool, bool]] = None,
-                 forward_fn: Callable = forward):
+                 forward_fn: Callable = forward,
+                 host_s: Optional[Dict[str, float]] = None):
     """``num_steps`` generation steps; the host reads ONE packed tensor.
 
     Returns (state, packed int32 [5 + 2*topn, k, B], logprobs f32 [k, B]);
     packed rows: tokens, finished, logprob f32 bits, rng word 0, rng word 1
     (the key after each sub-step, so the host can save a slot's key as of
     the sub-step it stopped), then with ``topn`` > 0 the top-N alternative
-    ids and their logprob f32 bits, one row per rank."""
+    ids and their logprob f32 bits, one row per rank.  ``host_s``: as in
+    :func:`decode_step`, summed over the steps."""
     toks, fins, lps, rngs, tops = [], [], [], [], []
     for _ in range(num_steps):
         state, tok, fin, lp, top = decode_step(
             params, cache, state, cfg, sampling_mode=sampling_mode,
-            topn=topn, passes=passes, forward_fn=forward_fn)
+            topn=topn, passes=passes, forward_fn=forward_fn, host_s=host_s)
         toks.append(tok)
         fins.append(fin.to(torch.int32))
         lps.append(lp)
         rngs.append(state.sampling.rng_key)
         tops.append(top)
-    logprobs = torch.stack(lps)                              # [k, B]
-    rng = torch.stack(rngs).to(torch.int32)                  # [k, B, 2]
-    planes = [torch.stack(toks), torch.stack(fins), _f32_bits(logprobs),
-              rng[..., 0], rng[..., 1]]
-    if topn > 0:
-        tid = torch.stack([t[0] for t in tops])              # [k, B, topn]
-        tlp = torch.stack([t[1] for t in tops])
-        planes += list(tid.permute(2, 0, 1))
-        planes += list(_f32_bits(tlp).permute(2, 0, 1))
-    return state, torch.stack(planes), logprobs
+    with span('step.update'):
+        logprobs = torch.stack(lps)                          # [k, B]
+        rng = torch.stack(rngs).to(torch.int32)              # [k, B, 2]
+        planes = [torch.stack(toks), torch.stack(fins), _f32_bits(logprobs),
+                  rng[..., 0], rng[..., 1]]
+        if topn > 0:
+            tid = torch.stack([t[0] for t in tops])          # [k, B, topn]
+            tlp = torch.stack([t[1] for t in tops])
+            planes += list(tid.permute(2, 0, 1))
+            planes += list(_f32_bits(tlp).permute(2, 0, 1))
+        packed = torch.stack(planes)
+    return state, packed, logprobs
 
 
 def spec_decode_round(params, cache: KVCache, state: DecodeState,
@@ -395,8 +415,11 @@ class StepFns:
         # the jobs of each GPipe prefill pass this rank ran (PPStepFns)
         self.prefill_jobs: List[int] = []
         # host seconds of the rounds' dispatches: issuing them, then
-        # waiting for their readback (the device, and the other ranks)
-        self.host_s = {'issue': 0.0, 'wait': 0.0}
+        # waiting for their readback (the device, and the other ranks);
+        # of the plain decode steps' issue, the model forward and the
+        # sampler; issuing the prefill passes
+        self.host_s = {'issue': 0.0, 'wait': 0.0, 'step.forward': 0.0,
+                       'step.sampler': 0.0, 'step.prefill_issue': 0.0}
 
     @property
     def dp_rank(self) -> int:
@@ -415,7 +438,8 @@ class StepFns:
         """The packed readback, batch last, over every group's slots, of a
         dispatch issued from ``t0`` (perf_counter) until now."""
         t1 = time.perf_counter()
-        arr = packed.cpu().numpy()
+        with span('step.readback'):
+            arr = packed.cpu().numpy()
         self.host_s['issue'] += t1 - t0
         self.host_s['wait'] += time.perf_counter() - t1
         self._hash.update(arr.tobytes())
@@ -443,10 +467,15 @@ class StepFns:
         """:func:`decode_steps`; returns (state, packed [5 + 2*topn, k, B])
         as a host array."""
         t0 = time.perf_counter()
+        parts = {'step.forward': 0.0, 'step.sampler': 0.0}
         state, packed, _ = decode_steps(
             params, cache, state, self.cfg, num_steps=num_steps,
             sampling_mode=sampling_mode, topn=topn, passes=passes,
-            forward_fn=self.forward_fn)
+            forward_fn=self.forward_fn, host_s=parts)
+        # added with the dispatch's issue, so that a reader of host_s
+        # between two dispatches finds the parts within the whole
+        for key, s in parts.items():
+            self.host_s[key] += s
         return state, self._readback(packed, t0)
 
     def spec_decode_rounds(self, params, cache, state, num_rounds: int,
@@ -484,10 +513,11 @@ class StepFns:
                        lengths) -> None:
         """:func:`prefill_chunks` over this group's rows of the pass (host
         arrays; padding rows have length 0)."""
-        rows = self._group_rows(slots, ids, start_pos, lengths)
-        if rows is not None:
-            prefill_chunks(params, cache, state, *rows, self.cfg,
-                           forward_fn=self.forward_fn)
+        with span('step.prefill_issue', self.host_s):
+            rows = self._group_rows(slots, ids, start_pos, lengths)
+            if rows is not None:
+                prefill_chunks(params, cache, state, *rows, self.cfg,
+                               forward_fn=self.forward_fn)
 
     def prefill_logits(self, params, cache, page_row, ids, start_pos: int,
                        length: int) -> Optional[torch.Tensor]:

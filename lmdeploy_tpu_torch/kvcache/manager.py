@@ -15,6 +15,12 @@ LlamaCacheManager.cc) rebuilt around pages instead of per-sequence slabs:
   cache-miss path, LlamaBatch.cc:680-699).  Per-sequence RNG key data is
   snapshotted here exactly like the reference snapshots curand state
   (LlamaBatch.cc:363-377,1097-1108) — with JAX keys it is just two uint32s.
+  Deliberate difference: ``cache_max_entry_count`` trims the oldest
+  inactive sessions but never the one being created.  The JAX store
+  erases it when every other session is active (a batch larger than the
+  bound, or the prompt-logits scratch session beside a full batch of that
+  size), and its first growth then fails; here the count stays over the
+  bound until a session is released.
 
 Beyond-reference: **cross-session prefix caching** (vLLM-style automatic
 prefix caching; the reference only reuses KV within one interactive
@@ -147,7 +153,7 @@ class SequenceManager:
         seq = Sequence(seq_id=seq_id, timestamp=time.monotonic())
         with self._lock:
             self._seqs[seq_id] = seq
-        self._maybe_trim()
+        self._maybe_trim(keep=seq_id)
         return seq
 
     def fetch(self, seq_id: int) -> Optional[Sequence]:
@@ -231,12 +237,16 @@ class SequenceManager:
         self._deref_locked(ent.page)
         return True
 
-    def _maybe_trim(self) -> None:
-        """Bound the number of cached sessions (cache_max_entry_count)."""
+    def _maybe_trim(self, keep: int) -> None:
+        """Bound the number of cached sessions (cache_max_entry_count) by
+        dropping the oldest inactive ones; never ``keep``, the session
+        being created (when every other one is active, the count stays
+        over the bound until some session is released)."""
         if not self.max_entries:
             return
         with self._lock:
-            inactive = [s for s in self._seqs.values() if not s.active]
+            inactive = [s for s in self._seqs.values()
+                        if not s.active and s.seq_id != keep]
             excess = len(self._seqs) - self.max_entries
             if excess <= 0:
                 return

@@ -35,6 +35,13 @@ with per-head qparams), gathers and dequantises the layer's pages
 
 :func:`forward_layers` takes an optional calibration ``hook`` (see there).
 
+Profiler ranges (``utils/profiler.py::span``, opened only while torch's
+profiler records on the calling thread): ``llama.embed``, ``llama.rope``
+(the step's rope tables), per layer ``llama.attn`` (norm, wqkv, rope,
+attention with the KV write, wo and its residual add) and ``llama.ffn``
+(norm, w1 / w3, the activation, w2 and its residual add), then
+``llama.lm_head`` (final norm, lm_head, the vocab gather).
+
 Golden-file debugging (``utils/debug.py``, ``LMDEPLOY_TPU_DEBUG=dump|cmp``)
 records ``layer_out`` (the residual stream after each layer's FFN add, in
 layer order) and ``logits`` (after the vocab gather), where the JAX
@@ -72,6 +79,7 @@ from ..ops.linear import (PackedInt4Weight, QuantizedWeight, linear,
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_qk, rope_tables
 from ..utils.debug import dbg
+from ..utils.profiler import span
 
 
 def fused_attn_enabled() -> bool:
@@ -223,7 +231,8 @@ def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig, tp: int = 1):
 
 def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
     """[B, T] -> [B, T, D] embedding lookup."""
-    return params['tok_embedding'][ids.long()]
+    with span('llama.embed'):
+        return params['tok_embedding'][ids.long()]
 
 
 def _layer_linear(x: torch.Tensor, w, layer: int,
@@ -276,17 +285,6 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
     b, t = batch.ids.shape
     dh = cfg.size_per_head
     tp = 1 if group is None else dist.get_world_size(group)
-    tables = rope_tables(
-        batch.positions, batch.context_len,
-        rotary_dim=cfg.rotary_embedding, base=cfg.rope_theta,
-        max_position_embeddings=cfg.max_position_embeddings,
-        use_dynamic_ntk=cfg.use_dynamic_ntk,
-        use_logn_attn=cfg.use_logn_attn,
-        rope_scaling_type=cfg.rope_scaling_type,
-        rope_scaling_factor=cfg.rope_scaling_factor,
-        rope_original_max=cfg.rope_original_max_position,
-        rope_low_freq_factor=cfg.rope_low_freq_factor,
-        rope_high_freq_factor=cfg.rope_high_freq_factor)
     # static qparams on the device: per-layer [L, 4] rows (the kernels read
     # a row) or per-head [L, 4, KH]
     qp = cache.qparams if cache.quantized else None
@@ -296,87 +294,106 @@ def forward_layers(params: Dict[str, Any], cache: KVCache, batch: StepBatch,
     fused_attn = fused_attn_enabled() and not gather
     fused_rope = (t == 1 and fused_attn and fused_rope_enabled()
                   and hook is None)
-    if fused_rope:
-        cos_f, sin_f = rope_full_tables(tables[0][:, 0], tables[1][:, 0], dh)
-        qscale = (tables[2][:, 0].float() if tables[2] is not None
-                  else torch.ones((b,), dtype=torch.float32, device=h.device))
+    with span('llama.rope'):
+        tables = rope_tables(
+            batch.positions, batch.context_len,
+            rotary_dim=cfg.rotary_embedding, base=cfg.rope_theta,
+            max_position_embeddings=cfg.max_position_embeddings,
+            use_dynamic_ntk=cfg.use_dynamic_ntk,
+            use_logn_attn=cfg.use_logn_attn,
+            rope_scaling_type=cfg.rope_scaling_type,
+            rope_scaling_factor=cfg.rope_scaling_factor,
+            rope_original_max=cfg.rope_original_max_position,
+            rope_low_freq_factor=cfg.rope_low_freq_factor,
+            rope_high_freq_factor=cfg.rope_high_freq_factor)
+        if fused_rope:
+            cos_f, sin_f = rope_full_tables(tables[0][:, 0],
+                                            tables[1][:, 0], dh)
+            qscale = (tables[2][:, 0].float() if tables[2] is not None
+                      else torch.ones((b,), dtype=torch.float32,
+                                      device=h.device))
     lw = params['layers']
     # the layers this rank holds: all of them, or a pipeline stage's
     # (parallel/pp.py); layer indices into the weights and the pool are
     # local to the stage
     for li in range(lw['attn_norm'].shape[0]):
-        bqkv = lw['bqkv'][li] if 'bqkv' in lw else None
-        x = rms_norm(h, lw['attn_norm'][li], cfg.norm_eps)
-        if hook is not None:
-            hook(li, 'attn_in', x)
-        q, k, v = _split_qkv(_layer_linear(x, lw['wqkv'], li, bqkv), cfg,
-                             tp)
-        qp_l = None if qp is None else qp[li]
-        if not fused_rope:
-            q, k = apply_rope_qk(q, k, tables)
+        with span('llama.attn'):
+            bqkv = lw['bqkv'][li] if 'bqkv' in lw else None
+            x = rms_norm(h, lw['attn_norm'][li], cfg.norm_eps)
             if hook is not None:
-                hook(li, 'k', k)
-                hook(li, 'v', v)
-        if fused_rope:
-            # q and k arrive unrotated: rope, append and attend, one kernel
-            o = paged_decode_attention_rope_write(
-                q[:, 0], k[:, 0], v[:, 0], cos_f, sin_f, qscale, cache.k,
-                cache.v, li, batch.page_table, batch.context_len,
-                batch.valid[:, 0], qp_l, half=cfg.rotary_embedding // 2)
-            o = o[:, None]
-        elif t == 1 and fused_attn:
-            o = paged_decode_attention_write(
-                q[:, 0], k[:, 0].contiguous(), v[:, 0].contiguous(),
-                cache.k, cache.v, li, batch.page_table, batch.context_len,
-                batch.valid[:, 0], qp_l)[:, None]
-        elif gather:
-            if cache.dynamic_scales:
-                write_kv_dynamic(cache.k, cache.v, cache.dyn, li, k, v,
-                                 batch.positions, batch.page_table,
-                                 batch.valid)
-                kk, vv = gather_kv_layer_dynamic(
-                    cache.k[li], cache.v[li], cache.dyn[li],
-                    batch.page_table, dtype=q.dtype)
+                hook(li, 'attn_in', x)
+            q, k, v = _split_qkv(_layer_linear(x, lw['wqkv'], li, bqkv),
+                                 cfg, tp)
+            qp_l = None if qp is None else qp[li]
+            if not fused_rope:
+                q, k = apply_rope_qk(q, k, tables)
+                if hook is not None:
+                    hook(li, 'k', k)
+                    hook(li, 'v', v)
+            if fused_rope:
+                # q and k arrive unrotated: rope, append and attend, one
+                # kernel
+                o = paged_decode_attention_rope_write(
+                    q[:, 0], k[:, 0], v[:, 0], cos_f, sin_f, qscale,
+                    cache.k, cache.v, li, batch.page_table,
+                    batch.context_len, batch.valid[:, 0], qp_l,
+                    half=cfg.rotary_embedding // 2)
+                o = o[:, None]
+            elif t == 1 and fused_attn:
+                o = paged_decode_attention_write(
+                    q[:, 0], k[:, 0].contiguous(), v[:, 0].contiguous(),
+                    cache.k, cache.v, li, batch.page_table,
+                    batch.context_len, batch.valid[:, 0], qp_l)[:, None]
+            elif gather:
+                if cache.dynamic_scales:
+                    write_kv_dynamic(cache.k, cache.v, cache.dyn, li, k, v,
+                                     batch.positions, batch.page_table,
+                                     batch.valid)
+                    kk, vv = gather_kv_layer_dynamic(
+                        cache.k[li], cache.v[li], cache.dyn[li],
+                        batch.page_table, dtype=q.dtype)
+                else:
+                    write_kv(cache.k, cache.v, li, k, v, batch.positions,
+                             batch.page_table, batch.valid, qp_l)
+                    kk, vv = gather_kv_layer(cache.k[li], cache.v[li],
+                                             batch.page_table,
+                                             qp_l.unbind(), dtype=q.dtype)
+                o = gqa_attention(q, kk, vv, batch.positions,
+                                  batch.context_len)
             else:
                 write_kv(cache.k, cache.v, li, k, v, batch.positions,
                          batch.page_table, batch.valid, qp_l)
-                kk, vv = gather_kv_layer(cache.k[li], cache.v[li],
-                                         batch.page_table, qp_l.unbind(),
-                                         dtype=q.dtype)
-            o = gqa_attention(q, kk, vv, batch.positions, batch.context_len)
-        else:
-            write_kv(cache.k, cache.v, li, k, v, batch.positions,
-                     batch.page_table, batch.valid, qp_l)
-            if t == 1:
-                o = paged_decode_attention(
-                    q[:, 0], cache.k, cache.v, li, batch.page_table,
-                    batch.context_len, qp_l)[:, None]
-            else:
-                o = paged_prefill_attention(q, cache.k, cache.v, li,
-                                            batch.page_table,
-                                            batch.positions[:, 0],
-                                            batch.context_len, qp_l)
-        o = o.reshape(b, t, -1)
-        if hook is not None:
-            hook(li, 'attn_out', o)
-        o = _layer_linear(o, lw['wo'], li)
-        if group is not None:
-            dist.all_reduce(o, group=group)
-        if 'bo' in lw:
-            o = o + lw['bo'][li]
-        h = h + o
-        x = rms_norm(h, lw['ffn_norm'][li], cfg.norm_eps)
-        if hook is not None:
-            hook(li, 'ffn_in', x)
-        gate = _layer_linear(x, lw['w1'], li)
-        up = _layer_linear(x, lw['w3'], li)
-        act = F.silu(gate.float()).to(up.dtype) * up
-        if hook is not None:
-            hook(li, 'ffn_act', act)
-        f = _layer_linear(act, lw['w2'], li)
-        if group is not None:
-            dist.all_reduce(f, group=group)
-        h = h + f
+                if t == 1:
+                    o = paged_decode_attention(
+                        q[:, 0], cache.k, cache.v, li, batch.page_table,
+                        batch.context_len, qp_l)[:, None]
+                else:
+                    o = paged_prefill_attention(q, cache.k, cache.v, li,
+                                                batch.page_table,
+                                                batch.positions[:, 0],
+                                                batch.context_len, qp_l)
+            o = o.reshape(b, t, -1)
+            if hook is not None:
+                hook(li, 'attn_out', o)
+            o = _layer_linear(o, lw['wo'], li)
+            if group is not None:
+                dist.all_reduce(o, group=group)
+            if 'bo' in lw:
+                o = o + lw['bo'][li]
+            h = h + o
+        with span('llama.ffn'):
+            x = rms_norm(h, lw['ffn_norm'][li], cfg.norm_eps)
+            if hook is not None:
+                hook(li, 'ffn_in', x)
+            gate = _layer_linear(x, lw['w1'], li)
+            up = _layer_linear(x, lw['w3'], li)
+            act = F.silu(gate.float()).to(up.dtype) * up
+            if hook is not None:
+                hook(li, 'ffn_act', act)
+            f = _layer_linear(act, lw['w2'], li)
+            if group is not None:
+                dist.all_reduce(f, group=group)
+            h = h + f
         dbg('layer_out', h)
     return h
 
@@ -404,29 +421,30 @@ def lm_head_logits(params: Dict[str, Any], h_out: torch.Tensor,
     lm_head is each rank's vocab block, in the group's rank order, and the
     logits are gathered: the tp group, or under pp the vocab group of
     every stage's tp ranks (``parallel/pp.py``)."""
-    h_out = rms_norm(h_out, params['norm'], cfg.norm_eps)
-    if return_all_logits and logits_count is not None:
-        h_out = h_out[:, :logits_count]
-    if not return_all_logits:
-        last = torch.clamp(batch.valid.sum(dim=1) - 1, min=0)
-        h_out = h_out[torch.arange(h_out.shape[0], device=h_out.device),
-                      last]
-    lm_head = params.get('lm_head')
-    if lm_head is None:
-        lm_head = params['tok_embedding'].T
-    lead = h_out.shape[:-1]
-    h2 = h_out.reshape(-1, h_out.shape[-1]).to(lm_head.dtype)
-    if h2.is_cuda and h2.dtype != torch.float32:
-        # bf16 product, f32 output (the JAX preferred_element_type)
-        logits = torch.mm(h2, lm_head, out_dtype=torch.float32)
-    else:
-        # the CPU has no bf16 GEMM with an f32 output: the same bf16
-        # values multiplied in f32 (each product exact), f32 logits
-        logits = torch.mm(h2.float(), lm_head.float())
-    logits = logits.reshape(*lead, -1)
-    if group is not None:
-        logits = _gather_logits(logits, group)
-    dbg('logits', logits)
+    with span('llama.lm_head'):
+        h_out = rms_norm(h_out, params['norm'], cfg.norm_eps)
+        if return_all_logits and logits_count is not None:
+            h_out = h_out[:, :logits_count]
+        if not return_all_logits:
+            last = torch.clamp(batch.valid.sum(dim=1) - 1, min=0)
+            h_out = h_out[torch.arange(h_out.shape[0], device=h_out.device),
+                          last]
+        lm_head = params.get('lm_head')
+        if lm_head is None:
+            lm_head = params['tok_embedding'].T
+        lead = h_out.shape[:-1]
+        h2 = h_out.reshape(-1, h_out.shape[-1]).to(lm_head.dtype)
+        if h2.is_cuda and h2.dtype != torch.float32:
+            # bf16 product, f32 output (the JAX preferred_element_type)
+            logits = torch.mm(h2, lm_head, out_dtype=torch.float32)
+        else:
+            # the CPU has no bf16 GEMM with an f32 output: the same bf16
+            # values multiplied in f32 (each product exact), f32 logits
+            logits = torch.mm(h2.float(), lm_head.float())
+        logits = logits.reshape(*lead, -1)
+        if group is not None:
+            logits = _gather_logits(logits, group)
+        dbg('logits', logits)
     return logits
 
 

@@ -24,6 +24,12 @@ the device catches up.  Both passes are the identity on a slot that does
 not enable them, so the decision never changes a result.
 The full-vocabulary oracles ``top_k_mask`` / ``top_p_mask`` /
 ``min_p_mask`` are test references of the JAX package and are not ported.
+
+:func:`sample_step` names its parts for the profiler
+(``utils/profiler.py::span``): ``sampling.penalties`` (ban words, the
+min-length EOS mask, the penalties), ``sampling.filter`` (temperature, the
+candidates' sort, top-k / top-p / min-p) and ``sampling.prng`` (the key
+split and the draw).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiler import span
 from . import prng
 
 NEG_INF = -1e30
@@ -224,17 +231,19 @@ def sample_step(logits, state: SamplingState, history, history_len,
     [B]) and, with ``topn`` > 0, (top ids int32 [B, topn], top logprobs
     f32 [B, topn])."""
     ban, pen = full_vocab_passes(state) if passes is None else passes
-    logits = logits.float()
-    if ban:
-        logits = ban_words(logits, state.bad_words)
-    logits = mask_eos_below_min_len(logits, state.eos_id, generated,
-                                    state.min_new_tokens)
-    if pen:
-        logits = apply_repetition_penalty(
-            logits, history, history_len, state.repetition_penalty,
-            state.presence_penalty, state.frequency_penalty,
-            gen_start=history_len - generated)
-    split = prng.split(state.rng_key)                 # [B, 2, 2]
+    with span('sampling.penalties'):
+        logits = logits.float()
+        if ban:
+            logits = ban_words(logits, state.bad_words)
+        logits = mask_eos_below_min_len(logits, state.eos_id, generated,
+                                        state.min_new_tokens)
+        if pen:
+            logits = apply_repetition_penalty(
+                logits, history, history_len, state.repetition_penalty,
+                state.presence_penalty, state.frequency_penalty,
+                gen_start=history_len - generated)
+    with span('sampling.prng'):
+        split = prng.split(state.rng_key)             # [B, 2, 2]
     new_keys, sample_keys = split[:, 0], split[:, 1]
     if mode == 'greedy':
         # temperature / top-p / min-p cannot change an argmax; the
@@ -246,10 +255,13 @@ def sample_step(logits, state: SamplingState, history, history_len,
         return tokens, new_keys, torch.zeros_like(logits[:, 0])
     if mode not in ('candidates', 'full'):
         raise ValueError(f'unknown sampling mode {mode!r}')
-    lg = logits / torch.clamp(state.temperature, min=1e-5)[:, None]
-    pre_vals, idx = candidates(lg, mode)
-    vals = filter_candidates(pre_vals, state.top_k, state.top_p, state.min_p)
-    tok_c = prng.categorical(sample_keys, vals)       # [B] candidate index
+    with span('sampling.filter'):
+        lg = logits / torch.clamp(state.temperature, min=1e-5)[:, None]
+        pre_vals, idx = candidates(lg, mode)
+        vals = filter_candidates(pre_vals, state.top_k, state.top_p,
+                                 state.min_p)
+    with span('sampling.prng'):
+        tok_c = prng.categorical(sample_keys, vals)   # [B] candidate index
     tokens = _take(idx, tok_c).to(torch.int32)
     if topn > 0:
         f = (torch.clamp(state.temperature, min=1e-5)

@@ -56,6 +56,7 @@ from ..kvcache.paged import KVCache
 from ..models.llama import (StepBatch, embed_tokens, forward_layers,
                             lm_head_logits, mask_vocab_padding)
 from ..ops.sampling import sample_step
+from ..utils.profiler import span
 from . import tp as TP
 
 # ---------------------------------------------------------------------------
@@ -356,13 +357,14 @@ class PPStepFns(StepFns):
         """This group's rows of the pass through the GPipe ring; its
         padding rows (length 0) are dropped first (the JAX ring runs them
         masked), so the ring holds real jobs only."""
-        keep = np.asarray(lengths) > 0
-        rows = self._group_rows(*(np.asarray(a)[keep] for a in (
-            slots, ids, start_pos, lengths)))
-        if rows is not None:
-            self.prefill_jobs.append(len(rows[0]))
-            pp_prefill_chunks_ring(params, cache, state, *rows, self.cfg,
-                                   ranks=self.ranks)
+        with span('step.prefill_issue', self.host_s):
+            keep = np.asarray(lengths) > 0
+            rows = self._group_rows(*(np.asarray(a)[keep] for a in (
+                slots, ids, start_pos, lengths)))
+            if rows is not None:
+                self.prefill_jobs.append(len(rows[0]))
+                pp_prefill_chunks_ring(params, cache, state, *rows,
+                                       self.cfg, ranks=self.ranks)
 
     def decode_rounds_sampled(self, params, cache, state, rounds: int,
                               sampling_mode: str = 'candidates',

@@ -449,8 +449,12 @@ async def generate(engine: AsyncEngine, body, remote=None,
                                  finish_reason=finish).model_dump()
 
 
+# the JAX server's counters, then the port engine's request lifecycle
+# and page shortfalls (engine/engine.py)
 COUNTERS = {'requests', 'finished', 'canceled', 'errors', 'rejected',
-            'timeout', 'generated_tokens'}
+            'timeout', 'generated_tokens', 'admitted', 'queue_wait_s',
+            'prefilled', 'prefill_s', 'first_tokens', 'first_token_s',
+            'no_free_pages', 'redecode_tokens'}
 
 
 async def metrics(engine: AsyncEngine, body=None, remote=None,

@@ -202,6 +202,56 @@ def test_cancel_ends_the_stream(port_engine):
     assert len(last.token_ids) < 100
 
 
+def test_request_timeout():
+    """tests/test_engine.py::test_request_timeout on the port: a request
+    that waits for the only slot past request_timeout gets TIMEOUT.  The
+    timeout is set once request 1 holds the slot (a loaded host can take
+    longer than it to pick up request 1 itself); request 1's 120 tokens
+    outlast it.  Only request 1 was admitted, so queue_wait_s is its wait,
+    which ended before its first frame."""
+    timeout = 0.001
+    eng = TorchEngine(ModelConfig(**CFG), EngineConfig(**dict(
+        ECFG, max_batch_size=1, step_length=1)),
+        params_from_numpy(to_numpy(jax_int4_params()), 'cpu'), device='cpu')
+    try:
+        inst = eng.create_instance()
+        results, first = {}, threading.Event()
+
+        def run(sid, n, streamed=None):
+            outs = []
+            for out in inst.stream_infer(sid, [1, 2, 3], greedy(n),
+                                         sequence_end=True):
+                outs.append(out)
+                if streamed is not None:
+                    streamed.set()
+            assert outs[-1].finished
+            results[sid] = outs[-1].status
+
+        t_sent = time.monotonic()
+        t1 = threading.Thread(target=run, args=(1, 120, first))
+        t1.start()
+        assert first.wait(120)
+        waited = time.monotonic() - t_sent
+        eng.ecfg.request_timeout = timeout
+        t2 = threading.Thread(target=run, args=(2, 4))
+        t2.start()
+        deadline = time.monotonic() + 60
+        while not eng._pending and 2 not in results:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        t0 = time.monotonic()
+        t1.join()
+        # the slot came free past request 2's timeout
+        assert time.monotonic() - t0 > timeout
+        t2.join()
+        assert results == {1: ResponseType.FINISH, 2: ResponseType.TIMEOUT}
+        st = eng.metrics()
+        assert st['timeout'] == 1 and st['admitted'] == 1
+        assert 0 < st['queue_wait_s'] < waited
+    finally:
+        eng.shutdown()
+
+
 @pytest.mark.parametrize('kw', [dict(tp=2, pp=2), dict(pp=2),
                                 dict(dp=2, pp=2), dict(quant_policy=8)])
 def test_unported_engine_options_raise(kw):

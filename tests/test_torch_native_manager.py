@@ -121,6 +121,25 @@ def test_native_manager_max_entries_and_rng():
     assert out['native'][2] == [7, 9]
 
 
+def test_create_never_trims_the_session_it_creates():
+    """At the bound with every other session active, a new session stays
+    (the count over the bound) and the next create trims the oldest
+    inactive one; the JAX store erases the new session instead (the
+    port's deliberate difference, kvcache/manager.py)."""
+    for name, m in managers(max_entries=1).items():
+        a = m.create(1)
+        a.active = True
+        b = m.create(2)
+        if name == 'jax':
+            assert 2 not in m
+            continue
+        assert 1 in m and 2 in m, name
+        m.grow(b, 5)
+        m.release(b)
+        m.create(3)
+        assert [i in m for i in (1, 2, 3)] == [True, False, True], name
+
+
 @pytest.mark.parametrize('env,want', [(None, 1), ('0', 0), ('1', 1)])
 def test_engine_uses_native_manager_by_default(monkeypatch, env, want):
     """LMDEPLOY_TPU_NATIVE=0 chooses the Python manager; metrics say which

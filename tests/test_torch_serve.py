@@ -192,17 +192,50 @@ def test_api_server_endpoints_match_jax(engines):
     types_of = [{ln.split()[2]: ln.split()[3] for ln in text.splitlines()
                  if ln.startswith('# TYPE')} for text in (got[10][1],
                                                          want[10][1])]
-    # the JAX server's counters (lmdeploy_tpu/serve/openai/api_server.py)
-    assert tserver.COUNTERS == {'requests', 'finished', 'canceled',
-                                'errors', 'rejected', 'timeout',
-                                'generated_tokens'}
-    counters = {f'lmdeploy_{k}_total' for k in tserver.COUNTERS}
+    # the JAX server's counters (lmdeploy_tpu/serve/openai/api_server.py),
+    # and the port engine's own
+    assert tserver.COUNTERS - PORT_COUNTERS == {
+        'requests', 'finished', 'canceled', 'errors', 'rejected', 'timeout',
+        'generated_tokens'}
+    counters = {f'lmdeploy_{k}_total'
+                for k in tserver.COUNTERS - PORT_COUNTERS}
     shared = types_of[0].keys() & types_of[1].keys()
     assert counters | {'lmdeploy_slots_busy', 'lmdeploy_queue_depth'} \
         <= shared
     assert all(types_of[0][n] == types_of[1][n] for n in shared)
     assert float(next(ln for ln in got[10][1].splitlines() if ln.startswith(
         'lmdeploy_generated_tokens_total ')).split()[1]) > 0
+
+
+PORT_COUNTERS = {'admitted', 'queue_wait_s', 'prefilled', 'prefill_s',
+                 'first_tokens', 'first_token_s', 'no_free_pages',
+                 'redecode_tokens'}
+
+
+def test_metrics_export_the_engines_lifecycle_counters(engines):
+    """/metrics types every lifecycle and shortfall counter of the port's
+    engine as a counter; after a request, admissions and first
+    tokens read at least one and the queue wait more than zero."""
+    port, _ = engines
+    (_, before), (status, _), (_, after) = serve(port, tserver.build_app, [
+        ('GET', '/metrics'),
+        ('POST', '/generate', {'prompt': 'ab%', 'instance_id': 96,
+                               'request_output_len': 3, 'ignore_eos': True,
+                               'sequence_end': True}),
+        ('GET', '/metrics')])
+    assert status == 200
+    values = [{ln.split()[0]: float(ln.split()[1])
+               for ln in text.splitlines() if not ln.startswith('#')}
+              for text in (before, after)]
+    types = {ln.split()[2]: ln.split()[3] for ln in after.splitlines()
+             if ln.startswith('# TYPE')}
+    for k in PORT_COUNTERS:
+        assert types[f'lmdeploy_{k}_total'] == 'counter', k
+    delta = {k: values[1][k] - values[0][k] for k in values[1]}
+    assert delta['lmdeploy_admitted_total'] >= 1
+    assert delta['lmdeploy_first_tokens_total'] >= 1
+    assert delta['lmdeploy_queue_wait_s_total'] > 0
+    assert values[1]['lmdeploy_no_free_pages_total'] == 0
 
 
 COMPLETION = {'model': 'llama', 'prompt': 'once upon%', 'max_tokens': 4,
