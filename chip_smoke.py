@@ -67,7 +67,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
                are solved from the counters and the engine's own step and
                pass counts over two windows, and must be 160/32/0 and
                160/0/32 (GEMM / fused decode attention / prefill attention)
-               on that pool's width, with no plain-version call.  Then two
+               on that pool's width, with no plain-version call.  Every
+               engine of every phase steps eagerly (LAUNCHES counts the
+               kernel wrappers' launches, and a step replayed from CUDA
+               graphs goes through none) but in the bf16 engine's graph
+               replays: a bs1 request of 64 new tokens captures its key,
+               the same request profiled replays every decode step and
+               again eagerly: equal streams, no wrapper launch in the
+               replays, the eager run's kernels but copies.  Then two
                short bs1 requests (32 and 8 new tokens, two windows) on each
                width (int4: quant_policy 8 with static qparams) under the
                defaults, LMDEPLOY_TPU_FUSED_ATTN=0 and
@@ -2379,6 +2386,68 @@ def phase_engine(torch, ctx):
                     ttft_bs1_s=r['ttft'], tok_s_4_concurrent=conc,
                     tok_s_bs1=bs1_tps, peak_mem_gib=mem)
 
+    def graph_replays(eng, inst):
+        """The bf16 engine's plain decode steps as CUDA graphs (the other
+        runs step eagerly, see main): a bs1 request of 64 new tokens warms
+        and captures its key; the same request, profiled, then replays
+        every decode step, and once more with the graphs off.  The two
+        streams are equal; LAUNCHES, which counts the kernel wrappers'
+        launches, gains the prefill pass's alone in the replayed run and
+        L decode attention launches a step in the eager one; the replayed
+        run's kernels are the eager run's, copies aside (a graph's static
+        logits and plane add copies, which may be kernels or memcpys)."""
+        from lmdeploy_tpu_torch.engine.step import StepFns
+        decode = 'paged_decode_attention_write[bf16]'
+
+        def profiled(out):
+            before = (K.launch_counts(True), dict(eng.stats))
+            rows = device_kernels(torch, lambda: run(inst, bs1_prompt, 64,
+                                                     out))
+            after = (K.launch_counts(True), eng.stats)
+            launched = {n: after[0][n][0] - before[0][n][0]
+                        for n in after[0]}
+            steps = {k: after[1][k] - before[1][k]
+                     for k in ('decode_steps', 'graph_steps',
+                               'prefill_passes')}
+            return {name: n for _, n, name in rows}, launched, steps
+        StepFns.graph_ok = ctx['graph_ok']
+        try:
+            run(inst, bs1_prompt, 64, [])
+            out = []
+            graphed = profiled(out)
+        finally:
+            StepFns.graph_ok = ctx['eager_ok']
+            eng.fns.drop_graphs()
+        eager = profiled(out)
+        (g_kern, g_launch, g_steps), (e_kern, e_launch, e_steps) = \
+            graphed, eager
+        steps = g_steps['decode_steps']
+
+        def computing(kern):
+            return {n: c for n, c in kern.items()
+                    if 'copy' not in n.lower() and 'memcpy' not in n.lower()}
+        differ = {n: (computing(g_kern).get(n), computing(e_kern).get(n))
+                  for n in set(computing(g_kern)) | set(computing(e_kern))
+                  if computing(g_kern).get(n) != computing(e_kern).get(n)}
+        if (eng.fns.graph_captures < 1 or out[0]['tokens'] !=
+                out[1]['tokens'] or g_steps != dict(e_steps, graph_steps=steps)
+                or e_steps['graph_steps'] or g_launch[decode]
+                or e_launch[decode] != nl * steps
+                or g_launch['w4a16_gemm'] != 5 * nl * g_steps['prefill_passes']
+                or differ):
+            raise AssertionError(
+                f'graph replays: captures {eng.fns.graph_captures}, passes '
+                f'{g_steps} / {e_steps}, launches of {decode} '
+                f'{g_launch[decode]} / {e_launch[decode]}, w4a16_gemm '
+                f'{g_launch["w4a16_gemm"]} / {e_launch["w4a16_gemm"]}, '
+                f'kernels (replayed, eager) that differ {differ}, streams '
+                f'equal {out[0]["tokens"] == out[1]["tokens"]}')
+        log(f'  graph replays, bf16 pool, bs1 64 new tokens: {steps} decode '
+            f'steps replayed, the eager run\'s {len(computing(e_kern))} '
+            f'kernels but copies; {eng.fns.graph_captures} capture(s)')
+        return dict(steps=steps, captures=eng.fns.graph_captures,
+                    kernels=computing(g_kern))
+
     def short_bs1(eng, inst, width, env, lens=(32, 8), prompt=None):
         """Two bs1 requests under ``env``, of 32 and 8 new tokens, so that
         their two windows separate decode steps from prefill passes: the
@@ -2907,6 +2976,7 @@ def phase_engine(torch, ctx):
         eng, inst = engine()
         log(f'  engine built in {time.monotonic() - t0:.1f} s')
         ctx['engine'] = main_traffic(eng, inst, 'bf16')
+        ctx['engine_graphs'] = graph_replays(eng, inst)
         if ctx.get('profile'):
             profile_bs1(torch, ctx, lambda out: run(inst, bs1_prompt, 64,
                                                     out), eng, passes_of)
@@ -5973,6 +6043,16 @@ def main(argv=None) -> int:
     ctx = {'kernels': {}, 'profile': args.profile, 'parent': args.parent,
            'gate_seeds': tuple(int(v) for v in args.gate_seeds.split(','))}
     t_all = time.monotonic()
+    # the phases solve kernel launches per forward pass from LAUNCHES,
+    # which counts the kernel wrappers' launches; a decode step replayed
+    # from CUDA graphs goes through none, so engines step eagerly here
+    # but in phase_engine's graph_replays
+    from lmdeploy_tpu_torch.engine.step import StepFns
+    ctx['graph_ok'] = StepFns.graph_ok
+
+    def eager_ok(self, cache):
+        return False
+    ctx['eager_ok'] = StepFns.graph_ok = eager_ok
     try:
         for name in PHASES + OPTIONAL_PHASES:
             if name not in phases:
@@ -5982,6 +6062,7 @@ def main(argv=None) -> int:
             globals()[f'phase_{name}'](torch, ctx)
             log(f'== phase {name} ok ({time.monotonic() - t0:.1f} s)')
     finally:
+        StepFns.graph_ok = ctx['graph_ok']
         import shutil
         for root in ctx.get('tmpdirs', []):
             shutil.rmtree(root, ignore_errors=True)

@@ -76,6 +76,8 @@ the first token emitted).
 ``no_free_pages`` counts page shortfalls answered INTERNAL_ERROR (each
 logged), ``redecode_tokens`` the tokens of a session's earlier turns that
 an admission prefills again (its pages evicted from the store).
+``graph_steps`` counts the plain decode steps replayed from CUDA graphs
+and ``graph_captures`` the keys captured (``engine/step.py::StepFns``).
 """
 from __future__ import annotations
 
@@ -305,7 +307,8 @@ class TorchEngine:
                       'ring_rounds': 0, 'admitted': 0, 'queue_wait_s': 0.0,
                       'prefilled': 0, 'prefill_s': 0.0, 'first_tokens': 0,
                       'first_token_s': 0.0, 'no_free_pages': 0,
-                      'redecode_tokens': 0}
+                      'redecode_tokens': 0, 'graph_steps': 0,
+                      'graph_captures': 0}
         # adaptive speculative gating: an EMA of accepted tokens per round;
         # below break-even the engine runs plain rounds and re-probes after
         # a cooloff (the JAX engine's constants)
@@ -574,6 +577,8 @@ class TorchEngine:
         self._shutdown = True
         if self._thread.is_alive():
             self._thread.join(timeout=10)
+        if not self._thread.is_alive():
+            self.fns.drop_graphs()
         if self.ranks is not None:
             self._stop_ranks()
 
@@ -1162,6 +1167,8 @@ class TorchEngine:
                 sampling_mode=mode, topn=topn,
                 passes=passes)            # arr: [5 + 2*topn, k, B]
         self.stats['decode_steps'] += k
+        self.stats['graph_steps'] = self.fns.graph_steps
+        self.stats['graph_captures'] = self.fns.graph_captures
         logprobs = np.ascontiguousarray(arr[2]).view(np.float32)
         with span('engine.emit'):
             for t in range(k):

@@ -8,18 +8,30 @@ as in the JAX package.  The jitted ``lax.scan`` over sub-steps or rounds
 becomes a Python loop; nothing inside a dispatch waits for the device, and
 the host reads one packed int32 tensor per dispatch ([5 + 2*topn, k, B]
 for decode, [R, 3(K+1)+3 + 2(K+1)*topn, B] for speculative rounds).  The
-JAX functions return new arrays; here the forward updates the KV pool and
-the slot-surgery helpers update the state tensors in place.
+JAX functions return new arrays; here the engine's :class:`DecodeState`
+is one set of tensors for its whole life: the plain step
+(:func:`decode_step_into`) and the slot-surgery helpers write into them,
+and :class:`StepFns` copies a speculative round's result back into them.
+
+Since the in-place step's shapes never change, :class:`StepFns` replays a
+plain decode step on the card as two CUDA graphs captured from that same
+step (:meth:`StepFns.graph_ok` says where): ``forward`` (:func:`step_logits`
+into a static logits buffer) and ``sampler`` (:func:`sample_into`: the
+vocabulary mask, ``sample_step``, the state update and the step's readback
+plane).  The kernels and their order are the eager step's; only their
+issue moves from Python to the graph.
 
 Each decode step's host work sits in three spans (``utils/profiler.py::
-span``): ``step.forward`` (the model), ``step.sampler`` (the vocabulary
-mask and ``sample_step``) and ``step.update`` (the slots' state, and the
-stacking of the readback planes); :class:`StepFns` sums the first two
-into ``host_s['step.forward']`` / ``['step.sampler']`` and a prefill
-dispatch into ``host_s['step.prefill_issue']``.
+span``): ``step.forward`` (the model, or the replay of its graph),
+``step.sampler`` (the vocabulary mask and ``sample_step``, or the replay of
+the sampler's graph) and ``step.update`` (the slots' state and the step's
+plane; inside the sampler's graph when replayed); :class:`StepFns` sums
+the first two into ``host_s['step.forward']`` / ``['step.sampler']`` and a
+prefill dispatch into ``host_s['step.prefill_issue']``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -33,14 +45,19 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..kvcache.paged import KVCache, init_cache
-from ..models.llama import StepBatch, forward, mask_vocab_padding
+from ..models.llama import (StepBatch, forward, fused_attn_enabled,
+                            fused_rope_enabled, mask_vocab_padding)
 from ..ops import prng
 from ..ops.cuda.counts import LAUNCHES, PLAIN_CALLS
 from ..ops.sampling import (SamplingState, check_stop, greedy_tops,
                             sample_step)
 from ..ops.speculative import (ngram_propose, repeat_rows,
                                spec_verify_sample)
-from ..utils.profiler import span
+from ..utils import debug
+from ..utils.logger import get_logger
+from ..utils.profiler import recording, span
+
+log = get_logger()
 
 
 @dataclasses.dataclass
@@ -74,12 +91,96 @@ def init_decode_state(batch: int, max_pages: int, hist_len: int,
         sampling=SamplingState.init(batch, device=device, eos_id=eos_id))
 
 
-def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
-                cfg: ModelConfig, *, sampling_mode: str = 'greedy',
+def _f32_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def _tensors(state: DecodeState):
+    """Every tensor of ``state``, its sampling state's included, in field
+    order."""
+    for f in dataclasses.fields(state):
+        if f.name != 'sampling':
+            yield getattr(state, f.name)
+    for f in dataclasses.fields(state.sampling):
+        yield getattr(state.sampling, f.name)
+
+
+def copy_state_(dst: DecodeState, src: DecodeState) -> None:
+    """Write ``src``'s tensors into ``dst``'s, in place (a speculative
+    round's result into the persistent state)."""
+    for a, b in zip(_tensors(dst), _tensors(src)):
+        if a is not b:
+            a.copy_(b)
+
+
+def step_logits(params: Dict[str, Any], cache: KVCache, state: DecodeState,
+                cfg: ModelConfig, forward_fn: Callable = forward
+                ) -> torch.Tensor:
+    """The model half of one decode step: every slot's next-token logits
+    [B, V] (f32); the pool gains each running slot's K/V."""
+    run = state.active & ~state.finished
+    batch = StepBatch(ids=state.tokens[:, None],
+                      positions=state.context_len[:, None],
+                      valid=run[:, None],
+                      context_len=state.context_len + 1,
+                      page_table=state.page_table)
+    logits, _ = forward_fn(params, cache, batch, cfg)
+    return logits
+
+
+def sample_into(logits: torch.Tensor, state: DecodeState, cfg: ModelConfig,
+                plane: torch.Tensor, *, sampling_mode: str = 'greedy',
                 topn: int = 0, passes: Optional[Tuple[bool, bool]] = None,
-                forward_fn: Callable = forward,
-                host_s: Optional[Dict[str, float]] = None):
-    """One generation step for every running slot.
+                host_s: Optional[Dict[str, float]] = None) -> None:
+    """The sampler half of one decode step, in place: sample from
+    ``logits``, advance every running slot of ``state``, and write the
+    step's readback plane ``plane`` int32 [5 + 2*topn, B] (the rows of
+    :func:`decode_steps` at one step).  ``host_s``: as in
+    :func:`decode_step_into`."""
+    run = state.active & ~state.finished
+    smp = state.sampling
+    with span('step.sampler', host_s):
+        logits = mask_vocab_padding(logits, cfg.vocab_size)
+        sampled = sample_step(logits, smp, state.history, state.history_len,
+                              state.generated, mode=sampling_mode, topn=topn,
+                              passes=passes)
+    with span('step.update'):
+        tok = torch.where(run, sampled[0], state.tokens)
+        keys = torch.where(run[:, None], sampled[1], smp.rng_key)
+        inc = run.to(torch.int32)
+        generated = state.generated + inc
+        finished = state.finished | (check_stop(tok, smp, generated) & run)
+        b, cap = state.history.shape
+        rows = torch.arange(b, device=tok.device)
+        cols = torch.clamp(state.history_len.long(), max=cap - 1)
+        write = run & (state.history_len < cap)   # a full row drops it
+        state.history[rows, cols] = torch.where(write, tok,
+                                                state.history[rows, cols])
+        state.tokens.copy_(tok)
+        state.context_len.add_(inc)
+        state.history_len.add_(inc)
+        state.generated.copy_(generated)
+        state.finished.copy_(finished)
+        smp.rng_key.copy_(keys)
+        planes = [tok[None], finished.to(torch.int32)[None],
+                  _f32_bits(sampled[2])[None], keys.T]
+        if topn > 0:
+            tid, tlp = sampled[3]                      # [B, topn]
+            planes += [tid.T, _f32_bits(tlp).T]
+        plane.copy_(torch.cat(planes))
+
+
+def decode_step_into(params: Dict[str, Any], cache: KVCache,
+                     state: DecodeState, cfg: ModelConfig,
+                     plane: torch.Tensor, *, sampling_mode: str = 'greedy',
+                     topn: int = 0,
+                     passes: Optional[Tuple[bool, bool]] = None,
+                     forward_fn: Callable = forward,
+                     host_s: Optional[Dict[str, float]] = None) -> None:
+    """One generation step for every running slot, in place: the engine's
+    eager step, and what :class:`StepFns` captures as CUDA graphs.
+    ``state`` advances, the pool gains the step's K/V, ``plane`` int32
+    [5 + 2*topn, B] receives the step's readback rows.
 
     ``forward_fn`` has the signature of ``models/llama.py::forward`` and
     gives full-vocab logits on every rank (``forward`` over a
@@ -90,49 +191,11 @@ def decode_step(params: Dict[str, Any], cache: KVCache, state: DecodeState,
     ``sampling_mode`` ('greedy' / 'candidates' / 'full'), ``topn`` and
     ``passes`` are chosen by the host (ops/sampling.py::sample_step).
     ``host_s``: a dict whose ``step.forward`` and ``step.sampler``
-    entries gain the host seconds of the step's forward and sampler.
-    Returns (new_state, sampled_tokens [B], finished [B], logprob [B],
-    tops), tops = (top ids [B, topn], top logprobs [B, topn]) or None."""
+    entries gain the host seconds of the step's forward and sampler."""
     with span('step.forward', host_s):
-        run = state.active & ~state.finished
-        batch = StepBatch(ids=state.tokens[:, None],
-                          positions=state.context_len[:, None],
-                          valid=run[:, None],
-                          context_len=state.context_len + 1,
-                          page_table=state.page_table)
-        logits, _ = forward_fn(params, cache, batch, cfg)
-    smp = state.sampling
-    with span('step.sampler', host_s):
-        logits = mask_vocab_padding(logits, cfg.vocab_size)
-        sampled = sample_step(logits, smp, state.history, state.history_len,
-                              state.generated, mode=sampling_mode, topn=topn,
-                              passes=passes)
-    with span('step.update'):
-        new_tok, new_keys, logprob = sampled[:3]
-        new_tok = torch.where(run, new_tok, state.tokens)
-        inc = run.to(torch.int32)
-        generated = state.generated + inc
-        finished = state.finished | (check_stop(new_tok, smp, generated)
-                                     & run)
-        b, cap = state.history.shape
-        rows = torch.arange(b, device=new_tok.device)
-        cols = torch.clamp(state.history_len.long(), max=cap - 1)
-        write = run & (state.history_len < cap)   # a full row drops it
-        history = state.history.clone()
-        history[rows, cols] = torch.where(write, new_tok,
-                                          history[rows, cols])
-        sampling = dataclasses.replace(
-            smp, rng_key=torch.where(run[:, None], new_keys, smp.rng_key))
-        new_state = dataclasses.replace(
-            state, tokens=new_tok, context_len=state.context_len + inc,
-            history=history, history_len=state.history_len + inc,
-            generated=generated, finished=finished, sampling=sampling)
-    return (new_state, new_tok, finished, logprob,
-            sampled[3] if topn > 0 else None)
-
-
-def _f32_bits(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.float32).contiguous().view(torch.int32)
+        logits = step_logits(params, cache, state, cfg, forward_fn)
+    sample_into(logits, state, cfg, plane, sampling_mode=sampling_mode,
+                topn=topn, passes=passes, host_s=host_s)
 
 
 def decode_steps(params, cache: KVCache, state: DecodeState,
@@ -141,36 +204,24 @@ def decode_steps(params, cache: KVCache, state: DecodeState,
                  passes: Optional[Tuple[bool, bool]] = None,
                  forward_fn: Callable = forward,
                  host_s: Optional[Dict[str, float]] = None):
-    """``num_steps`` generation steps; the host reads ONE packed tensor.
+    """``num_steps`` generation steps in place (:func:`decode_step_into`);
+    the host reads ONE packed tensor.
 
-    Returns (state, packed int32 [5 + 2*topn, k, B], logprobs f32 [k, B]);
-    packed rows: tokens, finished, logprob f32 bits, rng word 0, rng word 1
-    (the key after each sub-step, so the host can save a slot's key as of
-    the sub-step it stopped), then with ``topn`` > 0 the top-N alternative
-    ids and their logprob f32 bits, one row per rank.  ``host_s``: as in
-    :func:`decode_step`, summed over the steps."""
-    toks, fins, lps, rngs, tops = [], [], [], [], []
-    for _ in range(num_steps):
-        state, tok, fin, lp, top = decode_step(
-            params, cache, state, cfg, sampling_mode=sampling_mode,
-            topn=topn, passes=passes, forward_fn=forward_fn, host_s=host_s)
-        toks.append(tok)
-        fins.append(fin.to(torch.int32))
-        lps.append(lp)
-        rngs.append(state.sampling.rng_key)
-        tops.append(top)
-    with span('step.update'):
-        logprobs = torch.stack(lps)                          # [k, B]
-        rng = torch.stack(rngs).to(torch.int32)              # [k, B, 2]
-        planes = [torch.stack(toks), torch.stack(fins), _f32_bits(logprobs),
-                  rng[..., 0], rng[..., 1]]
-        if topn > 0:
-            tid = torch.stack([t[0] for t in tops])          # [k, B, topn]
-            tlp = torch.stack([t[1] for t in tops])
-            planes += list(tid.permute(2, 0, 1))
-            planes += list(_f32_bits(tlp).permute(2, 0, 1))
-        packed = torch.stack(planes)
-    return state, packed, logprobs
+    Returns (state, packed int32 [5 + 2*topn, k, B]), ``state`` the object
+    it was given; packed rows: tokens, finished, logprob f32 bits, rng
+    word 0, rng word 1 (the key after each sub-step, so the host can save
+    a slot's key as of the sub-step it stopped), then with ``topn`` > 0
+    the top-N alternative ids and their logprob f32 bits, one row per
+    rank.  Arguments as in :func:`decode_step_into`; ``host_s`` sums over
+    the steps."""
+    packed = torch.empty((5 + 2 * topn, num_steps, state.tokens.shape[0]),
+                         dtype=torch.int32, device=state.tokens.device)
+    for t in range(num_steps):
+        decode_step_into(params, cache, state, cfg, packed[:, t],
+                         sampling_mode=sampling_mode, topn=topn,
+                         passes=passes, forward_fn=forward_fn,
+                         host_s=host_s)
+    return state, packed
 
 
 def spec_decode_round(params, cache: KVCache, state: DecodeState,
@@ -380,6 +431,19 @@ def set_page_row(state: DecodeState, slot: int, page_row) -> None:
 
 # -- the engine's dispatch seam ----------------------------------------------
 
+@dataclasses.dataclass
+class StepGraph:
+    """A plain decode step of one key as two captured CUDA graphs."""
+    forward: Any            # step_logits into ``logits``
+    sampler: Any            # sample_into from ``logits``, into ``plane``
+    logits: torch.Tensor    # f32 [B, V]
+    plane: torch.Tensor     # int32 [5 + 2*topn, B]
+
+
+_WARM = 'warm'      # a key's first dispatch ran eagerly: capture at its next
+_EAGER = 'eager'    # its capture failed: eager from then on
+
+
 class StepFns:
     """The step functions of one rank, as the engine calls them.
 
@@ -396,7 +460,29 @@ class StepFns:
     the call to the other ranks before it issues it.
 
     ``pool`` and ``state_shape``: this rank's :func:`init_cache` and
-    :func:`init_decode_state` arguments (local pages, KV heads, slots)."""
+    :func:`init_decode_state` arguments (local pages, KV heads, slots).
+
+    Plain decode steps run in place (:func:`decode_step_into`), so
+    :meth:`decode_steps` hands back the state object it was given.  Where
+    :meth:`graph_ok` holds they run as CUDA graphs, keyed by (sampling
+    mode, topn, passes, the decode-attention switches) at this rank's B:
+    a key's first dispatch runs eagerly (which also makes the kernels'
+    lazily made globals: ticket counters, occupancy, cuBLAS's workspace),
+    its next captures the step (executing nothing) and replays it, every
+    later one replays.  No capture while torch's profiler records on the
+    thread or CUDA's sync debug mode is on (that dispatch runs eagerly);
+    a key whose capture fails runs eagerly from then on.  The graphs go
+    with the device state (:meth:`alloc_device_state`, :meth:`drop_graphs`).
+    ``graph_steps`` / ``graph_captures`` count the steps replayed and the
+    keys captured.  ``LAUNCHES`` counts what the kernel wrappers launch,
+    so a replayed step adds nothing to it.
+
+    A graph keeps the addresses of everything its kernels touch: the
+    params, the pool and the state it was captured on (a new one drops
+    the graphs), its static logits and plane, and the kernels' ticket
+    counters (``ops/cuda``'s ``_counter`` / ``_ticket_counters``), which
+    are never freed: a counter outgrown by a later call is kept alive
+    beside its successor."""
 
     def __init__(self, cfg: ModelConfig, device, pool: Dict[str, Any],
                  state_shape: Dict[str, Any], ranks=None):
@@ -411,6 +497,11 @@ class StepFns:
             and ranks.tp > 1 else None
         self.forward_fn: Callable = functools.partial(forward,
                                                       group=self.group)
+        self._own_forward = self.forward_fn
+        self._graphs: Dict[tuple, Any] = {}  # StepGraph / _WARM / _EAGER
+        self._graphed = None     # the (params, cache, state) of the graphs
+        self._graph_pool = None
+        self.graph_steps = self.graph_captures = 0
         self._hash = hashlib.sha256()
         # the jobs of each GPipe prefill pass this rank ran (PPStepFns)
         self.prefill_jobs: List[int] = []
@@ -456,40 +547,138 @@ class StepFns:
                                for g in range(r.dp)], axis=-1)
 
     def alloc_device_state(self):
-        """A fresh zeroed pool and decode state for this rank."""
+        """A fresh zeroed pool and decode state for this rank (the graphs
+        of the old ones are dropped first)."""
+        self.drop_graphs()
         cache = init_cache(**self.pool, device=self.device)
         state = init_decode_state(**self.state_shape, device=self.device)
         return cache, state
 
+    def graph_ok(self, cache) -> bool:
+        """Whether a plain decode step here may run as CUDA graphs: on a
+        card, with one tensor-parallel rank (gloo cannot be captured), on
+        the step's own forward (not the pipeline's, nor one a caller put
+        in its place), the debugger off, and a pool whose decode route
+        reads nothing on the host (the dynamic int4 pool's does)."""
+        return (self.device.type == 'cuda' and self.group is None
+                and self.forward_fn is self._own_forward
+                and not debug.enabled() and not cache.dynamic_scales)
+
+    def drop_graphs(self) -> None:
+        """Let every captured graph go (with the device state it ran on)."""
+        self._graphs.clear()
+        self._graphed = self._graph_pool = None
+
+    def _step_graph(self, params, cache, state, key) -> Optional[StepGraph]:
+        """The graphs of ``key`` on this device state, or None where the
+        dispatch runs eagerly (see the class)."""
+        if key[2] is None or not self.graph_ok(cache):
+            return None
+        held = self._graphed
+        if held is None or any(a is not b for a, b in
+                               zip(held, (params, cache, state))):
+            self.drop_graphs()
+            self._graphed = (params, cache, state)
+        entry = self._graphs.get(key)
+        if entry is None:
+            self._graphs[key] = _WARM
+            return None
+        if entry is _WARM:
+            if recording() or (self.device.type == 'cuda'
+                               and torch.cuda.get_sync_debug_mode()):
+                return None
+            try:
+                entry = self._capture(params, cache, state, key)
+                self.graph_captures += 1
+            except Exception:
+                log.exception('decode step %s: capture failed; it runs '
+                              'eagerly', key)
+                entry = _EAGER
+            self._graphs[key] = entry
+        return entry if isinstance(entry, StepGraph) else None
+
+    def _record(self, fn: Callable[[], Any]):
+        """A CUDA graph of ``fn()``, captured on this thread into the
+        graphs' memory pool; nothing runs."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode='thread_local'):
+            fn()
+        return graph
+
+    def _capture(self, params, cache, state, key) -> StepGraph:
+        """Capture the plain decode step of ``key`` on this device state:
+        the forward into a static logits buffer, then the sampler from it
+        into a static plane.  The capture launches nothing, so the kernel
+        wrappers' LAUNCHES of it are taken back."""
+        mode, topn, passes = key[:3]
+        b = self.b_local
+        head = params.get('lm_head')
+        width = head.shape[-1] if head is not None \
+            else params['tok_embedding'].shape[0]
+        logits = torch.empty((b, width), dtype=torch.float32,
+                             device=self.device)
+        plane = torch.empty((5 + 2 * topn, b), dtype=torch.int32,
+                            device=self.device)
+        before = collections.Counter(LAUNCHES)
+        try:
+            fwd = self._record(lambda: logits.copy_(step_logits(
+                params, cache, state, self.cfg, self.forward_fn)))
+            smp = self._record(lambda: sample_into(
+                logits, state, self.cfg, plane, sampling_mode=mode,
+                topn=topn, passes=passes))
+        finally:
+            LAUNCHES.clear()
+            LAUNCHES.update(before)
+        return StepGraph(fwd, smp, logits, plane)
+
     def decode_steps(self, params, cache, state, num_steps: int,
                      sampling_mode: str = 'greedy', topn: int = 0,
                      passes=None):
-        """:func:`decode_steps`; returns (state, packed [5 + 2*topn, k, B])
-        as a host array."""
+        """:func:`decode_steps`, or the replay of its step's graphs;
+        returns (state, packed [5 + 2*topn, k, B]) as a host array."""
         t0 = time.perf_counter()
         parts = {'step.forward': 0.0, 'step.sampler': 0.0}
-        state, packed, _ = decode_steps(
-            params, cache, state, self.cfg, num_steps=num_steps,
-            sampling_mode=sampling_mode, topn=topn, passes=passes,
-            forward_fn=self.forward_fn, host_s=parts)
+        key = (sampling_mode, topn, None if passes is None
+               else tuple(passes), fused_attn_enabled(), fused_rope_enabled())
+        graph = self._step_graph(params, cache, state, key)
+        if graph is None:
+            _, packed = decode_steps(
+                params, cache, state, self.cfg, num_steps=num_steps,
+                sampling_mode=sampling_mode, topn=topn, passes=passes,
+                forward_fn=self.forward_fn, host_s=parts)
+        else:
+            packed = torch.empty((5 + 2 * topn, num_steps, self.b_local),
+                                 dtype=torch.int32, device=self.device)
+            for t in range(num_steps):
+                with span('step.forward', parts):
+                    graph.forward.replay()
+                with span('step.sampler', parts):
+                    graph.sampler.replay()
+                packed[:, t].copy_(graph.plane)
+            self.graph_steps += num_steps
         # added with the dispatch's issue, so that a reader of host_s
         # between two dispatches finds the parts within the whole
-        for key, s in parts.items():
-            self.host_s[key] += s
+        for name, s in parts.items():
+            self.host_s[name] += s
         return state, self._readback(packed, t0)
 
     def spec_decode_rounds(self, params, cache, state, num_rounds: int,
                            k_draft: int, ngram: int = 3, ngram_min: int = 0,
                            sampling: str = 'greedy', topn: int = 0,
                            passes=None):
-        """:func:`spec_decode_rounds`; returns (state, packed [R, rows, B])
-        as a host array."""
+        """:func:`spec_decode_rounds`, its state copied back into
+        ``state``; returns (state, packed [R, rows, B]) as a host
+        array."""
         t0 = time.perf_counter()
-        state, packed = spec_decode_rounds(
+        new, packed = spec_decode_rounds(
             params, cache, state, self.cfg, num_rounds=num_rounds,
             k_draft=k_draft, ngram=ngram, ngram_min=ngram_min,
             sampling=sampling, topn=topn, passes=passes,
             forward_fn=self.forward_fn)
+        copy_state_(state, new)
         return state, self._readback(packed, t0)
 
     def _group_rows(self, slots, ids, start_pos, lengths):
@@ -598,6 +787,8 @@ class StepFns:
                 'launches': dict(LAUNCHES), 'plain_calls': dict(PLAIN_CALLS),
                 'readback_sha256': self._hash.hexdigest(),
                 'host_s': dict(self.host_s),
+                'graph_steps': self.graph_steps,
+                'graph_captures': self.graph_captures,
                 'prefill_jobs': list(self.prefill_jobs),
                 'peak_bytes': torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == 'cuda' else 0}
@@ -620,7 +811,8 @@ class StepFns:
         return out
 
 
-__all__ = ['DecodeState', 'init_decode_state', 'decode_step', 'decode_steps',
+__all__ = ['DecodeState', 'init_decode_state', 'copy_state_', 'step_logits',
+           'sample_into', 'decode_step_into', 'decode_steps',
            'spec_decode_round', 'spec_decode_rounds', 'prefill_chunks',
            'prefill_logits', 'install_slot', 'clear_slot', 'set_finished',
-           'set_active', 'set_page_row', 'StepFns']
+           'set_active', 'set_page_row', 'StepGraph', 'StepFns']

@@ -177,6 +177,7 @@ def paged_decode_attention_rope_write_plain(
 SPLITS_WANTED = None
 _TILE = 64
 _counters: dict = {}
+_outgrown: list = []     # counters a CUDA graph may still hold
 _wants: dict = {}
 
 
@@ -208,9 +209,12 @@ def decode_splits(max_pages: int, page_size: int, want: int) -> int:
 
 def _counter(device, n: int) -> torch.Tensor:
     """The ticket counters of ``device`` (int32, at least ``n``), zeroed
-    once when allocated; every launch leaves them at zero."""
+    once when allocated; every launch leaves them at zero.  Never freed:
+    a captured CUDA graph keeps their address."""
     c = _counters.get(device)
     if c is None or c.numel() < n:
+        if c is not None:
+            _outgrown.append(c)
         c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _counters[device] = c
     return c

@@ -88,6 +88,7 @@ FORCE_MMA = False
 
 _capacity: dict = {}
 _counters: dict = {}
+_outgrown: list = []     # counters a CUDA graph may still hold
 
 
 def prefill_route(b: int, t: int, h: int, kh: int, page_size: int,
@@ -144,9 +145,12 @@ def split_capacity(kv_bits: int, rows: int) -> int:
 
 def _counter(device, n: int) -> torch.Tensor:
     """The ticket counters of ``device`` (int32, at least ``n``), zeroed
-    once when allocated; every launch leaves them at zero."""
+    once when allocated; every launch leaves them at zero.  Never freed:
+    a captured CUDA graph keeps their address."""
     c = _counters.get(device)
     if c is None or c.numel() < n:
+        if c is not None:
+            _outgrown.append(c)
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[device] = c
     return c

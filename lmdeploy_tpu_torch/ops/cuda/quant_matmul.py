@@ -55,6 +55,7 @@ SPLITK_MAX = 8        # splits of K at most
 TILE_N = 128          # output columns of a wgmma tile
 
 _counters: dict = {}      # device -> the ticket counters
+_outgrown: list = []      # counters a CUDA graph may still hold
 _sms: dict = {}           # device index -> streaming multiprocessors
 
 
@@ -107,9 +108,12 @@ def sm_count(device) -> int:
 
 def _ticket_counters(tiles: int, device) -> torch.Tensor:
     """Int32 ticket counters, zeroed once when allocated; every launch
-    leaves them at zero."""
+    leaves them at zero.  Never freed: a captured CUDA graph keeps their
+    address."""
     c = _counters.get(device)
     if c is None or c.numel() < tiles:
+        if c is not None:
+            _outgrown.append(c)
         c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
         _counters[device] = c
     return c

@@ -22,6 +22,12 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _const(x: float, device) -> torch.Tensor:
+    """A 0-d f32 constant made on ``device`` by a fill, not copied from
+    the host, so that a CUDA graph can capture the step that makes it."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def ntk_rope_base(context_len, max_position_embeddings: int,
                   rotary_dim: int, base: float) -> torch.Tensor:
     """Per-sequence dynamic-NTK rope base (qwen power-of-two form)."""
@@ -30,15 +36,15 @@ def ntk_rope_base(context_len, max_position_embeddings: int,
     alpha = torch.clamp(torch.exp2(torch.ceil(torch.log2(ratio) + 1.0)) - 1.0,
                         min=1.0)
     scaled = base * torch.pow(alpha, rotary_dim / (rotary_dim - 2.0))
-    return torch.where(ctx < max_position_embeddings, _f32(base, ctx.device),
-                       scaled)
+    return torch.where(ctx < max_position_embeddings,
+                       _const(base, ctx.device), scaled)
 
 
 def logn_scaling(context_len, max_position_embeddings: int) -> torch.Tensor:
     """log_2(L)/log_2(Lmax) for L > Lmax else 1."""
     ctx = _f32(context_len)
     scale = (torch.log2(torch.clamp(ctx, min=2.0))
-             / torch.log2(_f32(max_position_embeddings, ctx.device)))
+             / torch.log2(_const(max_position_embeddings, ctx.device)))
     return torch.where(ctx <= max_position_embeddings,
                        torch.ones_like(scale), scale)
 
@@ -54,7 +60,8 @@ def rope_cos_sin(positions: torch.Tensor, rotary_dim: int, base,
         half = rotary_dim // 2
         exponent = torch.arange(half, dtype=torch.float32,
                                 device=dev) * (2.0 / rotary_dim)
-        base = _f32(base, dev)
+        base = base.to(dev, torch.float32) if torch.is_tensor(base) \
+            else _const(base, dev)
         inv_freq = torch.pow(base[..., None], -exponent)
     angle = positions.float()[..., None] * inv_freq.to(dev)
     return torch.cos(angle), torch.sin(angle)
@@ -68,7 +75,7 @@ def hf_dynamic_ntk_base(context_len, original_max: int, rotary_dim: int,
     grow = factor * ctx / original_max - (factor - 1.0)
     scaled = base * torch.pow(torch.clamp(grow, min=1.0),
                               rotary_dim / (rotary_dim - 2.0))
-    return torch.where(ctx <= original_max, _f32(base, ctx.device), scaled)
+    return torch.where(ctx <= original_max, _const(base, ctx.device), scaled)
 
 
 def yarn_inv_freq(rotary_dim: int, base: float, factor: float,
@@ -153,7 +160,7 @@ def rope_tables(positions, context_len, *, rotary_dim: int, base: float,
     table_scale = None
     b = positions.shape[0]
     if rope_scaling_type == 'linear':
-        positions = positions.float() / _f32(factor, dev)
+        positions = positions.float() / _const(factor, dev)
         eff_base = torch.full((b, 1), base, dtype=torch.float32, device=dev)
     elif rope_scaling_type == 'dynamic':
         eff_base = hf_dynamic_ntk_base(context_len, orig_max, rotary_dim,

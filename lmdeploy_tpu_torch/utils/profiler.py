@@ -25,7 +25,8 @@ from typing import Dict, Optional
 
 import torch
 
-_profiling = torch._C._autograd._profiler_enabled
+# whether torch's profiler records on the calling thread
+recording = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
 
@@ -58,7 +59,7 @@ class _Span:
 
     def __enter__(self):
         self.rf = None
-        if _profiling():
+        if recording():
             self.rf = torch.profiler.record_function(self.name)
             self.rf.__enter__()
         self.t0 = time.perf_counter()
@@ -79,7 +80,7 @@ def span(name: str, into: Optional[Dict[str, float]] = None):
     ``defaultdict``) whether traced or not."""
     if into is not None:
         return _Span(name, into)
-    return torch.profiler.record_function(name) if _profiling() else _OFF
+    return torch.profiler.record_function(name) if recording() else _OFF
 
 
 def annotate(name: str):
@@ -112,4 +113,4 @@ class PhaseTimer:
         return '\n'.join(lines)
 
 
-__all__ = ['trace', 'annotate', 'span', 'PhaseTimer']
+__all__ = ['trace', 'annotate', 'span', 'recording', 'PhaseTimer']

@@ -919,3 +919,170 @@ def test_decode_engine_and_gqa8_shapes_bit_identical_on_card(cuda_device,
         assert err <= 1e-2, (ctxs, kh, err)
         if mode != 'attend':
             assert (got[~ok] == 0).all()
+
+
+# -- the plain decode step as CUDA graphs ------------------------------------
+
+def _qwen_graph_engine(device, **widths):
+    """A 4-layer Qwen-14B-shaped engine, not started (hidden 5120, 40
+    heads, w2's 107 groups padded by the engine, qkv bias, dynamic NTK and
+    logn past 2,048 positions), B = 8 on an int8 pool whose pages hold
+    seeded random codes; and an eager twin of its step functions with a
+    pool of the same bytes.  Slots 0-5 run at contexts 2,040-2,045, so the
+    dispatches cross 2,048."""
+    import functools
+
+    from lmdeploy_tpu_torch.config import EngineConfig, ModelConfig
+    from lmdeploy_tpu_torch.engine import step as S
+    from lmdeploy_tpu_torch.engine.engine import TorchEngine
+    from lmdeploy_tpu_torch.models.llama import forward, random_packed_params
+    nl = 4
+    cfg = ModelConfig(**dict(
+        dict(model_name='qwen-14b', head_num=40, kv_head_num=40,
+             size_per_head=128, inter_size=13696, num_layer=nl,
+             vocab_size=152064, rotary_embedding=128,
+             max_position_embeddings=2048, session_len=4096,
+             attn_bias=True, qkv_bias_only=True, use_dynamic_ntk=True,
+             use_logn_attn=True, weight_type='int4', group_size=128),
+        **widths))
+    params = random_packed_params(cfg, 11, device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    qkv = (cfg.head_num + 2 * cfg.kv_head_num) * cfg.size_per_head
+    params['layers']['bqkv'] = (torch.randn(
+        (nl, qkv), generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    ecfg = EngineConfig(max_batch_size=8, session_len=4096, page_size=64,
+                        num_pages=8 * 64, quant_policy=4,
+                        enable_prefix_caching=False)
+    scales = ([0.05] * nl, [0.0] * nl, [0.04] * nl, [1.0] * nl)
+    eng = TorchEngine(cfg, ecfg, params, device=device, start=False,
+                      kv_scales=scales)
+    fns = eng.fns
+    twin = S.StepFns(cfg, device, fns.pool, fns.state_shape)
+    twin.forward_fn = functools.partial(forward, group=None)   # eager
+    cache2, state2 = twin.alloc_device_state()
+    for a, b in ((eng.cache.k, cache2.k), (eng.cache.v, cache2.v)):
+        a.copy_(torch.randint(-128, 128, a.shape, generator=gen,
+                              device=device, dtype=torch.int8))
+        b.copy_(a)
+    for st in (eng.state, state2):
+        for slot in range(6):
+            _graph_slot(st, slot, 2040 + slot, cfg.vocab_size)
+    return eng, twin, cache2, state2
+
+
+def _graph_slot(state, slot, ctx, vocab):
+    """Install a chat-like sampled request (top-p 0.8, repetition penalty
+    1.1, 64 new tokens at most) at context ``ctx`` on its own pages, its
+    history drawn from a ``vocab``-token vocabulary."""
+    from lmdeploy_tpu_torch.engine import step as S
+    from lmdeploy_tpu_torch.ops.sampling import make_rng_keys
+    rng = np.random.default_rng(slot)
+    hist = np.zeros(4096, np.int32)
+    hist[:ctx + 1] = rng.integers(3, vocab, ctx + 1)
+    row = np.full(64, -1, np.int32)
+    row[:34] = np.arange(34) + 34 * slot
+    S.install_slot(state, slot, int(hist[ctx]), ctx, hist, ctx + 1, row,
+                   dict(top_k=1024, top_p=0.8, temperature=1.0,
+                        repetition_penalty=1.1, ignore_eos=True,
+                        max_new_tokens=64,
+                        rng_key=make_rng_keys([5000 + slot])[0]))
+
+
+@pytest.mark.cuda
+def test_graph_replays_match_the_eager_step_on_card(cuda_device):
+    """The plain decode step replayed from CUDA graphs gives the eager
+    step's readbacks and states bit for bit over three dispatches after
+    the key's eager one, with an admission and a retirement between them;
+    LAUNCHES, which counts the kernel wrappers' launches, grows in the
+    key's eager dispatch as the eager twin's does and not at all in a
+    dispatch of replays; a reallocated device state drops the graphs."""
+    import collections
+
+    from lmdeploy_tpu_torch.engine import step as S
+    from lmdeploy_tpu_torch.ops.cuda.counts import LAUNCHES
+    eng, twin, cache2, state2 = _qwen_graph_engine(cuda_device)
+    fns = eng.fns
+    kw = dict(sampling_mode='candidates', topn=0, passes=(False, True))
+    try:
+        assert fns.graph_ok(eng.cache) and not twin.graph_ok(cache2)
+        for d, k in enumerate((1, 8, 8, 8)):
+            if d == 2:
+                for st in (eng.state, state2):
+                    _graph_slot(st, 6, 1000, eng.cfg.vocab_size)
+            if d == 3:
+                for st in (eng.state, state2):
+                    S.clear_slot(st, 0)
+            n0 = collections.Counter(LAUNCHES)
+            st, got = fns.decode_steps(eng.params, eng.cache, eng.state, k,
+                                       **kw)
+            n1 = collections.Counter(LAUNCHES)
+            _, want = twin.decode_steps(eng.params, cache2, state2, k, **kw)
+            n2 = collections.Counter(LAUNCHES)
+            assert st is eng.state
+            np.testing.assert_array_equal(got, want)
+            for a, b in zip(S._tensors(eng.state), S._tensors(state2)):
+                assert torch.equal(a, b)
+            eager = n2 - n1
+            assert eager['w4a16_gemm'] == 5 * 4 * k
+            assert n1 - n0 == (eager if d == 0 else collections.Counter())
+        assert torch.equal(eng.cache.k, cache2.k)
+        assert (fns.graph_captures, fns.graph_steps) == (1, 24)
+        eng.cache, eng.state = fns.alloc_device_state()
+        assert not fns._graphs and fns._graphed is None
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_no_graph_capture_while_profiled_and_replays_traced_on_card(
+        cuda_device, tmp_path):
+    """While torch's profiler records on the thread the dispatch that
+    would capture runs eagerly; a replay inside a profile shows its
+    kernels, tied by their correlation to a cudaGraphLaunch, as the
+    benchmark's trace reader ties a kernel to its launch.  They are the
+    eager twin's kernels of the same dispatch, copies aside (the graphs'
+    static logits and plane move copies in and out of the graphs)."""
+    import collections
+    import json
+    eng, twin, cache2, state2 = _qwen_graph_engine(cuda_device)
+    fns = eng.fns
+    kw = dict(sampling_mode='candidates', topn=0, passes=(False, True))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        fns.decode_steps(eng.params, eng.cache, eng.state, 1, **kw)
+        with torch.profiler.profile(activities=acts):
+            fns.decode_steps(eng.params, eng.cache, eng.state, 2, **kw)
+        assert (fns.graph_captures, fns.graph_steps) == (0, 0)
+        fns.decode_steps(eng.params, eng.cache, eng.state, 1, **kw)
+        assert (fns.graph_captures, fns.graph_steps) == (1, 1)
+        with torch.profiler.profile(activities=acts) as prof:
+            fns.decode_steps(eng.params, eng.cache, eng.state, 2, **kw)
+        assert (fns.graph_captures, fns.graph_steps) == (1, 3)
+        prof.export_chrome_trace(str(tmp_path / 'trace.json'))
+        evs = json.loads((tmp_path / 'trace.json').read_text())[
+            'traceEvents']
+        launches = {e['args']['correlation'] for e in evs
+                    if e.get('cat') == 'cuda_runtime'
+                    and 'GraphLaunch' in e.get('name', '')}
+        assert len(launches) == 4          # two graphs a step, two steps
+        gemms = [e for e in evs if e.get('cat') == 'kernel'
+                 and 'w4a16_wgmma' in e.get('name', '')]
+        assert len(gemms) == 2 * 5 * 4
+        assert all(e['args']['correlation'] in launches for e in gemms)
+        def computing(name):
+            return 'copy' not in name.lower()
+        replayed = collections.Counter(
+            e['name'] for e in evs if e.get('cat') == 'kernel'
+            and e['args'].get('correlation') in launches
+            and computing(e['name']))
+        with torch.profiler.profile(activities=acts) as prof:
+            twin.decode_steps(eng.params, cache2, state2, 2, **kw)
+        prof.export_chrome_trace(str(tmp_path / 'eager.json'))
+        eager = collections.Counter(
+            e['name'] for e in json.loads((tmp_path / 'eager.json')
+                                          .read_text())['traceEvents']
+            if e.get('cat') == 'kernel' and computing(e['name']))
+        assert replayed == eager and sum(eager.values()) > 2 * 5 * 4
+    finally:
+        eng.shutdown()

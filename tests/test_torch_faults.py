@@ -137,7 +137,7 @@ def test_engine_survives_dispatch_and_recovery_failure(monkeypatch):
         out = inst.infer(1, [3, 9], gen_config=greedy(2), sequence_end=True)
         assert out.status == ResponseType.FINISH
 
-        real_steps = S.decode_steps
+        real_steps = S.decode_step_into
         real_alloc = eng._alloc_device_state
         fails = {'steps': 1, 'alloc': 1}
 
@@ -153,7 +153,7 @@ def test_engine_survives_dispatch_and_recovery_failure(monkeypatch):
                 raise RuntimeError('still out of memory (simulated)')
             return real_alloc(*a, **k)
 
-        monkeypatch.setattr(S, 'decode_steps', bad_steps)
+        monkeypatch.setattr(S, 'decode_step_into', bad_steps)
         eng._alloc_device_state = bad_alloc
         out = inst.infer(2, [5, 7], gen_config=greedy(4), sequence_end=True)
         assert out.status == ResponseType.INTERNAL_ERROR

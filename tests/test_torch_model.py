@@ -2,6 +2,7 @@
 on the CPU, with the JAX attention and W4A16 Pallas kernels interpreted
 (the port runs the kernels' plain versions on CPU tensors)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from lmdeploy_tpu_torch.kvcache.paged import init_cache
 from lmdeploy_tpu_torch.models import llama as tllama
 from lmdeploy_tpu_torch.ops import linear as tlinear
 from lmdeploy_tpu_torch.ops.linear import PackedInt4Weight
+from lmdeploy_tpu_torch.ops.sampling import make_rng_keys
 
 torch.set_num_threads(1)
 
@@ -228,9 +230,10 @@ def test_all_logits_and_vocab_mask():
 
 
 def test_decode_steps_match_jax(interpret_pallas):
-    """engine/step.py: 3 greedy decode sub-steps over a prepared state ==
-    the JAX decode_steps (tokens, finished flags, logprob plane, rng
-    planes, history) with the same packed [5, k, B] readback layout."""
+    """engine/step.py: 3 greedy decode sub-steps over a prepared state,
+    through StepFns.decode_steps (the engine's in-place step) == the JAX
+    decode_steps (tokens, finished flags, logprob plane, rng planes,
+    history) with the same packed [5, k, B] readback layout."""
     jcfg, tcfg = JModelConfig(**CFG), ModelConfig(**CFG)
     jp = jax_params(numpy_params(CFG, 3), 'int4', jcfg)
     tp = params_from_numpy(to_numpy(jp), device='cpu')
@@ -261,17 +264,21 @@ def test_decode_steps_match_jax(interpret_pallas):
                                             use_pallas_attn=True,
                                             sampling_mode='greedy')
 
-    ts = tstep.init_decode_state(b, maxp, hist, device='cpu')
+    fns = tstep.StepFns(tcfg, 'cpu', dict(
+        num_layers=2, num_pages=10, page_size=16, kv_heads=1, head_dim=128,
+        dtype=torch.float32), dict(batch=b, max_pages=maxp, hist_len=hist))
+    tc, ts = fns.alloc_device_state()
     for k, v in fields.items():
         getattr(ts, k).copy_(torch.from_numpy(v))
     ts.sampling.top_k.fill_(1)
     ts.sampling.max_new_tokens.copy_(torch.from_numpy(max_new))
-    tc = init_cache(2, 10, 16, 1, 128, torch.float32, 'cpu')
     tc.k.copy_(torch.from_numpy(kv))
     tc.v.copy_(torch.from_numpy(kv * 0.5))
-    ts, tpacked, _ = tstep.decode_steps(tp, tc, ts, tcfg, num_steps=3)
+    state = ts
+    ts, tpk = fns.decode_steps(tp, tc, ts, 3)
+    assert ts is state
 
-    jpk, tpk = np.asarray(jpacked), tpacked.numpy()
+    jpk = np.asarray(jpacked)
     assert tpk.shape == jpk.shape == (5, 3, b)
     # tokens, fin, logprob bits and the keys, split on every greedy step
     np.testing.assert_array_equal(tpk, jpk)
@@ -281,6 +288,128 @@ def test_decode_steps_match_jax(interpret_pallas):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)))
 
+
+
+DISPATCHES = (1, 8, 1, 8)
+_JAX_STEPS = {}
+
+
+def _jax_steps(jcfg, k, mode, topn):
+    """The JAX decode_steps of ``k`` steps, jitted once per shape.  The
+    first clears JAX's caches, whose traces of the model's functions
+    from earlier tests hold the W4A16 kernel that unrounded_w4a16
+    replaces."""
+    key = (k, mode, topn)
+    if not _JAX_STEPS:
+        jax.clear_caches()
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = jax.jit(functools.partial(
+            jstep.decode_steps, cfg=jcfg, num_steps=k, use_pallas_attn=True,
+            sampling_mode=mode, topn=topn))
+    return _JAX_STEPS[key]
+
+
+def _jax_state(ts):
+    """A JAX DecodeState holding the values of the port's ``ts``."""
+    def arr(t, name):
+        a = t.numpy()
+        return jnp.asarray(a.view(np.uint32) if name == 'rng_key' else a)
+    js = jstep.init_decode_state(*ts.page_table.shape[:2],
+                                 ts.history.shape[1])
+    smp = dataclasses.replace(js.sampling, **{
+        f.name: arr(getattr(ts.sampling, f.name), f.name)
+        for f in dataclasses.fields(ts.sampling)})
+    return dataclasses.replace(js, sampling=smp, **{
+        f.name: arr(getattr(ts, f.name), f.name)
+        for f in dataclasses.fields(ts) if f.name != 'sampling'})
+
+
+def _install(ts, slot, mode, pen, ctx, pages, max_new=40):
+    """Admit a request of ``ctx`` random tokens into ``slot``."""
+    rng = np.random.default_rng(slot)
+    hist = np.zeros(ts.history.shape[1], np.int32)
+    hist[:ctx + 1] = rng.integers(3, 256, ctx + 1)
+    row = np.full(ts.page_table.shape[1], -1, np.int32)
+    row[:len(pages)] = pages
+    stops = np.full(32, -1, np.int32)
+    stops[0] = 7
+    tstep.install_slot(ts, slot, int(hist[ctx]), ctx, hist, ctx + 1, row, dict(
+        top_k={'greedy': 1, 'candidates': 40, 'full': 0}[mode], top_p=0.9,
+        min_p=0.0, temperature=0.8, repetition_penalty=1.3 if pen else 1.0,
+        presence_penalty=0.2 if pen else 0.0, frequency_penalty=0.0,
+        ignore_eos=True, min_new_tokens=0, max_new_tokens=max_new,
+        stop_words=stops, rng_key=make_rng_keys([1000 + slot])[0]))
+
+
+@pytest.mark.parametrize('pen', [False, True])
+@pytest.mark.parametrize('topn', [0, 2])
+@pytest.mark.parametrize('mode', ['greedy', 'candidates', 'full'])
+def test_in_place_dispatches_match_jax(interpret_pallas, unrounded_w4a16,
+                                       mode, topn, pen):
+    """StepFns.decode_steps, the engine's in-place step, over dispatches
+    of 1, 8, 1 and 8 steps on one state, with an admission, a page-row
+    growth, a finish and a clear between them: each dispatch's readback,
+    and the state and pool after it, equal the JAX decode_steps' from the
+    same state and pool (bf16-exact activations into both W4A16 kernels):
+    tokens, flags, keys, top ids and the state bit for bit, logprobs
+    within 1e-4 and the pool's new rows within 0.05, since the K/V and
+    logits of the two packages differ in their last bits.  Slot 1 stops
+    on its length in the second dispatch.  The JAX step always applies its ban and penalty
+    passes; the port's, skipped where the host finds them the identity,
+    give the same bits (test_torch_sampling)."""
+    jcfg, tcfg = JModelConfig(**CFG), ModelConfig(**CFG)
+    jp = jax_params(numpy_params(CFG, 3), 'int4', jcfg)
+    tp = params_from_numpy(to_numpy(jp), device='cpu')
+    b, pages = 4, 16
+    fns = tstep.StepFns(tcfg, 'cpu', dict(
+        num_layers=2, num_pages=pages, page_size=16, kv_heads=1,
+        head_dim=128, dtype=torch.float32),
+        dict(batch=b, max_pages=4, hist_len=64))
+    tc, ts = fns.alloc_device_state()
+    rng = np.random.default_rng(4)
+    tc.k.copy_(torch.from_numpy(rng.normal(size=tc.k.shape)
+                                .astype(np.float32)))
+    tc.v.copy_(tc.k * 0.5)
+    _install(ts, 0, mode, pen, 5, [1])
+    _install(ts, 1, mode, pen, 30, [3, 4, 5], max_new=4)
+    _install(ts, 3, mode, pen, 12, [6, 7])
+    state = ts
+    for d, k in enumerate(DISPATCHES):
+        if d == 1:
+            _install(ts, 2, mode, pen, 20, [8, 9, 10])
+        elif d == 2:
+            tstep.set_page_row(ts, 0, np.array([1, 2, -1, -1], np.int32))
+        elif d == 3:
+            tstep.set_finished(ts, 1)
+            tstep.clear_slot(ts, 3)
+        jc = dataclasses.replace(jinit_cache(2, pages, 16, 1, 128,
+                                             jnp.float32),
+                                 k=jnp.asarray(tc.k.numpy()),
+                                 v=jnp.asarray(tc.v.numpy()))
+        jc, js, jpacked, _ = _jax_steps(jcfg, k, mode, topn)(
+            jp, jc, _jax_state(ts))
+        ts, got = fns.decode_steps(tp, tc, ts, k, sampling_mode=mode,
+                                   topn=topn, passes=(False, pen))
+        assert ts is state and got.shape == (5 + 2 * topn, k, b)
+        jpacked = np.asarray(jpacked)
+        lp = [2] + list(range(5 + topn, 5 + 2 * topn))   # logprob bits
+        ints = [r for r in range(5 + 2 * topn) if r not in lp]
+        np.testing.assert_array_equal(got[ints], jpacked[ints])
+        np.testing.assert_allclose(got[lp].view(np.float32),
+                                   jpacked[lp].view(np.float32), rtol=0,
+                                   atol=1e-4)
+        want = _jax_state(ts)
+        for x, y in zip(jax.tree.leaves(want), jax.tree.leaves(js)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+        # the new K/V rows: the two W4A16 kernels round activations that
+        # differ in their last f32 bits to bf16 (see unrounded_w4a16)
+        np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), rtol=0,
+                                   atol=0.05)
+        np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), rtol=0,
+                                   atol=0.05)
+    assert bool(ts.finished[1]) and int(ts.generated[1]) == 4
+    # slot 0 runs every step but where it samples its stop word
+    assert int(ts.generated[0]) == sum(DISPATCHES) or int(ts.tokens[0]) == 7
 
 def test_prefill_chunks_and_slot_surgery():
     """prefill_chunks routes each row through its slot's page row; the
