@@ -3,15 +3,17 @@
 Once the window has closed and the engine is gone, a sample drawn from
 the seed of the requests that finished (the longest, prompt and served
 tokens, always in it, and the longest greedy one) is run through the
-plain reference (``reference.py``) over each prompt with its served
-tokens.  At each served token's position the reference's logits, with
-the request's repetition penalty over every token before it (prompt
-included), give the request's choice set: its top-k, then its top-p
-nucleus (the tokens with less than ``top_p`` of the probability ranked
-above them), at its temperature; for a greedy request the best token
-alone.  A token's gap is by how much its logit lies below the lowest
-logit of that set, 0 inside it: for a greedy token, the gap below the
-reference's best.
+plain reference of the configuration's model family (the ``forward`` of
+its ``families/<family>_reference.py``, ``family.py``; the Llama
+family's is ``reference.py``'s), on the family's weights drawn again
+from the seed, over each prompt with its served tokens.  At each served
+token's position the reference's logits, with the request's repetition
+penalty over every token before it (prompt included), give the request's
+choice set: its top-k, then its top-p nucleus (the tokens with less than
+``top_p`` of the probability ranked above them), at its temperature;
+for a greedy request the best token alone.  A token's gap is by how much
+its logit lies below the lowest logit of that set, 0 inside it: for a
+greedy token, the gap below the reference's best.
 
 With the mix's ``check.every_position``, the program's own prompt logits
 at every position of the sampled sequences (``EngineInstance.decode``,
@@ -38,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+import family
 import reference
 from serve import FINISH
 from traffic import sampling_of
@@ -118,11 +121,15 @@ def _sequences(chosen, device):
 
 
 def compare(raw, model: dict, mix: dict, chosen, kv: Optional[dict] = None,
-            program_argmax: Optional[Sequence] = None) -> Dict[str, float]:
+            program_argmax: Optional[Sequence] = None,
+            forward=None) -> Dict[str, float]:
     """The gaps of the served tokens of ``chosen`` (records) and, with
     ``program_argmax`` (per record, the program's first token at each
     position of its sequence), of the program's choice at every
-    position.  ``kv``: the stated pool's qparams for the reference."""
+    position.  ``kv``: the stated pool's qparams for the reference;
+    ``forward``: the family's reference (the Llama family's by
+    default)."""
+    forward = forward or family.load(family.DEFAULT).forward
     dev = raw['embed'].device
     seqs = _sequences(chosen, dev)
     every = program_argmax is not None
@@ -130,7 +137,7 @@ def compare(raw, model: dict, mix: dict, chosen, kv: Optional[dict] = None,
             torch.arange(len(r.req.prompt) - 1, len(s), device=dev)
             for s, r in zip(seqs, chosen)]
     stats: dict = {}
-    logits = reference.forward(raw, model, seqs, want, kv=kv, stats=stats)
+    logits = forward(raw, model, seqs, want, kv=kv, stats=stats)
     served_gaps, all_gaps, sizes, floors_n = [], [], [], 0
     for i, (lg, r) in enumerate(zip(logits, chosen)):
         n = len(r.req.prompt)

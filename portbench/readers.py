@@ -67,14 +67,14 @@ def idle_share(run) -> Optional[float]:
 
 
 def mfu(run) -> Optional[float]:
-    """The published model's operations for the window's tokens (decode
-    steps and prefill rows issued in it) over the window at the bf16
-    peak, in %."""
+    """The published model's operations (its family's ``model_flops``)
+    for the window's tokens (decode steps and prefill rows issued in it)
+    over the window at the bf16 peak, in %."""
+    model_flops = run.family.model_flops
     flops = 0.0
     for d in in_window(run, 'decode'):
         ctx = counting.decode_contexts(d.live, d.steps)
-        flops += counting.model_flops(run.model, ctx, len(ctx))
+        flops += model_flops(run.model, ctx, len(ctx))
     for d in in_window(run, 'prefill'):
-        flops += counting.model_flops(
-            run.model, counting.prefill_contexts(d.rows), 0)
+        flops += model_flops(run.model, counting.prefill_contexts(d.rows), 0)
     return share(flops / counting.PEAK_FLOPS, run.window_s)

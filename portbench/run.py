@@ -4,19 +4,23 @@
         --trace <0|1> [--control]
 
 Loads the cell of ``BENCHMARK.json`` (its configuration file, its traffic
-mix), draws the weights on the card from the seed, starts the engine of
-``lmdeploy_tpu_torch``, warms it up and brings the sessions in (set-up),
-measures ``--seconds`` seconds of the mix's load, closes, checks what was
-served against the plain reference, and prints one JSON line: the cell's
+mix) and the configuration's model family (``family.py``: the module
+``portbench/families/<family>.py``), draws the family's weights on the card
+from the seed, starts the engine of ``lmdeploy_tpu_torch`` on them, warms
+it up and brings the sessions in (set-up), measures ``--seconds`` seconds
+of the mix's load, closes, checks what was served against the family's
+plain reference, and prints one JSON line: the cell's
 end-to-end metrics (``--trace 0``) or its per-layer metrics (``--trace 1``,
 which traces the window's last seconds), each read by the file of its name
 under ``portbench/metrics/``.  ``--control`` runs the check's control
 instead (the mix's ``check.control``): the program on its own path one
-precision lower (``engine`` knobs and the pool's ``kv_bits``), judged as
-any run is.  The comparison is the run's ``correct``.
+precision lower (``engine`` knobs and, where given, the pool's
+``kv_bits``), judged as any run is.  The comparison is the run's
+``correct``.
 
 Nothing here imports JAX or the JAX package; a run that finds either
-loaded when the window has closed exits with an error and no result.
+loaded once the window has closed, the family's reference run, exits
+with an error and no result.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ for _key, _val in (('TORCH_EXTENSIONS_DIR', 'torch_extensions'),
     os.environ[_key] = str(REPO / '.portbench_cache' / _val)
 os.environ['USE_FLAX'] = '0'
 os.environ['USE_TF'] = '0'
+
+import family  # noqa: E402
 
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'lmdeploy_tpu')
 
@@ -106,8 +112,9 @@ def power_limit_w():
 class Run:
     """What the window left, as the metric readers see it."""
 
-    def __init__(self, bench, spec, seconds, setup_s, summary):
+    def __init__(self, bench, spec, fam, seconds, setup_s, summary):
         self.model = spec['config']['model']
+        self.family = fam
         self.mix = spec['mix']
         self.seconds = seconds
         self.setup_s = setup_s
@@ -155,6 +162,13 @@ def main(argv=None) -> int:
         bench_json = json.load(f)
     spec = load_cell(bench_json, args.workload)
     chips = spec['cell']['chips']
+    try:
+        fam = family.load(spec['config'].get('family', family.DEFAULT),
+                          REPO / bench_json['families_dir']
+                          if 'families_dir' in bench_json else None)
+    except LookupError as e:
+        print(f'portbench: {e}', file=sys.stderr)
+        return 6
 
     import torch
     if args.device == 'cuda' and (not torch.cuda.is_available()
@@ -172,19 +186,18 @@ def main(argv=None) -> int:
     model, mix = spec['config']['model'], spec['mix']
     logit_std = spec['config'].get('logit_std', weights.LOGIT_STD)
     dev = torch.device(args.device)
-    # K and V as the configuration states them (the reference's), and as
-    # the engine's pool stores them
+    # the pool's qparams as the configuration states them (the
+    # reference's), and as the engine's pool stores them
     stated_kv = pool_kv = None
     if mix['engine'].get('quant_policy', 0) & 0x4:
-        stated_kv = pool_kv = weights.kv_qparams(model['num_layer'],
-                                                 args.seed, 8)
+        pool_kv, stated_kv = fam.kv_qparams(model, args.seed, 8)
     if args.control:
         ctl = mix['check']['control']
         mix = dict(mix, engine=dict(mix['engine'], **ctl['engine']))
-        pool_kv = weights.kv_qparams(model['num_layer'], args.seed,
-                                     ctl['kv_bits'])
+        if 'kv_bits' in ctl:
+            pool_kv = fam.kv_qparams(model, args.seed, ctl['kv_bits'])[0]
 
-    raw = weights.make(model, args.seed, dev, logit_std)
+    raw = fam.make(model, args.seed, dev, logit_std)
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
     trace = None
@@ -194,8 +207,9 @@ def main(argv=None) -> int:
             mix['trace_seconds'],
             os.path.join(tmp, f'portbench_trace_{os.getpid()}.json'))
         tracing.TraceWindow.warm_up(dev.type == 'cuda')
-    bench = Bench(model, mix, raw, args.seed, dev, pool_kv, trace)
-    del raw
+    params = fam.engine_params(raw)
+    bench = Bench(model, mix, params, args.seed, dev, pool_kv, trace)
+    del raw, params
     need = worst_case_pages(mix, bench.engine.ecfg.page_size,
                             bench.engine.ecfg.step_length)
     if bench.num_pages < need:
@@ -228,12 +242,13 @@ def main(argv=None) -> int:
     if trace is not None:
         t_exp = time.perf_counter()
         data = trace.export()
-        summary = tracing.reduce(data) if data else None
+        summary = tracing.reduce(data, fam.KERNEL_CLASSES) if data \
+            else None
         print(f'portbench: trace of {len((data or {}).get("traceEvents", []))}'
               f' events read in {time.perf_counter() - t_exp:.2f} s',
               file=sys.stderr)
         del data
-    run = Run(bench, spec, args.seconds, setup_s, summary)
+    run = Run(bench, spec, fam, args.seconds, setup_s, summary)
     bench.free()
     del bench
     gc.collect()
@@ -256,19 +271,13 @@ def main(argv=None) -> int:
         if value is not None:
             metrics[m['name']] = {'value': value, 'unit': m['unit']}
 
-    found = forbidden_modules()
-    if found:
-        print(f'portbench: loaded after the window: {found}',
-              file=sys.stderr)
-        return 5
-
     # the check, once the program's state is gone
-    raw = weights.make(model, args.seed, dev, logit_std)
+    raw = fam.make(model, args.seed, dev, logit_std)
     t_ref = time.perf_counter()
     numbers = check.compare(
         raw, model, mix, chosen,
         stated_kv if rule.get('reference_kv') == 'pool' else None,
-        program_argmax) if chosen else {'requests': 0.0}
+        program_argmax, forward=fam.forward) if chosen else {'requests': 0.0}
     numbers['reference_s'] = time.perf_counter() - t_ref
     del raw
     lim = check.limits(args.workload, REPO / bench_json['limits_dir']
@@ -294,6 +303,11 @@ def main(argv=None) -> int:
         device['window_s'] = summary['window_s']
         result['breakdown'] = tracing.breakdown(summary)
     result['check'] = judged
+    found = forbidden_modules()
+    if found:
+        print(f'portbench: loaded after the window: {found}',
+              file=sys.stderr)
+        return 5
     print(json.dumps(result))
     return 0
 

@@ -1,5 +1,6 @@
 """Drive the program under a traffic mix: the engine with the harness's
-weights, the warm-up, the ramp, the measured window and its close.
+weights (the family's parameter tree), the warm-up, the ramp, the measured
+window and its close.
 
 The engine is ``lmdeploy_tpu_torch.engine.engine.TorchEngine``, driven
 through ``create_instance().stream_infer`` from one client thread per
@@ -63,8 +64,8 @@ class Dispatch:
 
 
 def engine_params(raw: Dict) -> Dict[str, Any]:
-    """The harness's raw weights in the program's parameter layout (the
-    same tensors, viewed)."""
+    """The Llama family's raw weights in the program's parameter layout
+    (the same tensors, viewed)."""
     layers = {'attn_norm': raw['attn_norm'], 'ffn_norm': raw['ffn_norm']}
     for name in PROJ:
         w = raw[name]
@@ -84,19 +85,18 @@ def gen_config(req: Request, mix: dict) -> GenerationConfig:
 
 
 class Bench:
-    """One run of one cell: builds the engine, drives it, and keeps what
-    the window produced."""
+    """One run of one cell: builds the engine on ``params`` (the family's
+    ``engine_params``) and ``kv_scales`` (the engine's part of the
+    family's ``kv_qparams``, unopened), drives it, and keeps what the
+    window produced."""
 
-    def __init__(self, model: dict, mix: dict, raw: Dict, seed: int,
-                 device, kv: Optional[dict], trace=None):
+    def __init__(self, model: dict, mix: dict, params: Dict, seed: int,
+                 device, kv_scales=None, trace=None):
         self.model, self.mix, self.seed = model, mix, seed
         self.traffic = Traffic(mix, seed, model['vocab_size'])
         ecfg = EngineConfig(**mix['engine'])
-        kv_scales = None if kv is None else (
-            kv['k_scale'], kv['k_zp'], kv['v_scale'], kv['v_zp'])
-        self.engine = TorchEngine(ModelConfig(**model), ecfg,
-                                  engine_params(raw), device=device,
-                                  kv_scales=kv_scales)
+        self.engine = TorchEngine(ModelConfig(**model), ecfg, params,
+                                  device=device, kv_scales=kv_scales)
         self.inst = self.engine.create_instance()
         self.num_pages = self.engine.num_pages
         self.batch = ecfg.max_batch_size

@@ -14,8 +14,10 @@ that the cost of stopping it falls outside the window.
 - the traced window (first to last event) and the union of the device's
   kernel, copy and set intervals in it (``busy_s``);
 - each kernel's time and the host range its launch sat in (``decode``,
-  ``prefill`` or neither), and its class: kernel 1 (``w4a16_wgmma``),
-  kernel 2 (``paged_decode``), kernel 3 (``paged_prefill``) or other;
+  ``prefill`` or neither), and its class: one of the model family's own
+  (its ``KERNEL_CLASSES``, matched first), else kernel 1
+  (``w4a16_wgmma``), kernel 2 (``paged_decode``), kernel 3
+  (``paged_prefill``) or other;
 - the idle gaps between busy intervals, each labelled with what the
   engine thread was doing at its midpoint: ``readback wait``, ``decode
   issue``, ``prefill issue`` or ``scheduler`` (none of those ranges).
@@ -29,7 +31,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,8 +41,11 @@ DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 RANGES = ('portbench.decode', 'portbench.prefill', 'portbench.readback')
 
 
-def kernel_class(name: str) -> str:
-    for cls, key in KERNEL_CLASSES:
+def kernel_class(name: str, classes: Sequence = ()) -> str:
+    """The class of the kernel ``name``: the first of ``classes`` (a
+    family's ``(class, name substring)`` pairs), then of
+    ``KERNEL_CLASSES``, whose substring it holds; else ``other``."""
+    for cls, key in (*classes, *KERNEL_CLASSES):
         if key in name:
             return cls
     return 'other'
@@ -144,10 +149,10 @@ class _Ranges:
         return i >= 0 and t <= self.spans[i][1]
 
 
-def reduce(data: dict) -> Optional[dict]:
-    """The trace's window, busy time, kernels by class and host range, and
-    idle gaps (times in seconds).  None when the trace holds no device
-    activity."""
+def reduce(data: dict, classes: Sequence = ()) -> Optional[dict]:
+    """The trace's window, busy time, kernels by class (``classes``: the
+    family's own, matched first) and host range, and idle gaps (times in
+    seconds).  None when the trace holds no device activity."""
     evs = [e for e in data.get('traceEvents', [])
            if e.get('ph') == 'X' and 'dur' in e and 'ts' in e]
     dev = [e for e in evs if e.get('cat') in DEVICE_CATS]
@@ -190,7 +195,7 @@ def reduce(data: dict) -> Optional[dict]:
             continue
         t = launch.get(e.get('args', {}).get('correlation'))
         kind = host_kind(t) if t is not None else 'none'
-        cls = kernel_class(e.get('name', ''))
+        cls = kernel_class(e.get('name', ''), classes)
         time_by[(cls, kind)] += e['dur'] * 1e-6
         count_by[(cls, kind)] += 1
         by_name[short_name(e.get('name', ''))] += e['dur'] * 1e-6
